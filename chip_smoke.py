@@ -18,18 +18,30 @@ Phases, each fatal on failure (exit code != 0, no result line):
              correlation, the static pick's regret);
 3. check   — gemma-smoke in float32: prefill logits and 8 greedy tokens
              of the tuned CUDA path against the plain path on the CPU;
-4. serve   — the main path: gemma-7b at full width and depth (random
-             weights from a seed) served through
+4. serve   — the serving path: gemma-7b at full width and depth
+             (random weights from a seed) served through
              ``repro_torch.launch.serve --tuned-ops --pretune
              --assert-frozen`` for two requests (4 x 64 prompt tokens, 32
              generated; 1 x 64, 8 generated), with every launch counter
              set to 0 before and read after;
 5. profile — `torch.profiler` over a few decode steps of the first
-             request's shape: device time by kernel, idle share.
+             request's shape: device time by kernel, idle share;
+6. tuner   — the tuning path, the paper's own experiment: `KernelTuner`
+             over the Table IV kernels (matvec, atax, BiCG at 8192 x 8192
+             in float32 and bfloat16, jacobi3d at 256^3 float32) and the
+             decode down-projection GEMM, in static (asserted to launch
+             nothing, then served from the database), hybrid and
+             empirical mode, and the quickstart; launch counters set to 0
+             before and read after;
+7. dispatch — each Table IV op through ``ops`` after ``freeze()``:
+             every dispatch frozen, no runtime tune, every kernel launched.
 
-The last two lines are the card's ``nvidia-smi`` name and power limit
-and ``{"ok": true, "device": {...}}``; the line before them is the JSON
-``{"kernels": [...]}`` of the kernels the main path launched.
+Phase 2 also holds the Table IV kernels against their plain versions at
+the tuner's sizes (above the 50 MB L2).  The last two lines are the
+card's ``nvidia-smi`` name and power limit and ``{"ok": true, "device":
+{...}}``; the line before them is the JSON ``{"kernels": [...]}`` of
+every ported kernel, each with its launches on the path that launches
+it.
 """
 from __future__ import annotations
 
@@ -64,7 +76,26 @@ KERNELS = {
                "src/repro/kernels/mlp_matmul.py:132"),
     "split": ("src/repro_torch/kernels/csrc/gemm.cu",
               "src/repro/kernels/mlp_matmul.py:192"),
+    "matvec": ("src/repro_torch/kernels/csrc/blas2.cu",
+               "src/repro/kernels/matvec.py:31"),
+    "atax": ("src/repro_torch/kernels/csrc/blas2.cu",
+             "src/repro/kernels/atax.py:32"),
+    "bicg": ("src/repro_torch/kernels/csrc/blas2.cu",
+             "src/repro/kernels/bicg.py:29"),
+    "jacobi3d": ("src/repro_torch/kernels/csrc/jacobi3d.cu",
+                 "src/repro/kernels/jacobi3d.py:37"),
 }
+SERVE_KERNELS = ("matmul", "rms_norm", "flash", "blocked", "fused", "stream",
+                 "split")
+TABLE4 = ("matvec", "atax", "bicg", "jacobi3d")
+
+# The Table IV kernels' sizes on the card: every operand above the 50 MB
+# L2, so times are device-memory times; and the tolerances of
+# tests/test_kernels.py (float32; bfloat16 is 2e-2).
+TABLE4_SHAPES = {"matvec": dict(m=8192, n=8192), "atax": dict(m=8192, n=8192),
+                 "bicg": dict(m=8192, n=8192),
+                 "jacobi3d": dict(z=256, y=256, x=256)}
+TABLE4_TOL = {"matvec": 2e-4, "atax": 1e-3, "bicg": 1e-3, "jacobi3d": 1e-5}
 
 # the main path's requests: (batch, prompt_len, gen)
 REQUESTS = ((4, 64, 32), (1, 64, 8))
@@ -142,10 +173,13 @@ def phase_build():
                                    causal=True, dtype="bfloat16"),
            "mlp_matmul": dict(m=4, d=3072, f=24576, act="gelu",
                               dtype="bfloat16")}
+    sig.update({k: dict(v, dtype="float32")
+                for k, v in TABLE4_SHAPES.items()})
     kinds = {("matmul", None): 0, ("mlp_matmul", "fused"): 1,
              ("mlp_matmul", "stream"): 2, ("mlp_matmul", "split"): 0,
              ("rms_norm", None): 3, ("flash_attention", "flash"): 4,
-             ("flash_attention", "blocked"): 5}
+             ("flash_attention", "blocked"): 5, ("matvec", None): 6,
+             ("atax", None): 7, ("bicg", None): 8, ("jacobi3d", None): 9}
     regs, smem, thr = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     print("[build] kernel/variant tile: declared regs | compiled numRegs "
           "f32, bf16 | static smem")
@@ -314,6 +348,100 @@ def phase_kernels(dev):
                  "bfloat16")[0]
     print(f"[kernels] fused prefill (256x{d}).({d}x{f}) x2 tile {tile}: "
           f"{ms:.4f} ms, bound {b_ms:.4f} ms")
+    return results
+
+
+def phase_table4(dev):
+    """The Table IV kernels at TABLE4_SHAPES, float32 and bfloat16
+    (jacobi3d float32): each held against its plain version on the same
+    seeded inputs (`make_inputs`), atax and BiCG run twice and compared
+    bit for bit, then timed beside the plain version, the bound and the
+    library call.  Each row launches the tile that the tuning path picks
+    (`lookup_or_tune` under the H100).  Returns the float32 rows."""
+    import torch
+    from repro_torch import tuning_cache as tc
+    from repro_torch.core.hw import dtype_bytes
+    from repro_torch.kernels import api
+    from repro_torch.kernels import atax as ax
+    from repro_torch.kernels import bicg as bc
+    from repro_torch.kernels import jacobi3d as jc
+    from repro_torch.kernels import matvec as mv
+
+    launch = {"matvec": (mv.matvec_cuda, mv.matvec_plain),
+              "atax": (ax.atax_cuda, ax.atax_plain),
+              "bicg": (bc.bicg_cuda, bc.bicg_plain),
+              "jacobi3d": (jc.jacobi3d_cuda, jc.jacobi3d_plain)}
+    library = {"matvec": lambda a, x: torch.matmul(a, x),
+               "atax": lambda a, x: torch.linalg.multi_dot([a.T, a, x])}
+    composite = {"bicg": lambda a, p, r: (a @ p, a.T @ r)}
+    results = {}
+    for kid in TABLE4:
+        for dtype in (("float32",) if kid == "jacobi3d"
+                      else ("float32", "bfloat16")):
+            sig = dict(TABLE4_SHAPES[kid], dtype=dtype)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            args = api.get_spec(kid).make_inputs(gen, **sig)
+            tile = tc.lookup_or_tune(kid, spec="h100",
+                                     db=tc.TuningDatabase(),
+                                     **sig)[api.TILE_AXIS]
+            fn, plain = launch[kid]
+            got, want = fn(*args, tile=tile), plain(*args)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            tol = TABLE4_TOL[kid] if dtype == "float32" else 2e-2
+            err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, want))
+            for g, w in zip(got, want):
+                try:
+                    torch.testing.assert_close(g.float(), w.float(),
+                                               rtol=tol, atol=tol)
+                except AssertionError as e:
+                    fail(f"{kid} {dtype} tile {tile} disagrees with its "
+                         f"plain version: {str(e).splitlines()[0:4]}")
+            if kid in ("atax", "bicg"):
+                again = fn(*args, tile=tile)
+                again = again if isinstance(again, tuple) else (again,)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, h) for g, h in zip(got, again)):
+                    fail(f"{kid} {dtype}: two runs differ in their bits")
+            eb = dtype_bytes(dtype)
+            if kid == "jacobi3d":
+                pts = sig["z"] * sig["y"] * sig["x"]
+                nbytes, flops = 2.0 * pts * eb, 8.0 * pts
+            else:
+                m, n = sig["m"], sig["n"]
+                vec = {"matvec": n + m, "atax": 2 * n, "bicg": 2 * (n + m)}
+                nbytes = (float(m) * n + vec[kid]) * eb
+                flops = (2.0 if kid == "matvec" else 4.0) * m * n
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            lib = library.get(kid)
+            row = dict(max_abs_err=err,
+                       ms=time_ms(lambda: fn(*args, tile=tile)),
+                       plain_ms=time_ms(lambda: plain(*args)),
+                       bound_ms=b_ms, bound_by=b_by,
+                       library_ms=(time_ms(lambda: lib(*args))
+                                   if lib is not None else None),
+                       shape=f"{sig} tile {tile}")
+            extra = ""
+            if kid in composite:
+                comp = composite[kid]
+                extra = (f" | torch composite (2 matmuls) "
+                         f"{time_ms(lambda: comp(*args)):.4f} ms")
+            print(f"[kernels] {kid} {dtype} "
+                  f"{'x'.join(str(v) for v in TABLE4_SHAPES[kid].values())} "
+                  f"tile {tile}: max|err| {err:.3g} (tol {tol:g} abs + rel)"
+                  f"{' bitwise repeat ok' if kid in ('atax', 'bicg') else ''}"
+                  f" | "
+                  f"kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} "
+                  f"ms | bound {b_ms:.4f} ms ({b_by}) | library "
+                  + (f"{row['library_ms']:.4f} ms" if lib else "none")
+                  + extra, flush=True)
+            if dtype == "float32":
+                results[kid] = row
+            del args, got, want
+    torch.cuda.empty_cache()
     return results
 
 
@@ -542,6 +670,142 @@ def phase_profile(dev, batch: int = 4, prompt_len: int = 64,
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the tuning path (the paper's experiment on the card)
+# ---------------------------------------------------------------------------
+
+TUNER_CASES = [(k, dict(TABLE4_SHAPES[k], dtype=dt)) for k in TABLE4
+               for dt in (("float32",) if k == "jacobi3d"
+                          else ("float32", "bfloat16"))] \
+    + [("matmul", dict(m=4, n=3072, k=24576, dtype="bfloat16"))]
+
+
+def phase_tuner():
+    """`KernelTuner` on each TUNER_CASES instance: static (asserted to
+    launch nothing), static again (asserted to come from the database),
+    hybrid (the static shortlist's best 4 timed) and empirical
+    exhaustive; then the quickstart in process.  Prints the space size,
+    the static pick and its measured time, the measured best, the
+    regret, Spearman of predicted against measured, the search-space
+    reduction, the static rank time and the evaluations."""
+    from repro_torch import kernels
+    from repro_torch import tuning_cache as tc
+    from repro_torch.core import KernelTuner
+    from repro_torch.examples import quickstart
+
+    rows = []
+    kernels.reset_launch_counts()           # the tuning path starts here
+    for kid, sig in TUNER_CASES:
+        factory = kernels.TUNABLE_FACTORIES[kid]
+        db = tc.TuningDatabase()
+
+        def tuner():
+            return KernelTuner(factory(**sig, seed=0), repeats=5,
+                               keep_frac=0.5, db=db)
+        t = tuner()
+        if not t.hopper:
+            fail(f"{kid}: the tuner did not target the card "
+                 f"({t.spec.name})")
+        before = kernels.launch_counts()
+        st = t.tune("static")
+        if kernels.launch_counts() != before:
+            fail(f"{kid}: a static tune launched kernels")
+        again = tuner().tune("static")
+        if not again.from_cache or again.best_params != st.best_params \
+                or kernels.launch_counts() != before:
+            fail(f"{kid}: the repeated static tune was not a cache hit")
+        hy = t.tune("hybrid", empirical_budget=4)
+        t0 = time.perf_counter()
+        em = t.tune("empirical")
+        em_wall = time.perf_counter() - t0
+        meas = {r["params"]["tile"]: r["measured_s"] for r in em.table}
+        pred = {r["params"]["tile"]: r["predicted_s"] for r in em.table}
+        pick = st.best_params["tile"]
+        best = em.best_params["tile"]
+        regret = meas[pick] / em.best_measured_s
+        shape = "x".join(str(v) for k, v in sig.items() if k != "dtype")
+        rows.append(dict(kernel=kid, sig=sig, space=st.space_size,
+                         pick=pick, pick_ms=meas[pick] * 1e3, best=best,
+                         best_ms=em.best_measured_s * 1e3, regret=regret,
+                         rho=em.spearman_static_vs_measured,
+                         hybrid_pick=hy.best_params["tile"],
+                         hybrid_ms=hy.best_measured_s * 1e3))
+        print(f"[tuner] {kid} {shape} {sig['dtype']}: space "
+              f"{st.space_size}, static pick {pick} (pred "
+              f"{st.best_predicted_s * 1e3:.4f} ms, meas "
+              f"{meas[pick] * 1e3:.4f} ms), measured best {best} "
+              f"{em.best_measured_s * 1e3:.4f} ms, regret {regret:.3f}x, "
+              f"spearman {em.spearman_static_vs_measured:.3f}, reduction "
+              f"{st.search_space_reduction:.3f}, static rank "
+              f"{st.static_rank_time_s * 1e3:.2f} ms, static launches 0, "
+              f"cache hit {again.from_cache}; hybrid {hy.empirical_evals} "
+              f"evals -> {hy.best_params['tile']} "
+              f"{hy.best_measured_s * 1e3:.4f} ms; empirical "
+              f"{em.empirical_evals} evals in {em_wall * 1e3:.1f} ms wall; "
+              f"{st.boundedness}",
+              flush=True)
+        print("[tuner]   pred/meas ms: " + "; ".join(
+            f"{k} {pred[k] * 1e3:.4f}/{meas[k] * 1e3:.4f}" for k in meas))
+    print("[tuner] quickstart (atax 1024 x 512 float32, in L2):", flush=True)
+    quickstart.main([])
+    launches = kernels.launch_counts()       # ... and ends here
+    print(f"[tuner] tuning-path launches: {launches}")
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: frozen dispatch of the Table IV ops
+# ---------------------------------------------------------------------------
+
+
+def phase_dispatch(dev):
+    import torch
+    from repro_torch import kernels
+    from repro_torch import tuning_cache as tc
+    from repro_torch.kernels import api, ops
+    from repro_torch.kernels import atax as ax
+    from repro_torch.kernels import bicg as bc
+    from repro_torch.kernels import jacobi3d as jc
+    from repro_torch.kernels import matvec as mv
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    a = torch.randn((4096, 4096), generator=gen, device=dev) / 64
+    x = torch.randn((4096, 1), generator=gen, device=dev)
+    r = torch.randn((4096, 1), generator=gen, device=dev)
+    u = torch.randn((128, 128, 128), generator=gen, device=dev)
+    calls = {"matvec": ((a, x), mv.matvec_plain, 2e-4),
+             "atax": ((a, x), ax.atax_plain, 1e-3),
+             "bicg": ((a, x, r), bc.bicg_plain, 1e-3),
+             "jacobi3d": ((u,), jc.jacobi3d_plain, 1e-5)}
+    tc.thaw()
+    for kid, (args, _, _) in calls.items():
+        tc.lookup_or_tune(kid, **api.get_spec(kid).extract_signature(*args))
+    tc.freeze()
+    api.reset_dispatch_stats()
+    tunes = tc.get_default_db().stats.tunes
+    kernels.reset_launch_counts()
+    for kid, (args, plain, tol) in calls.items():
+        got = getattr(ops, kid)(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+    st = api.dispatch_stats()
+    launches = kernels.launch_counts()
+    print(f"[dispatch] Table IV ops after freeze(): {st}, runtime tunes "
+          f"{tc.get_default_db().stats.tunes - tunes}, launches "
+          f"{ {k: launches[k] for k in TABLE4} }")
+    if st["frozen"] != st["total"] or st["total"] != len(calls):
+        fail(f"dispatch not all frozen: {st}")
+    if tc.get_default_db().stats.tunes != tunes:
+        fail("a frozen dispatch tuned at run time")
+    if any(launches[k] == 0 for k in TABLE4):
+        fail(f"an op did not launch its kernel: {launches}")
+    tc.thaw()
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch", "kernels",
                                       "csrc")):
@@ -562,10 +826,13 @@ def main() -> None:
     t_all = time.perf_counter()
     phase_build()
     rows = phase_kernels(dev)
+    rows.update(phase_table4(dev))
     phase_ranking(dev)
     phase_check(dev)
     reports, launches = phase_serve()
     phase_profile(dev)
+    _, tuner_launches = phase_tuner()
+    phase_dispatch(dev)
 
     selected = {}
     for rep in reports:
@@ -581,29 +848,36 @@ def main() -> None:
         if not any(launches[n] for n in names):
             fail(f"{op}: no CUDA kernel launched on the main path")
 
+    missing = [k for k in TABLE4 if tuner_launches.get(k, 0) == 0]
+    if missing:
+        fail(f"Table IV kernels never launched on the tuning path: "
+             f"{missing}")
+
+    # each kernel's launches on the path that launches it
+    paths = {n: ("serve", launches) for n in SERVE_KERNELS}
+    paths.update({n: ("tuner", tuner_launches) for n in TABLE4})
+
     def entry(name):
         src, replaces = KERNELS[name]
         r = rows[name]
+        path, counts = paths[name]
         return {"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces, "launches": counts[name],
+                "path": path,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
-    on_path = [n for n in KERNELS if launches[n] > 0]
-    off_path = [n for n in KERNELS if launches[n] == 0]
-    for n in off_path:
-        print(f"[smoke] {n}: built and checked at {rows[n]['shape']}, not "
-              f"picked by the H100 analysis for any instance of the main "
-              f"path: {json.dumps(entry(n))}")
     for n in KERNELS:
-        status = "launched" if launches[n] else "not selected"
-        print(f"[smoke] kernel {n}: {status}"
-              f" ({launches[n]} launches), err {rows[n]['max_abs_err']:.3g}"
-              f" ok, {rows[n]['ms']:.4f} ms vs bound "
+        path, counts = paths[n]
+        status = "launched" if counts[n] else (
+            "not picked by the H100 analysis for any instance")
+        print(f"[smoke] kernel {n}: {status} on the {path} path"
+              f" ({counts[n]} launches), err {rows[n]['max_abs_err']:.3g}"
+              f" ok at {rows[n]['shape']}, {rows[n]['ms']:.4f} ms vs bound "
               f"{rows[n]['bound_ms']:.4f} ms")
     print(f"[smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": [entry(n) for n in on_path]}))
+    print(json.dumps({"kernels": [entry(n) for n in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

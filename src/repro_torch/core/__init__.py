@@ -3,11 +3,12 @@
 Layers (paper §III):
   hw         Table I / Table II constants, TPU targets, the H100 target
   target     process-default hardware target (env / autodetect / scoped)
-  mix        the instruction-mix record Eq. 6 prices
+  mix        the instruction-mix record Eq. 6 prices, boundedness rule
   occupancy  CUDA Eqs. 1-5 (faithful) + TPU pipeline occupancy
   predict    Eq. 6 time model, the H100 roofline model, rank metrics
-  search     SearchSpace: named axes, constraints, streamed lattices
-  autotuner  KernelStaticInfo + GraphTuner.tune_config
+  search     exhaustive/random/SA/genetic/Nelder-Mead/static-pruned
+  autotuner  KernelTuner (TPU block spaces, H100 tile tables) +
+             GraphTuner.tune_config
 """
 from repro_torch.core.hw import (GPU_TABLE, FERMI_M2050, KEPLER_K20,
                                  MAXWELL_M40, H100_SXM, HOPPER_TABLE,
@@ -19,7 +20,8 @@ from repro_torch.core.hw import (GPU_TABLE, FERMI_M2050, KEPLER_K20,
 from repro_torch.core.target import (ENV_TARGET, default_target,
                                      set_default_target, use_target,
                                      detect_target)
-from repro_torch.core.mix import InstructionMix, intensity
+from repro_torch.core.mix import (InstructionMix, intensity,
+                                 classify_boundedness)
 from repro_torch.core.occupancy import (CudaOccupancy, cuda_occupancy,
                                         CudaOccupancyBatch,
                                         cuda_occupancy_batch,
@@ -30,6 +32,11 @@ from repro_torch.core.predict import (CostModel, default_tpu_model,
                                       default_hopper_model, cuda_eq6_time,
                                       spearman, features_matrix,
                                       static_times_batch)
-from repro_torch.core.search import (SearchSpace, ConfigLattice, Constraint,
-                                     DEFAULT_CHUNK)
-from repro_torch.core.autotuner import KernelStaticInfo, GraphTuner
+from repro_torch.core.search import (SearchSpace, SearchResult,
+                                     ConfigLattice, Constraint, DEFAULT_CHUNK,
+                                     ExhaustiveSearch, RandomSearch,
+                                     SimulatedAnnealing, GeneticSearch,
+                                     NelderMeadSearch, StaticPrunedSearch)
+from repro_torch.core.autotuner import (KernelStaticInfo, TunableKernel,
+                                        TuningReport, KernelTuner,
+                                        GraphTuner, make_intensity_rule)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-__all__ = ["InstructionMix", "intensity"]
+__all__ = ["InstructionMix", "intensity", "classify_boundedness"]
 
 
 @dataclasses.dataclass
@@ -92,3 +92,13 @@ class InstructionMix:
 def intensity(mix: InstructionMix) -> float:
     """Paper's computational intensity: FLOPs per memory operation."""
     return mix.flops_total / max(1.0, mix.mem_ops)
+
+
+def classify_boundedness(mix: InstructionMix, threshold: float = 4.0) -> str:
+    """Rule-based classification; threshold 4.0 is the paper's §III-C value."""
+    i = intensity(mix)
+    if i > threshold:
+        return "compute_bound"
+    if i > threshold / 2:
+        return "balanced"
+    return "memory_bound"

@@ -28,7 +28,8 @@ __all__ = ["library", "build_log", "check", "stream_of", "dtype_code",
            "require_operands", "CSRC", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gemm.cu", "rms_norm.cu", "attention.cu", "library.cu")
+SOURCES = ("gemm.cu", "rms_norm.cu", "attention.cu", "blas2.cu",
+           "jacobi3d.cu", "library.cu")
 _HEADERS = ("common.cuh",)
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
@@ -48,6 +49,11 @@ _SIGNATURES = {
     "repro_rms_norm": [_I, _I, _P, _P, _P, _I, _I, _F, _P],
     "repro_flash": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "repro_blocked": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "repro_matvec": [_I, _I, _P, _P, _P, _I, _I, _P],
+    "repro_blas2_grid": [_I, _I, _I, _I, _I, ctypes.POINTER(_I)],
+    "repro_atax": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_bicg": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_jacobi3d": [_I, _I, _P, _P, _I, _I, _I, _F, _F, _P],
     "repro_kernel_attrs": [_I, _I, _I, ctypes.POINTER(_I),
                            ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "repro_tile_count": [_I],

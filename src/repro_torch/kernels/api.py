@@ -11,13 +11,17 @@ One declaration site per kernel::
         cuda=cuda_profile(...),                      # Table I GPUs
         hopper=HopperSpace(tiles=..., analysis=...), # the H100 launch space
         out=lambda a, b, **_: ((a.shape[0], b.shape[1]), a.dtype),
+        make_inputs=_matmul_inputs,                  # (generator, **sig)
+        reference=matmul_ref,
         pretune=(...),
     )
     def matmul(a, b, *, tile=None): ...
 
 derives the dispatch wrapper (`KernelSpec.op`, re-exported as
 ``repro_torch.kernels.ops.<kernel_id>``), the registry entry consumed by
-`repro_torch.tuning_cache.lookup_or_tune`, and the fallback launch.
+`repro_torch.tuning_cache.lookup_or_tune`, the fallback launch, and the
+`TunableKernel` that `repro_torch.core.KernelTuner` tunes
+(`KernelSpec.tunable`).
 
 The space the registry ranks follows the active target
 (`repro_torch.core.target.default_target`): a `TpuSpec` ranks the
@@ -35,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import hashlib
 import inspect
 import logging
@@ -45,6 +50,7 @@ from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
 import numpy as np
 
 from repro_torch import tuning_cache
+from repro_torch.core.autotuner import TunableKernel
 from repro_torch.core.hw import H100_SXM, GpuSpec, HopperSpec
 from repro_torch.core.mix import InstructionMix
 from repro_torch.core.search import Constraint, Params, SearchSpace
@@ -53,7 +59,8 @@ from repro_torch.kernels.common import (BatchStaticInfo, HopperBatchInfo,
                                         block_info, block_info_batch,
                                         cuda_info, cuda_info_batch,
                                         hopper_info_batch,
-                                        pick_divisor_candidates)
+                                        pick_divisor_candidates,
+                                        resolve_device)
 from repro_torch.kernels.variants import (JointBatchInfo, KernelVariant,
                                           VARIANT_AXIS,
                                           check_variant_schema, joint_space,
@@ -232,7 +239,8 @@ class HopperSpace:
 @dataclasses.dataclass(frozen=True)
 class HopperStaticInfo:
     """Scalar view of one H100 row, duck-typed like `CudaStaticInfo`
-    for `repro_torch.core.predict.static_times_batch`."""
+    for `repro_torch.core.predict.static_times_batch` and like
+    `KernelStaticInfo` for `repro_torch.core.KernelTuner`."""
 
     mix: InstructionMix
     predicted_step_time: float
@@ -245,6 +253,13 @@ class HopperStaticInfo:
 
     def feasible(self) -> bool:
         return self.ok
+
+    def static_time(self, model) -> float:
+        """The row's `static_times_batch` value: the model time of its
+        mix floored by its wave-stretched time; +inf when infeasible."""
+        if not self.ok:
+            return float("inf")
+        return max(model.time(self.mix), self.predicted_step_time)
 
 
 # ---------------------------------------------------------------------------
@@ -370,8 +385,13 @@ class KernelSpec:
       signature schema.
     * ``hopper`` — the H100 launch space: one `HopperSpace`, or, with
       variants, ``{variant_id: HopperSpace}``.
-    * ``out(*args, **kwargs) -> (shape, dtype)`` — the output of a call,
-      for the enumeration-only ``meta`` dispatch.
+    * ``out(*args, **kwargs) -> (shape, dtype)`` — the output of a call
+      (a list of such pairs for several outputs), for the
+      enumeration-only ``meta`` dispatch.
+    * ``make_inputs(generator, **signature) -> tuple`` — random inputs
+      for empirical/hybrid tuning, made on ``generator``'s device
+      (optional; static-only kernels may omit it).
+    * ``reference`` — the plain-PyTorch oracle (optional).
     * ``cuda``, ``pretune``, ``variants``, ``primary_variant``,
       ``model`` — as the reference.
     """
@@ -382,7 +402,9 @@ class KernelSpec:
     extract_signature: Callable[..., Dict[str, Any]]
     analysis: Callable[..., Dict[str, Any]]
     hopper: Any
-    out: Callable[..., Tuple[Tuple[int, ...], Any]]
+    out: Callable[..., Any]
+    make_inputs: Optional[Callable[..., tuple]] = None
+    reference: Optional[Callable[..., Any]] = None
     pretune: Tuple[Dict[str, Any], ...] = ()
     cuda: Optional[CudaProfile] = None
     model: Optional[str] = None
@@ -413,6 +435,7 @@ class KernelSpec:
         self._binder = compile_binder(schema_of(params[1:]))
         self.pretune = tuple(dict(s) for s in self.pretune)
         self._op = None
+        self._fn_kw = None
         self._axis_names = frozenset(self.space)
         self._primary_id = self.primary_variant or "primary"
         self._variants: Optional[Dict[str, KernelVariant]] = None
@@ -552,24 +575,27 @@ class KernelSpec:
             F[m], pipe[m], feasible[m] = info.F, info.pipe, info.feasible
         return JointBatchInfo(F=F, pipe=pipe, feasible=feasible, variant=var)
 
-    def _hopper_problem(self, spec: HopperSpec,
-                        sig: Dict[str, Any]) -> "tuning_cache.TuningProblem":
-        def batch(c):
-            return self.hopper_info_batch(c, spec, **sig)
-
+    def _hopper_scalar(self, spec: HopperSpec, sig: Dict[str, Any]
+                       ) -> Callable[[Params], HopperStaticInfo]:
+        """Scalar H100 analyzer: one row through the batch analyzer."""
         def scalar(p):
             cols = {k: np.asarray([v]) for k, v in p.items()}
-            b = batch(cols)
+            b = self.hopper_info_batch(cols, spec, **sig)
             return HopperStaticInfo(
                 mix=InstructionMix(vpu_flops=b.F[0, 1], trans_flops=b.F[0, 2],
                                    hbm_bytes=b.F[0, 3], vmem_bytes=b.F[0, 4],
                                    ctrl_ops=b.F[0, 5]),
                 predicted_step_time=float(b.pipe[0]),
                 ok=bool(b.feasible[0]))
+        return scalar
 
+    def _hopper_problem(self, spec: HopperSpec,
+                        sig: Dict[str, Any]) -> "tuning_cache.TuningProblem":
         return tuning_cache.TuningProblem(
-            space=self.hopper_space(**sig), static_info=scalar,
-            static_info_batch=batch)
+            space=self.hopper_space(**sig),
+            static_info=self._hopper_scalar(spec, sig),
+            static_info_batch=lambda c: self.hopper_info_batch(c, spec,
+                                                               **sig))
 
     def fallback_tile(self, variant_id: Optional[str],
                       **signature) -> Tuple[Optional[str], str]:
@@ -700,7 +726,11 @@ class KernelSpec:
                     import torch
                     col.append((kernel_id, dict(sig)))
                     stats.collected += 1
-                    shape, dtype = self.out(*args, **kw)
+                    outs = self.out(*args, **kw)
+                    if isinstance(outs, list):
+                        return tuple(torch.empty(s, dtype=d, device="meta")
+                                     for s, d in outs)
+                    shape, dtype = outs
                     return torch.empty(shape, dtype=dtype, device="meta")
                 if tuned_params is not None:
                     stats.explicit += 1
@@ -740,6 +770,72 @@ class KernelSpec:
             self._op = op
         return self._op
 
+    def _fn_keywords(self) -> frozenset:
+        if self._fn_kw is None:
+            ps = inspect.signature(self.fn).parameters.values()
+            self._fn_kw = frozenset(
+                p.name for p in ps
+                if p.kind in (inspect.Parameter.POSITIONAL_OR_KEYWORD,
+                              inspect.Parameter.KEYWORD_ONLY))
+        return self._fn_kw
+
+    def tunable(self, *, seed: int = 0,
+                space: Optional[SearchSpace] = None,
+                name: Optional[str] = None, device: Any = None,
+                **signature) -> TunableKernel:
+        """Package this kernel as a `TunableKernel` for `KernelTuner`.
+
+        The active target picks the space: under a `HopperSpec` the
+        compiled tile table (`hopper_space`), priced by the H100
+        analysis; under any other target the declared Pallas block space
+        (``space`` narrows it), priced by the reference's analysis.
+        ``build(p)`` returns a callable that launches the CUDA
+        instantiation ``p["tile"]`` on CUDA tensors and runs the plain
+        version on CPU tensors; TPU params name no tile, so it launches
+        the implementation's fallback tile.  ``make_inputs``
+        draws from a ``torch.Generator`` seeded with ``seed`` on
+        ``device`` — the CUDA card unless ``device`` says otherwise.
+        """
+        sig = self.normalize(signature)
+        target = default_target()
+        if isinstance(target, HopperSpec):
+            sp = self.hopper_space(**sig)
+            static_info = self._hopper_scalar(target, sig)
+            static_info_batch = (lambda c: self.hopper_info_batch(
+                c, target, **sig))
+        else:
+            sp = space if space is not None else self.search_space(**sig)
+            if isinstance(sp, Mapping):
+                sp = SearchSpace(dict(sp))
+            static_info = lambda p: self.static_info(p, **sig)
+            static_info_batch = lambda c: self.static_info_batch(c, **sig)
+        fwd = {k: v for k, v in sig.items() if k in self._fn_keywords()}
+
+        def build(p: Params) -> Callable[..., Any]:
+            fn, launch, _ = self._launch(p, sig)
+            return functools.partial(fn, **fwd, **launch)
+
+        if self.make_inputs is None:
+            def make_inputs():
+                raise NotImplementedError(
+                    f"@tuned_kernel({self.kernel_id!r}) declared no "
+                    f"make_inputs=; empirical/hybrid tuning needs one")
+        else:
+            def make_inputs():
+                import torch
+                gen = torch.Generator(device=resolve_device(device))
+                gen.manual_seed(seed)
+                return self.make_inputs(gen, **sig)
+
+        if name is None:
+            dims = "x".join(str(v) for v in sig.values()
+                            if isinstance(v, (int, np.integer)))
+            name = f"{self.kernel_id}_{dims}" if dims else self.kernel_id
+        return TunableKernel(
+            name=name, space=sp, build=build, static_info=static_info,
+            make_inputs=make_inputs, reference=self.reference,
+            static_info_batch=static_info_batch, target=target)
+
 
 # ---------------------------------------------------------------------------
 # The decorator + the spec registry
@@ -753,7 +849,9 @@ def tuned_kernel(kernel_id: str, *,
                  signature: Callable[..., Dict[str, Any]],
                  static_info: Callable[..., Dict[str, Any]],
                  hopper: Any,
-                 out: Callable[..., Tuple[Tuple[int, ...], Any]],
+                 out: Callable[..., Any],
+                 make_inputs: Optional[Callable[..., tuple]] = None,
+                 reference: Optional[Callable[..., Any]] = None,
                  pretune: Sequence[Mapping[str, Any]] = (),
                  cuda: Optional[CudaProfile] = None,
                  model: Optional[str] = None,
@@ -765,7 +863,8 @@ def tuned_kernel(kernel_id: str, *,
     def deco(fn: Callable[..., Any]) -> Callable[..., Any]:
         spec = KernelSpec(kernel_id=kernel_id, fn=fn, space=space,
                           extract_signature=signature, analysis=static_info,
-                          hopper=hopper, out=out, pretune=tuple(pretune),
+                          hopper=hopper, out=out, make_inputs=make_inputs,
+                          reference=reference, pretune=tuple(pretune),
                           cuda=cuda, model=model, variants=tuple(variants),
                           primary_variant=primary_variant)
         tuning_cache.registry.register_entry(spec.kernel_id, spec)

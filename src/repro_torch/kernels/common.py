@@ -34,7 +34,7 @@ __all__ = ["cdiv", "block_info",
            "CudaBatchStaticInfo", "cuda_info_batch",
            "HopperBatchInfo", "hopper_info_batch",
            "pick_divisor_candidates", "require_shape",
-           "dtype_name"]
+           "dtype_name", "dtype_str", "resolve_device"]
 
 
 def cdiv(a: int, b: int) -> int:
@@ -47,7 +47,31 @@ def dtype_name(t) -> str:
     Signatures are cache-key material: ``str(torch.float32)`` is
     ``"torch.float32"``, which would make every key diverge from the
     reference's ``str(jax_array.dtype)``."""
-    return str(t.dtype).rpartition(".")[2]
+    return dtype_str(t.dtype)
+
+
+def dtype_str(dtype) -> str:
+    """numpy spelling of a dtype given as a ``torch.dtype``, a numpy
+    dtype or a name (``torch.bfloat16`` -> ``"bfloat16"``)."""
+    if isinstance(dtype, str):
+        return dtype
+    name = str(dtype)
+    if name.startswith("torch."):
+        return name.rpartition(".")[2]
+    return np.dtype(dtype).name
+
+
+def resolve_device(device=None):
+    """``None`` means the CUDA card; raise when there is none (entry
+    points never drop to the CPU unless asked)."""
+    import torch
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' (or "
+                "--device cpu) to run the plain PyTorch versions")
+        return torch.device("cuda")
+    return torch.device(device)
 
 
 def pick_divisor_candidates(n: int, candidates: Sequence[int]) -> tuple:

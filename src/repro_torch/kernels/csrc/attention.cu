@@ -73,12 +73,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 template <typename T, int BQ, int BKV, int NT>
 __global__ void __launch_bounds__(NT)
 flash_kernel(const T* __restrict__ Q, const T* __restrict__ K,

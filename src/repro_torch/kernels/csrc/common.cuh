@@ -15,7 +15,8 @@ typedef __nv_bfloat16 bf16;
 // Kernel kinds of the C interface (repro_kernel_attrs / repro_tile_*).
 enum ReproKind {
   KIND_GEMM = 0, KIND_GATED = 1, KIND_STREAM = 2, KIND_RMS = 3,
-  KIND_FLASH = 4, KIND_BLOCKED = 5
+  KIND_FLASH = 4, KIND_BLOCKED = 5, KIND_MATVEC = 6, KIND_ATAX = 7,
+  KIND_BICG = 8, KIND_JACOBI = 9
 };
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
@@ -61,4 +62,40 @@ static int kernel_attrs(K kernel, int* regs, int* smem, int* max_threads) {
   *smem = (int)a.sharedSizeBytes;
   *max_threads = a.maxThreadsPerBlock;
   return 0;
+}
+
+// 16-byte loads through the read-only path: VecWidth<T>::value elements
+// of T per load, widened to f32.  The pointer must be 16-byte aligned.
+template <typename T> struct VecWidth;
+template <> struct VecWidth<float> { static constexpr int value = 4; };
+template <> struct VecWidth<bf16> { static constexpr int value = 8; };
+
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float* out);
+template <>
+__device__ __forceinline__ void load16<float>(const float* p, float* out) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+template <>
+__device__ __forceinline__ void load16<bf16>(const bf16* p, float* out) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// Sum over the 32 lanes of a warp (fixed butterfly order).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+static inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }

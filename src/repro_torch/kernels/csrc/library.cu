@@ -14,6 +14,12 @@ int repro_rms_tile_info(int tile, int* out);
 int repro_attn_attrs(int kind, int tile, int dtype, int* regs, int* smem,
                      int* max_threads);
 int repro_attn_tile_info(int kind, int tile, int* out);
+int repro_blas2_attrs(int kind, int tile, int dtype, int* regs, int* smem,
+                      int* max_threads);
+int repro_blas2_tile_info(int kind, int tile, int* out);
+int repro_jacobi_attrs(int tile, int dtype, int* regs, int* smem,
+                       int* max_threads);
+int repro_jacobi_tile_info(int tile, int* out);
 
 // numRegs / static shared bytes / max threads of one compiled
 // instantiation (cudaFuncGetAttributes), for checking the analysis'
@@ -27,6 +33,10 @@ int repro_kernel_attrs(int kind, int tile, int dtype, int* regs, int* smem,
       return repro_rms_attrs(tile, dtype, regs, smem, max_threads);
     case KIND_FLASH: case KIND_BLOCKED:
       return repro_attn_attrs(kind, tile, dtype, regs, smem, max_threads);
+    case KIND_MATVEC: case KIND_ATAX: case KIND_BICG:
+      return repro_blas2_attrs(kind, tile, dtype, regs, smem, max_threads);
+    case KIND_JACOBI:
+      return repro_jacobi_attrs(tile, dtype, regs, smem, max_threads);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -42,6 +52,10 @@ int repro_tile_info(int kind, int tile, int* out) {
       return repro_rms_tile_info(tile, out);
     case KIND_FLASH: case KIND_BLOCKED:
       return repro_attn_tile_info(kind, tile, out);
+    case KIND_MATVEC: case KIND_ATAX: case KIND_BICG:
+      return repro_blas2_tile_info(kind, tile, out);
+    case KIND_JACOBI:
+      return repro_jacobi_tile_info(tile, out);
     default:
       return -1;
   }

@@ -17,14 +17,18 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from repro_torch.core.autotuner import TunableKernel
+from repro_torch.core.hw import dtype_bytes
+from repro_torch.core.search import SearchSpace
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, TILE_AXIS, cuda_profile,
-                                     divisors, tuned_kernel)
-from repro_torch.core.hw import dtype_bytes
-from repro_torch.kernels.common import cdiv, dtype_name
+                                     divisors, get_spec, tuned_kernel)
+from repro_torch.kernels.common import (cdiv, dtype_name, dtype_str,
+                                        pick_divisor_candidates)
+from repro_torch.kernels.ref import matmul_ref
 
-__all__ = ["matmul", "matmul_cuda", "matmul_plain", "GEMM_TILES",
-           "gemm_hopper_cost", "tile_fields", "LAUNCHES"]
+__all__ = ["matmul", "matmul_cuda", "matmul_plain", "make_tunable_matmul",
+           "GEMM_TILES", "gemm_hopper_cost", "tile_fields", "LAUNCHES"]
 
 # Launches of the CUDA kernel by `matmul_cuda` (one per call).
 LAUNCHES = {"matmul": 0}
@@ -106,6 +110,13 @@ def _matmul_analysis(p, *, m: int, n: int, k: int, dtype: str = "float32"):
     )
 
 
+def _matmul_inputs(gen, *, m: int, n: int, k: int, dtype: str = "float32"):
+    import torch
+    dt = getattr(torch, dtype)
+    return (torch.randn((m, k), generator=gen, device=gen.device).to(dt),
+            torch.randn((k, n), generator=gen, device=gen.device).to(dt))
+
+
 def matmul_plain(a, b):
     """The plain PyTorch version: f32 product, cast to ``a``'s type."""
     return (a.float() @ b.float()).to(a.dtype)
@@ -150,6 +161,8 @@ def matmul_cuda(a, b, *, tile: str):
     static_info=_matmul_analysis,
     hopper=HopperSpace(tiles=tuple(GEMM_TILES), analysis=_matmul_hopper),
     out=lambda a, b, **_: ((a.shape[0], b.shape[1]), a.dtype),
+    make_inputs=_matmul_inputs,
+    reference=matmul_ref,
     pretune=tuple(dict(m=m, n=n, k=k, dtype=dt)
                   for (m, n, k) in [(256,) * 3, (512,) * 3, (1024,) * 3,
                                     (2048,) * 3, (1024, 1024, 4096),
@@ -170,3 +183,20 @@ def matmul(a, b, *, tile: str | None = None):
     if a.device.type == "cpu":
         return matmul_plain(a, b)
     return matmul_cuda(a, b, tile=tile)
+
+
+def make_tunable_matmul(m: int = 1024, n: int = 1024, k: int = 1024,
+                        dtype="float32", seed: int = 0,
+                        device=None) -> TunableKernel:
+    """matmul at (m, n, k) for `repro_torch.core.KernelTuner`: the
+    reference's narrowed block space under a TPU target, the GEMM tile
+    table under the H100 — the active target (see `KernelSpec.tunable`)."""
+    sizes = (128, 256, 512)
+    space = SearchSpace({
+        "bm": pick_divisor_candidates(m, sizes),
+        "bn": pick_divisor_candidates(n, sizes),
+        "bk": pick_divisor_candidates(k, sizes),
+    })
+    return get_spec("matmul").tunable(
+        m=m, n=n, k=k, dtype=dtype_str(dtype), seed=seed, space=space,
+        name=f"matmul_{m}x{n}x{k}", device=device)

@@ -1,4 +1,4 @@
-"""Plain-PyTorch oracles for the four kernels of the serving path.
+"""Plain-PyTorch oracles for the port's kernels.
 
 The counterparts of the reference's jnp oracles (`repro.kernels.ref`):
 the ground truth the kernels' plain versions and CUDA kernels are held
@@ -13,7 +13,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["matmul_ref", "attention_ref", "mlp_matmul_ref", "rms_norm_ref",
+__all__ = ["matmul_ref", "matvec_ref", "atax_ref", "bicg_ref",
+           "jacobi3d_ref", "attention_ref", "mlp_matmul_ref", "rms_norm_ref",
            "MLP_ACTS"]
 
 MLP_ACTS = {
@@ -25,6 +26,41 @@ MLP_ACTS = {
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float()).to(a.dtype)
+
+
+def matvec_ref(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """MatVec2D (paper Table IV): y = A x.  x, y are (N, 1)/(M, 1)."""
+    return torch.matmul(a.float(), x.float()).to(a.dtype)
+
+
+def atax_ref(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """atax (paper Table IV): y = A^T (A x), t = A x kept in f32."""
+    t = torch.matmul(a.float(), x.float())
+    return torch.matmul(a.float().T, t).to(a.dtype)
+
+
+def bicg_ref(a: torch.Tensor, p: torch.Tensor, r: torch.Tensor):
+    """BiCG subkernel (paper Table IV): q = A p, s = A^T r."""
+    q = torch.matmul(a.float(), p.float())
+    s = torch.matmul(a.float().T, r.float())
+    return q.to(a.dtype), s.to(a.dtype)
+
+
+def jacobi3d_ref(u: torch.Tensor, c0: float = 0.5, c1: float = 1.0 / 12.0
+                 ) -> torch.Tensor:
+    """ex14FJ-style 7-point 3-D Jacobi sweep, Dirichlet boundaries:
+    c0*u + c1*(sum of 6 face neighbours) on the interior in f32,
+    boundary cells pass through unchanged."""
+    f = u.float()
+    interior = (
+        c0 * f[1:-1, 1:-1, 1:-1]
+        + c1 * (f[:-2, 1:-1, 1:-1] + f[2:, 1:-1, 1:-1]
+                + f[1:-1, :-2, 1:-1] + f[1:-1, 2:, 1:-1]
+                + f[1:-1, 1:-1, :-2] + f[1:-1, 1:-1, 2:])
+    )
+    out = f.clone()
+    out[1:-1, 1:-1, 1:-1] = interior
+    return out.to(u.dtype)
 
 
 def mlp_matmul_ref(x: torch.Tensor, w_gate: torch.Tensor,

@@ -19,6 +19,8 @@ from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels.common import resolve_device
+
 __all__ = ["Param", "param", "map_params", "from_numpy_tree",
            "resolve_device"]
 
@@ -42,18 +44,6 @@ class Param:
 
     def __repr__(self):
         return f"Param({tuple(self.value.shape)}, dims={self.dims})"
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA card; raise when there is none (entry
-    points never drop to the CPU unless asked)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device available; pass device='cpu' (or "
-                "--device cpu) to run the plain PyTorch versions")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def _store_dtype(shape: Sequence[int], dims: Sequence[Optional[str]],

@@ -3,8 +3,9 @@ card.  Every test here needs a CUDA device and skips without one (the
 decision is taken inside the fixture, never at import).  Run them on the
 H100 with ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 
-Tolerances are those of ``tests/test_kernels.py`` (2e-4 for float32,
-2e-2 for bfloat16): both sides accumulate in f32, in different orders.
+Tolerances are those of ``tests/test_kernels.py`` (2e-4 for float32 —
+1e-3 for atax and BiCG, 1e-5 for the Jacobi sweep — and 2e-2 for
+bfloat16): both sides accumulate in f32, in different orders.
 TF32 is switched off so the plain float32 products stay IEEE f32.
 """
 import ctypes
@@ -15,10 +16,15 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import _cuda, api, ops
+from repro_torch.kernels.atax import BLAS2_TILES, atax_cuda, atax_plain
+from repro_torch.kernels.bicg import bicg_cuda, bicg_plain
 from repro_torch.kernels.flash_attention import (BLOCKED_TILES, FLASH_TILES,
                                                  attention_plain,
                                                  blocked_cuda, flash_cuda)
+from repro_torch.kernels.jacobi3d import (JACOBI_TILES, jacobi3d_cuda,
+                                          jacobi3d_plain)
 from repro_torch.kernels.matmul import GEMM_TILES, matmul_cuda, matmul_plain
+from repro_torch.kernels.matvec import MATVEC_TILES, matvec_cuda, matvec_plain
 from repro_torch.kernels.mlp_matmul import (GATED_TILES, STREAM_TILES,
                                             fused_cuda, mlp_plain,
                                             split_cuda, stream_cuda)
@@ -37,9 +43,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _tol(dtype):
+def _tol(dtype, f32=2e-4):
     return dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 \
-        else dict(rtol=2e-4, atol=2e-4)
+        else dict(rtol=f32, atol=f32)
 
 
 def _rand(shape, dtype, device, seed, scale=1.0):
@@ -48,13 +54,15 @@ def _rand(shape, dtype, device, seed, scale=1.0):
     return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
-def _close(got, want, dtype):
-    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+def _close(got, want, dtype, f32=2e-4):
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(dtype, f32))
 
 
 @pytest.mark.parametrize("kind,table", [
     (0, GEMM_TILES), (1, GATED_TILES), (2, STREAM_TILES), (3, RMS_TILES),
-    (4, FLASH_TILES), (5, BLOCKED_TILES)])
+    (4, FLASH_TILES), (5, BLOCKED_TILES), (6, MATVEC_TILES),
+    (7, BLAS2_TILES), (8, BLAS2_TILES), (9, JACOBI_TILES)])
 def test_tile_tables_match_the_library(cuda, kind, table):
     """The Python tile tables name the C side's instantiations in order."""
     lib = _cuda.library()
@@ -62,7 +70,8 @@ def test_tile_tables_match_the_library(cuda, kind, table):
     out = (ctypes.c_int * 6)()
     for i, fields in enumerate(table.values()):
         assert lib.repro_tile_info(kind, i, out) == 0
-        slots = {2: (0, 1, 3, 4), 3: (0,), 4: (0, 1, 5), 5: (0, 5)}.get(
+        slots = {2: (0, 1, 3, 4), 3: (0,), 4: (0, 1, 5), 5: (0, 5),
+                 6: (0, 1), 7: (0, 1), 8: (0, 1), 9: (0, 1, 2)}.get(
             kind, (0, 1, 2, 3, 4))
         assert tuple(out[j] for j in slots) == tuple(fields), (kind, i)
 
@@ -122,6 +131,94 @@ def test_gated_mlp_kernels(cuda, dtype, act, variant, fn, tiles):
         got = fn(x, wg, wu, act, tile=tile)
         torch.cuda.synchronize()
         _close(got, want, dtype)
+
+
+# (M, N): 16-byte vector loads for both types, for float32 only
+# (N % 8 == 4), and the scalar path (N odd); M ragged against every
+# ROWS and stripe.
+BLAS2_SHAPES = [(64, 256), (37, 300), (130, 1001)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tile", list(MATVEC_TILES))
+@pytest.mark.parametrize("m,n", BLAS2_SHAPES)
+def test_matvec_kernel(cuda, dtype, tile, m, n):
+    a = _rand((m, n), dtype, cuda, 40)
+    x = _rand((n, 1), dtype, cuda, 41)
+    got = matvec_cuda(a, x, tile=tile)
+    torch.cuda.synchronize()
+    _close(got, matvec_plain(a, x), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tile", list(BLAS2_TILES))
+@pytest.mark.parametrize("m,n", BLAS2_SHAPES)
+def test_atax_kernel(cuda, dtype, tile, m, n):
+    a = _rand((m, n), dtype, cuda, 42, scale=n ** -0.5)
+    x = _rand((n, 1), dtype, cuda, 43)
+    got = atax_cuda(a, x, tile=tile)
+    torch.cuda.synchronize()
+    _close(got, atax_plain(a, x), dtype, f32=1e-3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tile", list(BLAS2_TILES))
+@pytest.mark.parametrize("m,n", BLAS2_SHAPES)
+def test_bicg_kernel(cuda, dtype, tile, m, n):
+    a = _rand((m, n), dtype, cuda, 44, scale=n ** -0.5)
+    p = _rand((n, 1), dtype, cuda, 45)
+    r = _rand((m, 1), dtype, cuda, 46)
+    q, s = bicg_cuda(a, p, r, tile=tile)
+    torch.cuda.synchronize()
+    q2, s2 = bicg_plain(a, p, r)
+    _close(q, q2, dtype, f32=1e-3)
+    _close(s, s2, dtype, f32=1e-3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tile", list(JACOBI_TILES))
+@pytest.mark.parametrize("shape", [(5, 37, 70), (40, 9, 33), (1, 4, 4)])
+def test_jacobi3d_kernel(cuda, dtype, tile, shape):
+    u = _rand(shape, dtype, cuda, 47)
+    got = jacobi3d_cuda(u, tile=tile)
+    torch.cuda.synchronize()
+    _close(got, jacobi3d_plain(u), dtype, f32=1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tile", ["t32r1", "t256r4", "t1024r1"])
+def test_atax_and_bicg_repeat_bitwise(cuda, dtype, tile):
+    """No float atomics: the per-block rows add in block order, so a
+    second run gives the same bits."""
+    a = _rand((3000, 1536), dtype, cuda, 48, scale=1536 ** -0.5)
+    x = _rand((1536, 1), dtype, cuda, 49)
+    r = _rand((3000, 1), dtype, cuda, 50)
+    y1, y2 = atax_cuda(a, x, tile=tile), atax_cuda(a, x, tile=tile)
+    (q1, s1), (q2, s2) = (bicg_cuda(a, x, r, tile=tile),
+                          bicg_cuda(a, x, r, tile=tile))
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(q1, q2) \
+        and torch.equal(s1, s2)
+
+
+def test_table4_ops_dispatch_launches_the_kernels(cuda):
+    """The paper's kernels through `ops` under the H100 target: each
+    launches its CUDA kernel and agrees with its plain version."""
+    from repro_torch.core.target import use_target
+    kernels.reset_launch_counts()
+    a = _rand((96, 200), torch.float32, cuda, 51, scale=200 ** -0.5)
+    x = _rand((200, 1), torch.float32, cuda, 52)
+    r = _rand((96, 1), torch.float32, cuda, 53)
+    u = _rand((6, 20, 40), torch.float32, cuda, 54)
+    with use_target("h100"):
+        _close(ops.matvec(a, x), matvec_plain(a, x), torch.float32)
+        _close(ops.atax(a, x), atax_plain(a, x), torch.float32, f32=1e-3)
+        for got, want in zip(ops.bicg(a, x, r), bicg_plain(a, x, r)):
+            _close(got, want, torch.float32, f32=1e-3)
+        _close(ops.jacobi3d(u), jacobi3d_plain(u), torch.float32, f32=1e-5)
+    counts = kernels.launch_counts()
+    assert all(counts[k] == 1 for k in ("matvec", "atax", "bicg",
+                                        "jacobi3d")), counts
 
 
 def test_ops_dispatch_launches_the_kernels(cuda):
