@@ -34,17 +34,29 @@ Phases, each fatal on failure (exit code != 0, no result line):
              empirical mode, and the quickstart; launch counters set to 0
              before and read after;
 7. dispatch — each Table IV op through ``ops`` after ``freeze()``:
-             every dispatch frozen, no runtime tune, every kernel launched.
+             every dispatch frozen, no runtime tune, every kernel launched;
+8. extend  — the kernel API's extension path: stencil2d (found by
+             discovery in ``kernels/``) through ``ops.stencil2d`` under the
+             H100 at its pretune grid and 8192^2 f32/bf16, `KernelTuner` on
+             it at 8192^2 (static, hybrid, exhaustive), the examples
+             ``custom_kernel`` (saxpy2d, declared in its own file),
+             ``annotated_tuning`` and ``autotune_kernel``, and the
+             mega-space matmul factory; launch counters set to 0 before
+             and read after.  Then both extension kernels are held against
+             their plain versions at 8192^2 f32/bf16 and timed, and the
+             4.2M-point mega space is ranked under tpu-v5e (host work).
 
 Phase 2 also holds the Table IV kernels against their plain versions at
-the tuner's sizes (above the 50 MB L2).  The last two lines are the
-card's ``nvidia-smi`` name and power limit and ``{"ok": true, "device":
-{...}}``; the line before them is the JSON ``{"kernels": [...]}`` of
-every ported kernel, each with its launches on the path that launches
-it.
+the tuner's sizes (above the 50 MB L2).  Every row of phases 2 and 2b
+launches the tile dispatch picks (`lookup_or_tune` under the H100).  The
+last two lines are the card's ``nvidia-smi`` name and power limit and
+``{"ok": true, "device": {...}}``; the line before them is the JSON
+``{"kernels": [...]}`` of every ported kernel, each with its launches on
+the path that launches it.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -84,10 +96,15 @@ KERNELS = {
              "src/repro/kernels/bicg.py:29"),
     "jacobi3d": ("src/repro_torch/kernels/csrc/jacobi3d.cu",
                  "src/repro/kernels/jacobi3d.py:37"),
+    "stencil2d": ("src/repro_torch/kernels/csrc/stencil2d.cu",
+                  "src/repro/kernels/stencil2d.py:51"),
+    "saxpy2d": ("src/repro_torch/examples/saxpy2d.cu",
+                "examples/custom_kernel.py:34"),
 }
 SERVE_KERNELS = ("matmul", "rms_norm", "flash", "blocked", "fused", "stream",
                  "split")
 TABLE4 = ("matvec", "atax", "bicg", "jacobi3d")
+EXTEND = ("stencil2d", "saxpy2d")
 
 # The Table IV kernels' sizes on the card: every operand above the 50 MB
 # L2, so times are device-memory times; and the tolerances of
@@ -154,19 +171,26 @@ def bound(nbytes: float, flops: float, dtype: str):
 def phase_build():
     import numpy as np
     import ctypes
-    from repro_torch.kernels import _cuda, api
+    from repro_torch.examples import custom_kernel
+    from repro_torch.kernels import _cuda, api, stencil2d
     t0 = time.perf_counter()
-    lib = _cuda.library()
-    log = _cuda.build_log()
-    print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {log.get('build_s', 0.0):.1f} s, "
-          f"cached={log.get('cached')}) -> {log.get('path')}")
-    for name, text in log.get("ptxas", {}).items():
-        spills = [l.strip() for l in text.splitlines()
-                  if "spill" in l and "0 bytes spill stores, 0 bytes "
-                  "spill loads" not in l]
-        if spills:
-            print(f"[build] {name}: spills: {spills[:4]}")
+    # the library and the two extensions, each nvcc started at once
+    with concurrent.futures.ThreadPoolExecutor(3) as ex:
+        futs = [ex.submit(f) for f in (_cuda.library, stencil2d.extension,
+                                       custom_kernel.extension)]
+        lib, st_lib, sx_lib = (f.result() for f in futs)
+    logs = {"library": _cuda.build_log()}
+    logs.update({n: _cuda.build_log(n) for n in EXTEND})
+    print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
+    for what, log in logs.items():
+        print(f"[build]   {what}: nvcc {log.get('build_s', 0.0):.1f} s, "
+              f"cached={log.get('cached')} -> {log.get('path')}")
+        for name, text in log.get("ptxas", {}).items():
+            spills = [l.strip() for l in text.splitlines()
+                      if "spill" in l and "0 bytes spill stores, 0 bytes "
+                      "spill loads" not in l]
+            if spills:
+                print(f"[build] {name}: spills: {spills[:4]}")
     sig = {"matmul": dict(m=4, n=3072, k=24576, dtype="bfloat16"),
            "rms_norm": dict(m=4, d=3072, dtype="bfloat16"),
            "flash_attention": dict(b=4, h=16, sq=64, skv=64, d=256,
@@ -201,6 +225,24 @@ def phase_build():
             print(f"[build]   {kid}/{vid or kid} {tile}: "
                   f"{int(declared[i])} | {got[0]}, {got[1]} | "
                   f"{smem.value} B")
+    ext_sig = {"stencil2d": dict(y=8192, x=8192, dtype="float32"),
+               "saxpy2d": dict(m=8192, n=8192, dtype="float32")}
+    for kid, elib in (("stencil2d", st_lib), ("saxpy2d", sx_lib)):
+        h = api.get_spec(kid)._hopper[None]
+        declared = np.broadcast_to(np.asarray(h.analysis(
+            {api.TILE_AXIS: np.asarray(h.tiles)}, **ext_sig[kid])["regs"]),
+            (len(h.tiles),))
+        attrs = getattr(elib, f"{kid}_attrs")
+        for i, tile in enumerate(h.tiles):
+            got = []
+            for dt in (0, 1):
+                rc = attrs(i, dt, ctypes.byref(regs), ctypes.byref(smem),
+                           ctypes.byref(thr))
+                if rc != 0:
+                    fail(f"cudaFuncGetAttributes({kid} {tile}): {rc}")
+                got.append(regs.value)
+            print(f"[build]   {kid} (extension) {tile}: {int(declared[i])} "
+                  f"| {got[0]}, {got[1]} | {smem.value} B")
 
 
 # ---------------------------------------------------------------------------
@@ -208,14 +250,32 @@ def phase_build():
 # ---------------------------------------------------------------------------
 
 
-def _winner(kid: str, vid, sig):
-    """The H100 analysis' best tile of one implementation at ``sig``."""
+def _static_times(info):
+    """Predicted times of H100 rows as dispatch ranks them
+    (`static_times_batch` with the model `lookup_or_tune` uses): the
+    model time floored by the wave-stretched time, +inf if infeasible."""
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.core.predict import static_times_batch
+    from repro_torch.tuning_cache.registry import _model_for
+    return static_times_batch(None, _model_for(H100_SXM), F=info.F,
+                              pipe=info.pipe, feasible=info.feasible)
+
+
+def _dispatch_tile(kid: str, vid, sig):
+    """The tile the serving path launches for implementation ``vid``:
+    dispatch's own pick (`lookup_or_tune` under the H100, into a fresh
+    database) when it picks ``vid``; for a variant dispatch does not
+    pick at ``sig``, that variant's best tile under the same ranking."""
     import numpy as np
+    from repro_torch import tuning_cache as tc
     from repro_torch.core.hw import H100_SXM
     from repro_torch.kernels import api
+    p = tc.lookup_or_tune(kid, spec="h100", db=tc.TuningDatabase(), **sig)
+    if p.get("variant") == vid:
+        return p[api.TILE_AXIS]
     h = api.get_spec(kid)._hopper[vid]
-    info = h.info(h.tiles, sig, H100_SXM)
-    return h.tiles[int(np.argmin(info.pipe))]
+    return h.tiles[int(np.argmin(_static_times(h.info(h.tiles, sig,
+                                                      H100_SXM))))]
 
 
 def phase_kernels(dev):
@@ -267,7 +327,8 @@ def phase_kernels(dev):
 
     # decode-step matmul (down-projection): (4, 24576) . (24576, 3072)
     a, w = randn(4, f), randn(f, d, scale=f ** -0.5)
-    tile = _winner("matmul", None, dict(m=4, n=d, k=f, dtype="bfloat16"))
+    tile = _dispatch_tile("matmul", None,
+                          dict(m=4, n=d, k=f, dtype="bfloat16"))
     got = mm.matmul_cuda(a, w, tile=tile)
     record("matmul", got, mm.matmul_plain(a, w),
            lambda: mm.matmul_cuda(a, w, tile=tile),
@@ -277,7 +338,8 @@ def phase_kernels(dev):
 
     # decode-step RMSNorm: (4, 3072)
     x, g = randn(4, d), torch.ones(d, device=dev)
-    tile = _winner("rms_norm", None, dict(m=4, d=d, dtype="bfloat16"))
+    tile = _dispatch_tile("rms_norm", None,
+                          dict(m=4, d=d, dtype="bfloat16"))
     gb = g.to(bf)
     record("rms_norm", rn.rms_norm_cuda(x, g, tile=tile),
            rn.rms_norm_plain(x, g),
@@ -293,7 +355,7 @@ def phase_kernels(dev):
         q, k, v = (randn(b, h, s, hd) for _ in range(3))
         sig = dict(b=b, h=h, sq=s, skv=s, d=hd, causal=True,
                    dtype="bfloat16")
-        tile = _winner("flash_attention", name, sig)
+        tile = _dispatch_tile("flash_attention", name, sig)
         pairs = b * h * s * (s + 1) / 2          # unmasked (row, col)
         record(name, fn(q, k, v, True, tile=tile),
                fa.attention_plain(q, k, v, True),
@@ -311,7 +373,7 @@ def phase_kernels(dev):
     sig = dict(m=4, d=d, f=f, act="gelu", dtype="bfloat16")
     for name, fn in (("fused", mlp.fused_cuda), ("stream", mlp.stream_cuda),
                      ("split", mlp.split_cuda)):
-        tile = _winner("mlp_matmul", name, sig)
+        tile = _dispatch_tile("mlp_matmul", name, sig)
         record(name, fn(x, wg, wu, "gelu", tile=tile), want,
                lambda: fn(x, wg, wu, "gelu", tile=tile),
                lambda: mlp.mlp_plain(x, wg, wu, "gelu"), None,
@@ -324,7 +386,7 @@ def phase_kernels(dev):
     # the prefill shapes too (compared and timed, printed only)
     a = randn(256, f)
     sig = dict(m=256, n=d, k=f, dtype="bfloat16")
-    tile = _winner("matmul", None, sig)
+    tile = _dispatch_tile("matmul", None, sig)
     got = mm.matmul_cuda(a, w, tile=tile)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), mm.matmul_plain(a, w).float(),
@@ -336,8 +398,8 @@ def phase_kernels(dev):
     print(f"[kernels] matmul prefill (256x{f}).({f}x{d}) tile {tile}: "
           f"{ms:.4f} ms, torch.matmul {lib:.4f} ms, bound {b_ms:.4f} ms")
     x = randn(256, d)
-    tile = _winner("mlp_matmul", "fused", dict(m=256, d=d, f=f, act="gelu",
-                                               dtype="bfloat16"))
+    tile = _dispatch_tile("mlp_matmul", "fused",
+                          dict(m=256, d=d, f=f, act="gelu", dtype="bfloat16"))
     got = mlp.fused_cuda(x, wg, wu, "gelu", tile=tile)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(),
@@ -452,13 +514,15 @@ def phase_table4(dev):
 
 def phase_ranking(dev):
     """Time every feasible (variant, tile) of the main path's instances
-    and set the H100 analysis' predicted times beside them: Spearman
-    rank correlation, the static pick, the measured best, and the pick's
-    regret (its time over the best's)."""
+    and set the H100 analysis' predicted times beside them, ranked as
+    dispatch ranks them: Spearman rank correlation, the static pick (the
+    row dispatch launches), the measured best, and the pick's regret
+    (its time over the best's)."""
     import numpy as np
     import torch
     from repro_torch.core.hw import H100_SXM
     from repro_torch.core.predict import spearman
+    from repro_torch import tuning_cache as tc
     from repro_torch.kernels import api
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
@@ -507,14 +571,20 @@ def phase_ranking(dev):
         cols = {k: np.asarray([p[k] for p in pts]) for k in pts[0]}
         info = spec.hopper_info_batch(cols, H100_SXM, **sig)
         pred, meas, names = [], [], []
-        for p, t_pred, ok in zip(pts, info.pipe, info.feasible):
-            if not ok:
+        for p, t_pred in zip(pts, _static_times(info)):
+            if not np.isfinite(t_pred):
                 continue
             fn = launch[(kid, p.get("variant"))]
             meas.append(time_ms(lambda: fn(p["tile"], *args), warmup=1))
             pred.append(float(t_pred) * 1e3)
             names.append(f"{p.get('variant', kid)}/{p['tile']}")
         pick = int(np.argmin(pred))
+        chosen = tc.lookup_or_tune(kid, spec="h100", db=tc.TuningDatabase(),
+                                   **sig)
+        picked = f"{chosen.get('variant', kid)}/{chosen['tile']}"
+        if names[pick] != picked:
+            fail(f"{kid} {sig}: the ranking's pick {names[pick]} is not "
+                 f"dispatch's {chosen}")
         best = int(np.argmin(meas))
         rho = spearman(pred, meas) if len(pred) > 2 else float("nan")
         regret = meas[pick] / meas[best]
@@ -674,6 +744,68 @@ def phase_profile(dev, batch: int = 4, prompt_len: int = 64,
 # phase 6: the tuning path (the paper's experiment on the card)
 # ---------------------------------------------------------------------------
 
+def tune_case(tag: str, kid: str, sig: dict) -> dict:
+    """`KernelTuner` on one instance of ``kid``'s factory: static
+    (asserted to launch nothing), static again (asserted to come from
+    the database), hybrid (the static shortlist's best 4 timed) and
+    empirical exhaustive.  Prints the space size, the static pick and
+    its measured time, the measured best, the regret, Spearman of
+    predicted against measured, the search-space reduction, the static
+    rank time and the evaluations."""
+    from repro_torch import kernels
+    from repro_torch import tuning_cache as tc
+    from repro_torch.core import KernelTuner
+
+    factory = kernels.TUNABLE_FACTORIES[kid]
+    db = tc.TuningDatabase()
+
+    def tuner():
+        return KernelTuner(factory(**sig, seed=0), repeats=5,
+                           keep_frac=0.5, db=db)
+    t = tuner()
+    if not t.hopper:
+        fail(f"{kid}: the tuner did not target the card ({t.spec.name})")
+    before = kernels.launch_counts()
+    st = t.tune("static")
+    if kernels.launch_counts() != before:
+        fail(f"{kid}: a static tune launched kernels")
+    again = tuner().tune("static")
+    if not again.from_cache or again.best_params != st.best_params \
+            or kernels.launch_counts() != before:
+        fail(f"{kid}: the repeated static tune was not a cache hit")
+    hy = t.tune("hybrid", empirical_budget=4)
+    t0 = time.perf_counter()
+    em = t.tune("empirical")
+    em_wall = time.perf_counter() - t0
+    meas = {r["params"]["tile"]: r["measured_s"] for r in em.table}
+    pred = {r["params"]["tile"]: r["predicted_s"] for r in em.table}
+    pick = st.best_params["tile"]
+    best = em.best_params["tile"]
+    regret = meas[pick] / em.best_measured_s
+    shape = "x".join(str(v) for k, v in sig.items() if k != "dtype")
+    print(f"[{tag}] {kid} {shape} {sig['dtype']}: space "
+          f"{st.space_size}, static pick {pick} (pred "
+          f"{st.best_predicted_s * 1e3:.4f} ms, meas "
+          f"{meas[pick] * 1e3:.4f} ms), measured best {best} "
+          f"{em.best_measured_s * 1e3:.4f} ms, regret {regret:.3f}x, "
+          f"spearman {em.spearman_static_vs_measured:.3f}, reduction "
+          f"{st.search_space_reduction:.3f}, static rank "
+          f"{st.static_rank_time_s * 1e3:.2f} ms, static launches 0, "
+          f"cache hit {again.from_cache}; hybrid {hy.empirical_evals} "
+          f"evals -> {hy.best_params['tile']} "
+          f"{hy.best_measured_s * 1e3:.4f} ms; empirical "
+          f"{em.empirical_evals} evals in {em_wall * 1e3:.1f} ms wall; "
+          f"{st.boundedness}", flush=True)
+    print(f"[{tag}]   pred/meas ms: " + "; ".join(
+        f"{k} {pred[k] * 1e3:.4f}/{meas[k] * 1e3:.4f}" for k in meas))
+    return dict(kernel=kid, sig=sig, space=st.space_size, pick=pick,
+                pick_ms=meas[pick] * 1e3, best=best,
+                best_ms=em.best_measured_s * 1e3, regret=regret,
+                rho=em.spearman_static_vs_measured,
+                hybrid_pick=hy.best_params["tile"],
+                hybrid_ms=hy.best_measured_s * 1e3)
+
+
 TUNER_CASES = [(k, dict(TABLE4_SHAPES[k], dtype=dt)) for k in TABLE4
                for dt in (("float32",) if k == "jacobi3d"
                           else ("float32", "bfloat16"))] \
@@ -681,71 +813,13 @@ TUNER_CASES = [(k, dict(TABLE4_SHAPES[k], dtype=dt)) for k in TABLE4
 
 
 def phase_tuner():
-    """`KernelTuner` on each TUNER_CASES instance: static (asserted to
-    launch nothing), static again (asserted to come from the database),
-    hybrid (the static shortlist's best 4 timed) and empirical
-    exhaustive; then the quickstart in process.  Prints the space size,
-    the static pick and its measured time, the measured best, the
-    regret, Spearman of predicted against measured, the search-space
-    reduction, the static rank time and the evaluations."""
+    """`tune_case` on each TUNER_CASES instance, then the quickstart in
+    process."""
     from repro_torch import kernels
-    from repro_torch import tuning_cache as tc
-    from repro_torch.core import KernelTuner
     from repro_torch.examples import quickstart
 
-    rows = []
     kernels.reset_launch_counts()           # the tuning path starts here
-    for kid, sig in TUNER_CASES:
-        factory = kernels.TUNABLE_FACTORIES[kid]
-        db = tc.TuningDatabase()
-
-        def tuner():
-            return KernelTuner(factory(**sig, seed=0), repeats=5,
-                               keep_frac=0.5, db=db)
-        t = tuner()
-        if not t.hopper:
-            fail(f"{kid}: the tuner did not target the card "
-                 f"({t.spec.name})")
-        before = kernels.launch_counts()
-        st = t.tune("static")
-        if kernels.launch_counts() != before:
-            fail(f"{kid}: a static tune launched kernels")
-        again = tuner().tune("static")
-        if not again.from_cache or again.best_params != st.best_params \
-                or kernels.launch_counts() != before:
-            fail(f"{kid}: the repeated static tune was not a cache hit")
-        hy = t.tune("hybrid", empirical_budget=4)
-        t0 = time.perf_counter()
-        em = t.tune("empirical")
-        em_wall = time.perf_counter() - t0
-        meas = {r["params"]["tile"]: r["measured_s"] for r in em.table}
-        pred = {r["params"]["tile"]: r["predicted_s"] for r in em.table}
-        pick = st.best_params["tile"]
-        best = em.best_params["tile"]
-        regret = meas[pick] / em.best_measured_s
-        shape = "x".join(str(v) for k, v in sig.items() if k != "dtype")
-        rows.append(dict(kernel=kid, sig=sig, space=st.space_size,
-                         pick=pick, pick_ms=meas[pick] * 1e3, best=best,
-                         best_ms=em.best_measured_s * 1e3, regret=regret,
-                         rho=em.spearman_static_vs_measured,
-                         hybrid_pick=hy.best_params["tile"],
-                         hybrid_ms=hy.best_measured_s * 1e3))
-        print(f"[tuner] {kid} {shape} {sig['dtype']}: space "
-              f"{st.space_size}, static pick {pick} (pred "
-              f"{st.best_predicted_s * 1e3:.4f} ms, meas "
-              f"{meas[pick] * 1e3:.4f} ms), measured best {best} "
-              f"{em.best_measured_s * 1e3:.4f} ms, regret {regret:.3f}x, "
-              f"spearman {em.spearman_static_vs_measured:.3f}, reduction "
-              f"{st.search_space_reduction:.3f}, static rank "
-              f"{st.static_rank_time_s * 1e3:.2f} ms, static launches 0, "
-              f"cache hit {again.from_cache}; hybrid {hy.empirical_evals} "
-              f"evals -> {hy.best_params['tile']} "
-              f"{hy.best_measured_s * 1e3:.4f} ms; empirical "
-              f"{em.empirical_evals} evals in {em_wall * 1e3:.1f} ms wall; "
-              f"{st.boundedness}",
-              flush=True)
-        print("[tuner]   pred/meas ms: " + "; ".join(
-            f"{k} {pred[k] * 1e3:.4f}/{meas[k] * 1e3:.4f}" for k in meas))
+    rows = [tune_case("tuner", kid, sig) for kid, sig in TUNER_CASES]
     print("[tuner] quickstart (atax 1024 x 512 float32, in L2):", flush=True)
     quickstart.main([])
     launches = kernels.launch_counts()       # ... and ends here
@@ -806,6 +880,240 @@ def phase_dispatch(dev):
     tc.thaw()
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the kernel API's extension path
+# ---------------------------------------------------------------------------
+
+# ops.stencil2d's instances: the reference's pretune grid, then 8192^2
+# (268 MB in and out in f32, above the 50 MB L2)
+STENCIL_SIGS = [dict(y=512, x=512, dtype="float32"),
+                dict(y=1024, x=1024, dtype="float32"),
+                dict(y=2048, x=2048, dtype="float32"),
+                dict(y=1024, x=1024, dtype="bfloat16"),
+                dict(y=8192, x=8192, dtype="float32"),
+                dict(y=8192, x=8192, dtype="bfloat16")]
+# float32 tolerances: the Jacobi sweeps' 1e-5; saxpy2d's f32 result is
+# one rounding of an exact 2a plus b (1e-6); bfloat16 2e-2 for both
+EXT_TOL = {"stencil2d": 1e-5, "saxpy2d": 1e-6}
+
+
+def _hold(kid: str, got, want, dtype: str, what: str) -> float:
+    """Max abs error of ``got`` against the plain version; fatal beyond
+    the kernel's tolerance."""
+    import torch
+    torch.cuda.synchronize()
+    tol = EXT_TOL[kid] if dtype == "float32" else 2e-2
+    try:
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    except AssertionError as e:
+        fail(f"{kid} {what} disagrees with its plain version: "
+             f"{str(e).splitlines()[0:4]}")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def phase_extend(dev, card: str):
+    """The extension path through the entry points a user calls, with
+    every launch counter set to 0 before and read after: stencil2d
+    through ``ops`` (cold H100 rank, then launch) at STENCIL_SIGS, each
+    output held against the plain version; `KernelTuner` on stencil2d
+    at 8192^2 f32; the three examples' ``main``; the mega-space matmul
+    registered, dispatched under the H100 and unregistered.  Fatal if
+    a dispatch fell back or a static tune launched a kernel."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch import tuning_cache as tc
+    from repro_torch.core.target import use_target
+    from repro_torch.examples import (annotated_tuning, autotune_kernel,
+                                      custom_kernel)
+    from repro_torch.kernels import api, ops
+    from repro_torch.kernels.matmul import matmul_plain
+    from repro_torch.kernels.megamatmul import mega_matmul_spec
+    from repro_torch.kernels.stencil2d import stencil2d_plain
+
+    print(f"[extend] card: {card}", flush=True)
+    api.reset_dispatch_stats()
+    kernels.reset_launch_counts()           # the extension path starts here
+    spec = api.get_spec("stencil2d")
+    with use_target("h100"):
+        for sig in STENCIL_SIGS:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            (u,) = spec.make_inputs(gen, **sig)
+            t0 = time.perf_counter()
+            got = ops.stencil2d(u)              # cold rank, then launch
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            tile = tc.lookup_or_tune("stencil2d", **sig)[api.TILE_AXIS]
+            shape = f"{sig['y']}x{sig['x']} {sig['dtype']}"
+            err = _hold("stencil2d", got, stencil2d_plain(u), sig["dtype"],
+                        f"{shape} tile {tile}")
+            tol = EXT_TOL["stencil2d"] if sig["dtype"] == "float32" else 2e-2
+            print(f"[extend] ops.stencil2d {shape}: tile {tile} (cold H100 "
+                  f"rank + first launch {wall:.1f} ms wall), max|err| "
+                  f"{err:.3g} (tol {tol:g})", flush=True)
+            del u, got
+    tune_case("extend", "stencil2d", dict(y=8192, x=8192, dtype="float32"))
+
+    print("[extend] examples/custom_kernel.main([]) (saxpy2d, declared in "
+          "its own file):", flush=True)
+    rep = custom_kernel.main([])
+    if "hybrid" not in rep:
+        fail("custom_kernel skipped its hybrid tune")
+
+    print("[extend] examples/annotated_tuning.main([]):", flush=True)
+    before = kernels.launch_counts()
+    rep = annotated_tuning.main([])
+    p = rep.best_params
+    if (p["bm"], p["bn"], p["bk"]) not in annotated_tuning.TILE_OF:
+        fail(f"the annotated static pick {p} is not a compiled GEMM tile")
+    if kernels.launch_counts() != before:
+        fail("the annotated static tune launched kernels")
+
+    print("[extend] examples/autotune_kernel.main([]):", flush=True)
+    autotune_kernel.main([])
+
+    mega = mega_matmul_spec(register=True)
+    try:
+        sig = dict(m=2048, n=2048, k=2048, dtype="bfloat16")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        a, b = mega.make_inputs(gen, **sig)
+        b = b * sig["k"] ** -0.5
+        chosen = tc.lookup_or_tune("mega_matmul", spec="h100",
+                                   db=tc.TuningDatabase(), **sig)
+        with use_target("h100"):
+            got = ops.mega_matmul(a, b)
+        torch.cuda.synchronize()
+        want = matmul_plain(a, b)
+        try:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=2e-2, atol=2e-2)
+        except AssertionError as e:
+            fail(f"mega_matmul disagrees with the plain GEMM: "
+                 f"{str(e).splitlines()[0:4]}")
+        err = (got.float() - want.float()).abs().max().item()
+        print(f"[extend] mega_matmul 2048^3 bf16 under h100: space = the "
+              f"GEMM tile table, pick {chosen}, launched through "
+              f"ops.mega_matmul, max|err| {err:.3g} (tol 2e-2 abs + rel)")
+    finally:
+        api.unregister("mega_matmul")
+    launches = kernels.launch_counts()       # ... and ends here
+    st = api.dispatch_stats()
+    print(f"[extend] extension-path launches: {launches}; dispatch {st}")
+    if st["fallback"] != 0:
+        fail(f"a dispatch on the extension path fell back: {st}")
+    return launches
+
+
+def phase_extend_kernels(dev) -> dict:
+    """stencil2d and saxpy2d held against their plain versions at 8192^2
+    f32 and bf16 on the tile dispatch picks, and timed beside the plain
+    version, the bound and (saxpy2d) ``torch.add``; then the 4.2M-point
+    mega space ranked under tpu-v5e in a fresh process (host work).
+    Returns the float32 rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import tuning_cache as tc
+    from repro_torch.core.hw import dtype_bytes
+    from repro_torch.examples import custom_kernel as ck
+    from repro_torch.kernels import api
+    from repro_torch.kernels import stencil2d as st
+
+    rows = {}
+    for kid in EXTEND:
+        for dtype in ("float32", "bfloat16"):
+            sig = (dict(y=8192, x=8192, dtype=dtype) if kid == "stencil2d"
+                   else dict(m=8192, n=8192, dtype=dtype))
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            args = api.get_spec(kid).make_inputs(gen, **sig)
+            tile = tc.lookup_or_tune(kid, spec="h100", db=tc.TuningDatabase(),
+                                     **sig)[api.TILE_AXIS]
+            fn, plain = ((st.stencil2d_cuda, st.stencil2d_plain)
+                         if kid == "stencil2d"
+                         else (ck.saxpy2d_cuda, ck.saxpy2d_plain))
+            err = _hold(kid, fn(*args, tile=tile), plain(*args), dtype,
+                        f"8192x8192 {dtype} tile {tile}")
+            pts, eb = 8192.0 * 8192, dtype_bytes(dtype)
+            nbytes, flops = ((2 * pts * eb, 6 * pts) if kid == "stencil2d"
+                             else (3 * pts * eb, 2 * pts))
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            lib = (None if kid == "stencil2d"
+                   else (lambda a, b: torch.add(b, a, alpha=2.0)))
+            row = dict(max_abs_err=err,
+                       ms=time_ms(lambda: fn(*args, tile=tile)),
+                       plain_ms=time_ms(lambda: plain(*args)),
+                       bound_ms=b_ms, bound_by=b_by,
+                       library_ms=(time_ms(lambda: lib(*args))
+                                   if lib is not None else None),
+                       shape=f"8192x8192 {dtype} tile {tile}")
+            extra = ""
+            if kid == "stencil2d":
+                (u,) = args
+                c0, c1 = st.C0_DEFAULT, st.C1_DEFAULT
+                w = torch.tensor([[0.0, c1, 0.0], [c1, c0, c1],
+                                  [0.0, c1, 0.0]], device=dev,
+                                 dtype=u.dtype).view(1, 1, 3, 3)
+
+                def composite():
+                    out = u.clone()
+                    out[1:-1, 1:-1] = F.conv2d(u[None, None], w)[0, 0]
+                    return out
+                c_err = (composite().float()
+                         - plain(u).float()).abs().max().item()
+                extra = (f" | torch composite (conv2d + boundary copy, 3 "
+                         f"calls) {time_ms(composite):.4f} ms, max|err| "
+                         f"{c_err:.3g}")
+            tol = EXT_TOL[kid] if dtype == "float32" else 2e-2
+            print(f"[extend] {kid} {row['shape']}: max|err| {err:.3g} "
+                  f"(tol {tol:g} abs + rel) | kernel {row['ms']:.4f} ms | "
+                  f"plain {row['plain_ms']:.4f} ms | bound {b_ms:.4f} ms ({b_by}) "
+                  f"| library "
+                  + (f"{row['library_ms']:.4f} ms (torch.add alpha=2)"
+                     if lib is not None else "none") + extra, flush=True)
+            if dtype == "float32":
+                rows[kid] = row
+            del args
+    torch.cuda.empty_cache()
+
+    code = (
+        "import json, resource, sys, time, tracemalloc\n"
+        f"sys.path.insert(0, {SRC!r})\n"
+        "from repro_torch.core.target import use_target\n"
+        "from repro_torch.kernels.megamatmul import mega_matmul_spec\n"
+        "from repro_torch.tuning_cache.registry import _model_for, "
+        "rank_space\n"
+        "sig = dict(m=6144, n=6144, k=6144, dtype='float32')\n"
+        "with use_target('tpu-v5e') as s:\n"
+        "    prob = mega_matmul_spec().problem(**sig)\n"
+        "    model = _model_for(s)\n"
+        "    r0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss\n"
+        "    t0 = time.perf_counter()\n"
+        "    p, t, n = rank_space(prob, model)\n"
+        "    wall = time.perf_counter() - t0\n"
+        "    r1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss\n"
+        "    tracemalloc.start()\n"
+        "    rank_space(prob, model)\n"
+        "    traced = tracemalloc.get_traced_memory()[1]\n"
+        "print(json.dumps(dict(params=p, predicted_s=t, rows=n, "
+        "size=prob.space.size, wall_s=wall, extra_rss_mb=(r1 - r0) / "
+        "1024, traced_mb=traced / 2 ** 20)))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"mega-space rank failed: {out.stderr[-2000:]}")
+    r = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"[extend] mega_matmul 6144^3 f32 under tpu-v5e (host work, a "
+          f"fresh process): {r['size']} lattice points, {r['rows']} scored "
+          f"after constraint pushdown, winner {r['params']} predicted "
+          f"{r['predicted_s'] * 1e3:.4f} ms, rank wall {r['wall_s']:.2f} s, "
+          f"peak extra RSS {r['extra_rss_mb']:.0f} MB over the imports' "
+          f"high-water mark, peak traced allocations of a second rank "
+          f"{r['traced_mb']:.0f} MB", flush=True)
+    return rows
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch", "kernels",
                                       "csrc")):
@@ -833,6 +1141,8 @@ def main() -> None:
     phase_profile(dev)
     _, tuner_launches = phase_tuner()
     phase_dispatch(dev)
+    ext_launches = phase_extend(dev, card)
+    rows.update(phase_extend_kernels(dev))
 
     selected = {}
     for rep in reports:
@@ -852,10 +1162,15 @@ def main() -> None:
     if missing:
         fail(f"Table IV kernels never launched on the tuning path: "
              f"{missing}")
+    missing = [k for k in EXTEND if ext_launches.get(k, 0) == 0]
+    if missing:
+        fail(f"extension kernels never launched on the extension path: "
+             f"{missing}")
 
     # each kernel's launches on the path that launches it
     paths = {n: ("serve", launches) for n in SERVE_KERNELS}
     paths.update({n: ("tuner", tuner_launches) for n in TABLE4})
+    paths.update({n: ("extend", ext_launches) for n in EXTEND})
 
     def entry(name):
         src, replaces = KERNELS[name]

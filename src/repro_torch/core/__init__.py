@@ -5,10 +5,12 @@ Layers (paper §III):
   target     process-default hardware target (env / autodetect / scoped)
   mix        the instruction-mix record Eq. 6 prices, boundedness rule
   occupancy  CUDA Eqs. 1-5 (faithful) + TPU pipeline occupancy
-  predict    Eq. 6 time model, the H100 roofline model, rank metrics
+  predict    Eq. 6 time model, the H100 roofline model, calibration,
+             rank metrics
   search     exhaustive/random/SA/genetic/Nelder-Mead/static-pruned
   autotuner  KernelTuner (TPU block spaces, H100 tile tables) +
              GraphTuner.tune_config
+  annotations  the Orio PerfTuning front end (paper Fig. 3)
 """
 from repro_torch.core.hw import (GPU_TABLE, FERMI_M2050, KEPLER_K20,
                                  MAXWELL_M40, H100_SXM, HOPPER_TABLE,
@@ -29,8 +31,9 @@ from repro_torch.core.occupancy import (CudaOccupancy, cuda_occupancy,
                                         tpu_occupancy, suggest_block_shapes)
 from repro_torch.core.predict import (CostModel, default_tpu_model,
                                       default_cuda_model,
-                                      default_hopper_model, cuda_eq6_time,
-                                      spearman, features_matrix,
+                                      default_hopper_model, predict_time,
+                                      cuda_eq6_time, calibrate, spearman,
+                                      rank_candidates, features_matrix,
                                       static_times_batch)
 from repro_torch.core.search import (SearchSpace, SearchResult,
                                      ConfigLattice, Constraint, DEFAULT_CHUNK,
@@ -40,3 +43,4 @@ from repro_torch.core.search import (SearchSpace, SearchResult,
 from repro_torch.core.autotuner import (KernelStaticInfo, TunableKernel,
                                         TuningReport, KernelTuner,
                                         GraphTuner, make_intensity_rule)
+from repro_torch.core.annotations import annotate, parse_tuning_spec

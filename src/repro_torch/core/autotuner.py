@@ -314,8 +314,14 @@ class KernelTuner:
                                   feasible=b.feasible)
 
     def _mid_params(self) -> Params:
-        return {k: v[len(v) // 2]
-                for k, v in self.kernel.space.axes.items()}
+        mid = {k: v[len(v) // 2] for k, v in self.kernel.space.axes.items()}
+        # a joint (variant, tile) table pairs each variant with its own
+        # tiles only: the middle row of each axis may name no launch
+        space = self.kernel.space
+        if self.hopper and not space.satisfies(mid):
+            pts = space.enumerate()
+            mid = pts[len(pts) // 2]
+        return mid
 
     def representative_mix(self) -> InstructionMix:
         return self._info(self._mid_params()).mix

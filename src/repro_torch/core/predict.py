@@ -16,8 +16,8 @@ rules:
   what the hillclimb optimizes against.
 
 Coefficients are the reciprocal rates from
-:func:`repro_torch.core.hw.tpu_rate_table`.  (The reference's NNLS
-calibration from measured times waits for the port of its tuner.)
+:func:`repro_torch.core.hw.tpu_rate_table`; `calibrate` refits them to
+measured times (non-negative least squares, paper §VII).
 """
 from __future__ import annotations
 
@@ -32,8 +32,9 @@ from repro_torch.core.mix import InstructionMix
 
 __all__ = [
     "CostModel", "default_tpu_model", "default_cuda_model",
-    "default_hopper_model", "cuda_eq6_time", "spearman",
-    "features_matrix", "static_times_batch",
+    "default_hopper_model", "predict_time", "cuda_eq6_time",
+    "calibrate", "spearman", "rank_candidates", "features_matrix",
+    "static_times_batch",
 ]
 
 _FEATURES = ("mxu_flops", "vpu_flops", "trans_flops", "hbm_bytes",
@@ -193,6 +194,11 @@ def default_hopper_model(spec: Union[str, HopperSpec, None] = None
                      name=f"hopper-roofline-{spec.name}")
 
 
+def predict_time(mix: InstructionMix,
+                 model: Optional[CostModel] = None) -> float:
+    return (model or default_tpu_model()).time(mix)
+
+
 def cuda_eq6_time(o_fl: float, o_mem: float, o_ctrl: float, o_reg: float,
                   gpu: GpuSpec) -> float:
     """The faithful Eq. 6 in units of cycles, CPI weights from Table II.
@@ -205,8 +211,52 @@ def cuda_eq6_time(o_fl: float, o_mem: float, o_ctrl: float, o_reg: float,
 
 
 # ---------------------------------------------------------------------------
-# Rank metrics
+# Calibration (NNLS on measured times) + rank metrics
 # ---------------------------------------------------------------------------
+
+
+def _nnls(A: np.ndarray, b: np.ndarray, iters: int = 3000,
+          lr: Optional[float] = None) -> np.ndarray:
+    """Tiny projected-gradient NNLS (no scipy needed)."""
+    A = np.asarray(A, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    # column scaling for conditioning
+    scale = np.maximum(np.abs(A).max(axis=0), 1e-30)
+    As = A / scale
+    x = np.maximum(np.linalg.lstsq(As, b, rcond=None)[0], 0.0)
+    L = np.linalg.norm(As.T @ As, 2) + 1e-30
+    step = (lr or 1.0 / L)
+    for _ in range(iters):
+        g = As.T @ (As @ x - b)
+        x = np.maximum(x - step * g, 0.0)
+    return x / scale
+
+
+def calibrate(mixes: Sequence[InstructionMix],
+              times_s: Sequence[float],
+              base: Optional[CostModel] = None,
+              mode: str = "sum") -> CostModel:
+    """Fit non-negative Eq. 6 coefficients to measured times.
+
+    Rows are weighted by 1/t (relative least squares): the tuner cares
+    about rank order across variants that span decades of runtime, so
+    minimizing relative rather than absolute residuals is the right
+    objective.  Zero columns keep their base-model value so a kernel
+    family that never exercises a pipeline does not zero it out.
+    ``base`` defaults to `default_tpu_model`; pass `default_hopper_model`
+    to fit the H100's coefficients.
+    """
+    base = base or default_tpu_model(mode=mode)
+    A = np.stack([base.features(m) for m in mixes])
+    b = np.asarray(times_s, dtype=np.float64)
+    w = 1.0 / np.maximum(b, 1e-30)
+    active = A.max(axis=0) > 0
+    coeffs = dict(base.coeffs)
+    if active.any():
+        x = _nnls(A[:, active] * w[:, None], b * w)
+        for f, v in zip(np.array(_FEATURES)[active], x):
+            coeffs[str(f)] = float(v)
+    return CostModel(coeffs=coeffs, mode=mode, name=base.name + "-calibrated")
 
 
 def _avg_ranks(x: np.ndarray) -> np.ndarray:
@@ -234,6 +284,15 @@ def spearman(a: Sequence[float], b: Sequence[float]) -> float:
     ra -= ra.mean(); rb -= rb.mean()
     denom = np.sqrt((ra ** 2).sum() * (rb ** 2).sum())
     return float((ra * rb).sum() / denom) if denom else 0.0
+
+
+def rank_candidates(mixes: Sequence[InstructionMix],
+                    model: Optional[CostModel] = None
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Predicted times + ascending-rank order for a candidate set."""
+    model = model or default_tpu_model()
+    t = model.time_batch(mixes)
+    return t, np.argsort(t, kind="stable")
 
 
 def static_times_batch(infos: Optional[Sequence[object]],

@@ -11,6 +11,12 @@ The build lands in ``build/repro_torch_kernels/`` at the repository
 root (``REPRO_TORCH_BUILD_DIR`` overrides it), named by a digest of the
 sources and flags, so an edited source rebuilds and an unchanged one
 loads the cached library.
+
+A kernel declared outside the library — a module dropped into
+``kernels/``, or the caller's own file — brings its own ``.cu`` and
+builds it with `load_extension`: one ``nvcc`` with the same flags, into
+its own digest-named library beside the main one, loaded with ctypes.
+The library's source list and C interface never name it.
 """
 from __future__ import annotations
 
@@ -22,10 +28,10 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
-__all__ = ["library", "build_log", "check", "stream_of", "dtype_code",
-           "require_operands", "CSRC", "SOURCES"]
+__all__ = ["library", "load_extension", "build_log", "check", "stream_of",
+           "dtype_code", "require_operands", "CSRC", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("gemm.cu", "rms_norm.cu", "attention.cu", "blas2.cu",
@@ -37,6 +43,13 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _log: Dict[str, object] = {}
+# extensions: name -> (source as given, library), their build logs, a
+# lock each; the wrappers pass one module-level path object per launch,
+# so the warm check is an identity test that touches no file
+_exts: Dict[str, Tuple[object, ctypes.CDLL]] = {}
+_ext_logs: Dict[str, Dict[str, object]] = {}
+_ext_locks: Dict[str, threading.Lock] = {}
+_ext_guard = threading.Lock()   # guards _ext_locks, never held over nvcc
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -120,6 +133,17 @@ def _compile(out: Path) -> None:
     _log.update(build_s=time.perf_counter() - t0, ptxas=ptxas, cached=False)
 
 
+def _bind(lib: ctypes.CDLL, signatures: Dict[str, Sequence]) -> None:
+    """Declare every exported function's arguments (each returns a
+    cudaError_t as int) and the shared error string."""
+    for fn, args in signatures.items():
+        f = getattr(lib, fn)
+        f.argtypes = list(args)
+        f.restype = _I
+    lib.repro_error_string.argtypes = [_I]
+    lib.repro_error_string.restype = ctypes.c_char_p
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, building it first if needed."""
     global _lib
@@ -133,29 +157,83 @@ def library() -> ctypes.CDLL:
             else:
                 _compile(out)
             lib = ctypes.CDLL(str(out))
-            for fn, args in _SIGNATURES.items():
-                f = getattr(lib, fn)
-                f.argtypes = args
-                f.restype = _I
-            lib.repro_error_string.argtypes = [_I]
-            lib.repro_error_string.restype = ctypes.c_char_p
+            _bind(lib, _SIGNATURES)
             _log["path"] = str(out)
             _lib = lib
     return _lib
 
 
-def build_log() -> Dict[str, object]:
+def load_extension(name: str, source: Union[str, Path],
+                   signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """Build (at first use) and load one extension: a ``.cu`` file that
+    includes ``common.cuh``, exports ``signatures``' functions with C
+    linkage and ``REPRO_EXPORT_ERROR_STRING``.
+
+    It compiles with the library's flags into
+    ``lib<name>_<digest>.so`` in the build directory, the digest taken
+    over the flags, the source and the shared headers, so an edited
+    source rebuilds and an unchanged one loads the cached file.  Later
+    calls in the process return the loaded library without touching
+    the files (the wrappers call this on every launch), as `library`
+    does.  A failed build raises: there is no CPU fallback for a CUDA
+    tensor.
+    """
+    hit = _exts.get(name)
+    if hit is not None and hit[0] is source:
+        return hit[1]
+    with _ext_guard:
+        lock = _ext_locks.setdefault(name, threading.Lock())
+    with lock:
+        hit = _exts.get(name)
+        if hit is not None and hit[0] == source:
+            return hit[1]
+        path = Path(source).resolve()
+        h = hashlib.sha256(" ".join(_FLAGS).encode())
+        h.update(path.read_bytes())
+        for hdr in _HEADERS:
+            h.update((CSRC / hdr).read_bytes())
+        out = _build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
+        log: Dict[str, object] = {"build_s": 0.0, "ptxas": {},
+                                  "cached": True}
+        if not out.is_file():
+            out.parent.mkdir(parents=True, exist_ok=True)
+            t0 = time.perf_counter()
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            p = subprocess.run(
+                [_nvcc(), *_FLAGS, "-I", str(CSRC), "-shared", "-o",
+                 str(tmp), str(path), "-lcudart"],
+                capture_output=True, text=True)
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed for extension {name!r} "
+                                   f"({path}, rc={p.returncode}):\n"
+                                   f"{p.stderr[-4000:]}")
+            os.replace(tmp, out)
+            log = {"build_s": time.perf_counter() - t0,
+                   "ptxas": {path.name: p.stdout + p.stderr},
+                   "cached": False}
+        lib = ctypes.CDLL(str(out))
+        _bind(lib, signatures)
+        _ext_logs[name] = dict(log, path=str(out))
+        _exts[name] = (source, lib)
+    return lib
+
+
+def build_log(extension: Optional[str] = None) -> Dict[str, object]:
     """Build time, library path and ``-Xptxas -v`` output per source of
-    the build this process made (empty until `library` ran)."""
+    the build this process made of the library (empty until `library`
+    ran), or of the named extension (empty until it loaded)."""
+    if extension is not None:
+        return dict(_ext_logs.get(extension, {}))
     return dict(_log)
 
 
-def check(rc: int, what: str) -> None:
+def check(rc: int, what: str, lib: Optional[ctypes.CDLL] = None) -> None:
     """Raise when a launch returned a CUDA error: a refused launch (too
     many threads, too much shared memory) never runs, and a later
-    synchronize would not report it."""
+    synchronize would not report it.  ``lib`` is the extension that
+    launched (default: the kernel library)."""
     if rc != 0:
-        msg = library().repro_error_string(rc).decode()
+        msg = (lib or library()).repro_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 

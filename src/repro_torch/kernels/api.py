@@ -33,6 +33,12 @@ Under a TPU or legacy GPU target the winner names no compiled tile, so
 the wrapper launches its variant's own feasible fallback tile (the
 counterpart of the reference wrapper running the fallback tiling for a
 `GpuSpec`).
+
+``space`` also accepts an Orio-style ``PerfTuning`` annotation string
+(paper Fig. 3); see `repro_torch.core.annotations.parse_tuning_spec`.
+A kernel declared outside this package (`register_spec`, or
+``@tuned_kernel`` in the caller's own module) gets the same stack; its
+CUDA source builds through `repro_torch.kernels._cuda.load_extension`.
 """
 from __future__ import annotations
 
@@ -50,6 +56,7 @@ from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
 import numpy as np
 
 from repro_torch import tuning_cache
+from repro_torch.core.annotations import parse_tuning_spec
 from repro_torch.core.autotuner import TunableKernel
 from repro_torch.core.hw import H100_SXM, GpuSpec, HopperSpec
 from repro_torch.core.mix import InstructionMix
@@ -73,7 +80,8 @@ from repro_torch.tuning_cache.binder import (SigBinder, compile_binder,
 __all__ = [
     "KernelSpec", "tuned_kernel", "divisors", "Divisors",
     "CudaProfile", "cuda_profile", "KernelVariant", "HopperSpace",
-    "TILE_AXIS", "get_spec", "registered_kernels",
+    "TILE_AXIS", "register_spec", "register_variant",
+    "unregister_variant", "get_spec", "registered_kernels", "unregister",
     "reset_dispatch_failure_log",
     "dispatch_stats", "reset_dispatch_stats", "collect_dispatches",
 ]
@@ -130,11 +138,15 @@ class _Literal:
 
 
 def _coerce_space(kernel_id: str, space) -> Dict[str, Any]:
-    """Accept {name: Divisors | sequence}."""
+    """Accept {name: Divisors | sequence} or an Orio annotation string."""
+    if isinstance(space, str):
+        space = {name: tuple(vals)
+                 for name, vals in parse_tuning_spec(space).axes.items()}
     if not isinstance(space, Mapping) or not space:
         raise ValueError(
             f"@tuned_kernel({kernel_id!r}): space must declare at least "
-            f"one tunable axis, got {space!r}")
+            f"one tunable axis (a dict of axes or a PerfTuning "
+            f"annotation string), got {space!r}")
     out: Dict[str, Any] = {}
     for name, axis in space.items():
         if isinstance(axis, Divisors):
@@ -392,6 +404,14 @@ class KernelSpec:
       for empirical/hybrid tuning, made on ``generator``'s device
       (optional; static-only kernels may omit it).
     * ``reference`` — the plain-PyTorch oracle (optional).
+    * ``constraints`` — feasibility predicates over the declared axes
+      (`Constraint`s or bare columns->mask callables, or one
+      ``(**signature) -> sequence`` factory), as the reference's.  They
+      restrict the TPU block space only: the H100 tile table is its own
+      lattice of compiled instantiations, as the CUDA threads space is
+      in the reference.
+    * ``chunk_size`` — preferred `rank_space` streaming chunk (None:
+      ``DEFAULT_CHUNK``).
     * ``cuda``, ``pretune``, ``variants``, ``primary_variant``,
       ``model`` — as the reference.
     """
@@ -408,6 +428,8 @@ class KernelSpec:
     pretune: Tuple[Dict[str, Any], ...] = ()
     cuda: Optional[CudaProfile] = None
     model: Optional[str] = None
+    constraints: Any = None
+    chunk_size: Optional[int] = None
     variants: Any = None
     primary_variant: Optional[str] = None
 
@@ -438,42 +460,112 @@ class KernelSpec:
         self._fn_kw = None
         self._axis_names = frozenset(self.space)
         self._primary_id = self.primary_variant or "primary"
-        self._variants: Optional[Dict[str, KernelVariant]] = None
+        variants: Optional[Dict[str, KernelVariant]] = None
         extra = tuple(self.variants or ())
-        if extra:
-            self._variants = {self._primary_id: KernelVariant(
-                variant_id=self._primary_id, fn=self.fn, space=self.space,
-                analysis=self.analysis)}
+        if extra or self.primary_variant is not None:
+            variants = {self._primary_id: self._primary_as_variant()}
             for v in extra:
-                v = dataclasses.replace(v, space=_coerce_space(
-                    f"{self.kernel_id}/{v.variant_id}", v.space))
-                check_variant_schema(self.kernel_id, self._sig_names, v)
-                if v.variant_id in self._variants:
-                    raise ValueError(
-                        f"@tuned_kernel({self.kernel_id!r}): variant "
-                        f"{v.variant_id!r} is declared twice")
-                self._variants[v.variant_id] = v
-        self.variants = None     # consumed into _variants; don't alias
+                v = self._checked_variant(v, variants)
+                variants[v.variant_id] = v
+        self.variants = None     # consumed into _impls; don't alias
         # the H100 space per implementation id (None: single-variant)
         if isinstance(self.hopper, HopperSpace):
-            self._hopper = {None if self._variants is None
-                            else self._primary_id: self.hopper}
+            hopper = {None if variants is None
+                      else self._primary_id: self.hopper}
         else:
-            self._hopper = dict(self.hopper)
-        want = set(self._variants) if self._variants is not None else {None}
-        if set(self._hopper) != want:
+            hopper = dict(self.hopper)
+        want = set(variants) if variants is not None else {None}
+        if set(hopper) != want:
             raise ValueError(
                 f"@tuned_kernel({self.kernel_id!r}): hopper= must give a "
                 f"HopperSpace for exactly the implementations "
                 f"{sorted(map(str, want))}, got "
-                f"{sorted(map(str, self._hopper))}")
+                f"{sorted(map(str, hopper))}")
+        # (implementations, their H100 spaces), published as ONE tuple
+        # so a dispatch racing `add_variant` sees the old pair or the new
+        self._impls = (variants, hopper)
         self._tile_fallback: Dict[Tuple, Tuple[Optional[str], str]] = {}
 
+    @property
+    def _variants(self) -> Optional[Dict[str, KernelVariant]]:
+        return self._impls[0]
+
+    @property
+    def _hopper(self) -> Dict[Optional[str], HopperSpace]:
+        return self._impls[1]
+
     # -- variant set --------------------------------------------------------
+    def _primary_as_variant(self) -> KernelVariant:
+        return KernelVariant(variant_id=self._primary_id, fn=self.fn,
+                             space=self.space, analysis=self.analysis,
+                             constraints=self.constraints)
+
+    def _checked_variant(self, variant: KernelVariant,
+                         current: Mapping[str, KernelVariant]
+                         ) -> KernelVariant:
+        if not isinstance(variant, KernelVariant):
+            raise TypeError(f"a variant must be a KernelVariant, "
+                            f"got {variant!r}")
+        v = dataclasses.replace(variant, space=_coerce_space(
+            f"{self.kernel_id}/{variant.variant_id}", variant.space))
+        check_variant_schema(self.kernel_id, self._sig_names, v)
+        if v.variant_id in current:
+            raise ValueError(
+                f"@tuned_kernel({self.kernel_id!r}): variant "
+                f"{v.variant_id!r} is already registered")
+        return v
+
     def variant_ids(self) -> Tuple[str, ...]:
-        """Implementation ids, declaration-ordered (empty for a
+        """Implementation ids, insertion-ordered (empty for a
         single-implementation kernel)."""
         return tuple(self._variants) if self._variants is not None else ()
+
+    def add_variant(self, variant: KernelVariant,
+                    hopper: HopperSpace) -> None:
+        """Register another implementation of this logical op, with its
+        H100 launch space (the tiles its CUDA source compiles).
+
+        Converts a single-implementation spec to variant dispatch (the
+        decorated fn becomes the primary variant) and invalidates this
+        kernel's dispatch state — frozen tables thaw and its live memo
+        shard drops, because every existing record now answers for a
+        different (smaller) variant set.
+        """
+        if not isinstance(hopper, HopperSpace):
+            raise TypeError(f"add_variant needs the variant's H100 launch "
+                            f"space as a HopperSpace, got {hopper!r}")
+        cur, hop = self._impls
+        if cur is None:
+            cur = {self._primary_id: self._primary_as_variant()}
+            hop = {self._primary_id: hop[None]}
+        v = self._checked_variant(variant, cur)
+        self._impls = ({**cur, v.variant_id: v},
+                       {**hop, v.variant_id: hopper})
+        self._tile_fallback = {}
+        tuning_cache.registry.invalidate_kernel(self.kernel_id)
+
+    def remove_variant(self, variant_id: str) -> KernelVariant:
+        """Unregister an implementation (the primary cannot be removed —
+        it backs the fallback launch).  Invalidates dispatch state like
+        `add_variant`; the spec stays in variant mode even with only
+        the primary left, because its records carry a variant id.
+        Returns the removed variant."""
+        cur, hop = self._impls
+        if cur is None or variant_id not in cur:
+            raise KeyError(
+                f"@tuned_kernel({self.kernel_id!r}) has no variant "
+                f"{variant_id!r}; registered: {list(cur or ())}")
+        if variant_id == self._primary_id:
+            raise ValueError(
+                f"@tuned_kernel({self.kernel_id!r}): cannot remove the "
+                f"primary variant {variant_id!r}")
+        new = dict(cur)
+        removed = new.pop(variant_id)
+        self._impls = (new, {k: h for k, h in hop.items()
+                             if k != variant_id})
+        self._tile_fallback = {}
+        tuning_cache.registry.invalidate_kernel(self.kernel_id)
+        return removed
 
     def key_extras(self, spec: Any = None) -> Dict[str, Any]:
         """Extra cache-key signature entries for ``spec``: the variant-set
@@ -521,12 +613,22 @@ class KernelSpec:
             return joint_static_info_batch(self._variants, cols, sig)
         return block_info_batch(**self.analysis(cols, **sig))
 
+    def _materialize_constraints(self,
+                                 sig: Dict[str, Any]) -> Tuple[Any, ...]:
+        cons = self.constraints
+        if cons is None:
+            return ()
+        if callable(cons) and not isinstance(cons, Constraint):
+            cons = cons(**sig)
+        return tuple(cons or ())
+
     def search_space(self, **signature) -> SearchSpace:
         sig = self.normalize(signature)
         if self._variants is not None:
             return joint_space(self._variants, sig)
         return SearchSpace({name: axis.materialize(sig)
-                            for name, axis in self.space.items()})
+                            for name, axis in self.space.items()},
+                           constraints=self._materialize_constraints(sig))
 
     # -- the H100 launch space ----------------------------------------------
     def hopper_space(self, **signature) -> SearchSpace:
@@ -589,6 +691,12 @@ class KernelSpec:
                 ok=bool(b.feasible[0]))
         return scalar
 
+    def hopper_static_info(self, params: Params, spec: HopperSpec,
+                           **signature) -> HopperStaticInfo:
+        """One H100 row (``{"tile": ...}``, plus ``"variant"`` with
+        variants) priced by the H100 analysis."""
+        return self._hopper_scalar(spec, self.normalize(signature))(params)
+
     def _hopper_problem(self, spec: HopperSpec,
                         sig: Dict[str, Any]) -> "tuning_cache.TuningProblem":
         return tuning_cache.TuningProblem(
@@ -611,16 +719,17 @@ class KernelSpec:
                 return hit
         except TypeError:               # unhashable signature value
             key = None
-        primary = None if self._variants is None else self._primary_id
+        variants, hopper = self._impls
+        primary = None if variants is None else self._primary_id
         out = None
         for vid in dict.fromkeys((variant_id, primary)):
-            h = self._hopper[vid]
+            h = hopper[vid]
             ok = h.info(h.tiles, sig, H100_SXM).feasible
             if ok.any():
                 out = (vid, h.tiles[int(np.argmax(ok))])
                 break
         if out is None:   # nothing fits the card's limits: let it raise
-            out = (primary, self._hopper[primary].tiles[0])
+            out = (primary, hopper[primary].tiles[0])
         if key is not None:
             self._tile_fallback[key] = out
         return out
@@ -648,7 +757,8 @@ class KernelSpec:
         return tuning_cache.TuningProblem(
             space=self.search_space(**sig),
             static_info=lambda p: self.static_info(p, **sig),
-            static_info_batch=lambda c: self.static_info_batch(c, **sig))
+            static_info_batch=lambda c: self.static_info_batch(c, **sig),
+            chunk_size=self.chunk_size)
 
     def _cuda_problem(self, gpu: GpuSpec,
                       sig: Dict[str, Any]) -> "tuning_cache.TuningProblem":
@@ -675,7 +785,7 @@ class KernelSpec:
         named no known implementation), i.e. the fallback filled gaps —
         the same accounting as the reference.
         """
-        variants = self._variants
+        variants, hopper = self._impls
         if variants is None:
             vid, var_fn = None, self.fn
             names = self._axis_names
@@ -687,7 +797,7 @@ class KernelSpec:
             var_fn = var.fn if var is not None else None
             names = frozenset(var.space) if var is not None else frozenset()
         if p and TILE_AXIS in p:
-            h = self._hopper.get(vid)
+            h = hopper.get(vid)
             complete = (h is not None and (vid is not None or variants is None)
                         and p[TILE_AXIS] in h.tiles)
         else:
@@ -845,7 +955,7 @@ _SPECS: Dict[str, KernelSpec] = {}
 
 
 def tuned_kernel(kernel_id: str, *,
-                 space: Mapping[str, Any],
+                 space: Union[Mapping[str, Any], str],
                  signature: Callable[..., Dict[str, Any]],
                  static_info: Callable[..., Dict[str, Any]],
                  hopper: Any,
@@ -855,6 +965,8 @@ def tuned_kernel(kernel_id: str, *,
                  pretune: Sequence[Mapping[str, Any]] = (),
                  cuda: Optional[CudaProfile] = None,
                  model: Optional[str] = None,
+                 constraints: Any = None,
+                 chunk_size: Optional[int] = None,
                  variants: Sequence[KernelVariant] = (),
                  primary_variant: Optional[str] = None):
     """Declare a kernel as a first-class tuning citizen: registers a
@@ -865,13 +977,21 @@ def tuned_kernel(kernel_id: str, *,
                           extract_signature=signature, analysis=static_info,
                           hopper=hopper, out=out, make_inputs=make_inputs,
                           reference=reference, pretune=tuple(pretune),
-                          cuda=cuda, model=model, variants=tuple(variants),
+                          cuda=cuda, model=model, constraints=constraints,
+                          chunk_size=chunk_size, variants=tuple(variants),
                           primary_variant=primary_variant)
-        tuning_cache.registry.register_entry(spec.kernel_id, spec)
-        _SPECS[spec.kernel_id] = spec
+        register_spec(spec)
         fn.spec = spec
         return fn
     return deco
+
+
+def register_spec(spec: KernelSpec) -> KernelSpec:
+    """Register a `KernelSpec` with the dispatch registry (duplicate
+    kernel_ids raise — two declarations must not silently shadow)."""
+    tuning_cache.registry.register_entry(spec.kernel_id, spec)
+    _SPECS[spec.kernel_id] = spec
+    return spec
 
 
 def get_spec(kernel_id: str, default: Any = dataclasses.MISSING
@@ -888,3 +1008,38 @@ def get_spec(kernel_id: str, default: Any = dataclasses.MISSING
 def registered_kernels() -> Tuple[str, ...]:
     """kernel_ids declared via `@tuned_kernel`, sorted."""
     return tuple(sorted(_SPECS))
+
+
+def register_variant(kernel_id: str, variant: KernelVariant,
+                     hopper: HopperSpace) -> None:
+    """Register another implementation of a declared logical op, with
+    the H100 launch space its CUDA source compiles.
+
+    The variant id joins the op's joint search space immediately: the
+    kernel's frozen tables thaw and its live memo entries drop (records
+    ranked without this variant answer for a stale variant set), and
+    the next cold rank scores the new implementation's sub-space
+    alongside every existing one.
+    """
+    get_spec(kernel_id).add_variant(variant, hopper)
+
+
+def unregister_variant(kernel_id: str, variant_id: str) -> KernelVariant:
+    """Remove a registered implementation (the primary cannot be
+    removed); invalidates the kernel's dispatch state like
+    `register_variant`.  Returns the removed variant."""
+    return get_spec(kernel_id).remove_variant(variant_id)
+
+
+def unregister(kernel_id: str) -> None:
+    """Remove a declaration (tests and examples cleaning up after
+    themselves, or deliberately replacing one); missing ids are a
+    no-op.  Also evicts the op wrapper `ops.__getattr__` may have
+    memoized into the module, so a re-declaration under the same id
+    dispatches through the new spec rather than a stale global."""
+    import sys
+    _SPECS.pop(kernel_id, None)
+    tuning_cache.registry.unregister(kernel_id)
+    ops_mod = sys.modules.get("repro_torch.kernels.ops")
+    if ops_mod is not None:
+        ops_mod.__dict__.pop(kernel_id, None)

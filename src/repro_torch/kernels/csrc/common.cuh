@@ -49,6 +49,10 @@ static cudaError_t allow_smem(K kernel, int bytes, int* configured) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e == cudaSuccess) *configured = bytes;
+  // the caller returns e: clear it from the runtime's last error, or the
+  // next launch checked anywhere in the process (the libraries share
+  // one runtime) would report it as its own
+  else cudaGetLastError();
   return e;
 }
 
@@ -99,3 +103,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 static inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
+
+// The C interface's error string.  Every shared library the port builds
+// (the kernel library and each extension of `_cuda.load_extension`)
+// exports it once, so a wrapper can name the error its own library's
+// launch returned.
+#define REPRO_EXPORT_ERROR_STRING                                           \
+  extern "C" const char* repro_error_string(int err) {                      \
+    return cudaGetErrorString((cudaError_t)err);                            \
+  }

@@ -69,8 +69,6 @@ int repro_tile_count(int kind) {
   return n;
 }
 
-const char* repro_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
-
 }  // extern "C"
+
+REPRO_EXPORT_ERROR_STRING

@@ -24,15 +24,20 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from repro_torch.core.autotuner import TunableKernel
+from repro_torch.core.search import SearchSpace
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, KernelVariant, TILE_AXIS,
-                                     cuda_profile, divisors, tuned_kernel)
+                                     cuda_profile, divisors, get_spec,
+                                     tuned_kernel)
 from repro_torch.core.hw import dtype_bytes
-from repro_torch.kernels.common import cdiv, dtype_name, require_shape
+from repro_torch.kernels.common import (cdiv, dtype_name, dtype_str,
+                                        pick_divisor_candidates,
+                                        require_shape)
 
 __all__ = ["flash_attention", "blocked_attention", "attention_plain",
-           "flash_cuda", "blocked_cuda", "FLASH_TILES", "BLOCKED_TILES",
-           "LAUNCHES"]
+           "flash_cuda", "blocked_cuda", "make_tunable_flash",
+           "FLASH_TILES", "BLOCKED_TILES", "LAUNCHES"]
 
 # Launches of each CUDA kernel by its wrapper (one per call).
 LAUNCHES = {"flash": 0, "blocked": 0}
@@ -283,3 +288,21 @@ def flash_attention(q, k, v, causal: bool = True, *,
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal)
     return flash_cuda(q, k, v, causal, tile=tile)
+
+
+def make_tunable_flash(b: int = 2, h: int = 4, s: int = 1024, d: int = 128,
+                       causal: bool = True, dtype="float32", seed: int = 0,
+                       device=None) -> TunableKernel:
+    """flash_attention at (b, h, s, d) for `repro_torch.core.KernelTuner`:
+    the reference's narrowed (bq, bkv) space under a TPU target, the
+    joint (variant, tile) table under the H100 — the active target (see
+    `KernelSpec.tunable`).  The op declares no ``make_inputs=``, so it
+    tunes statically only."""
+    space = SearchSpace({
+        "bq": pick_divisor_candidates(s, (128, 256, 512)),
+        "bkv": pick_divisor_candidates(s, (128, 256, 512)),
+    })
+    return get_spec("flash_attention").tunable(
+        b=b, h=h, sq=s, skv=s, d=d, causal=causal, dtype=dtype_str(dtype),
+        seed=seed, space=space, name=f"flash_{b}x{h}x{s}x{d}",
+        device=device)

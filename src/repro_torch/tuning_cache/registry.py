@@ -64,7 +64,8 @@ from repro_torch.tuning_cache.keys import (CacheKey, MODEL_VERSION,
 from repro_torch.tuning_cache.store import (TuningDatabase, TuningRecord,
                                             now_unix)
 
-__all__ = ["TuningProblem", "register_entry", "dispatch_key",
+__all__ = ["TuningProblem", "register_entry", "unregister",
+           "invalidate_kernel", "dispatch_key",
            "get_problem", "registered", "rank_space", "lookup_or_tune",
            "clear_dispatch_memo", "on_dispatch_memo_clear",
            "freeze", "thaw", "is_frozen", "frozen_lookup",
@@ -108,14 +109,42 @@ def register_entry(kernel_id: str, entry: Any) -> Any:
     """Register an entry object (``problem``/``normalize`` protocol).
 
     Duplicate kernel_ids raise: two declarations silently shadowing each
-    other would make dispatch results dependent on import order.
+    other would make dispatch results dependent on import order.  Use
+    :func:`unregister` first to deliberately replace one.
     """
     if kernel_id in _REGISTRY:
         raise ValueError(
-            f"kernel_id {kernel_id!r} is already registered "
+            f"kernel_id {kernel_id!r} is already registered; "
+            f"unregister({kernel_id!r}) first to replace it "
             f"(registered: {registered()})")
     _REGISTRY[kernel_id] = entry
     return entry
+
+
+def unregister(kernel_id: str) -> None:
+    """Remove a registration (no-op when absent).  Drops the kernel's
+    memo shard and thaws any frozen table so a re-registration under
+    the same id can never be served another declaration's params."""
+    if _REGISTRY.pop(kernel_id, None) is not None:
+        thaw()
+    with _models_lock:
+        _DISPATCH_MEMO.pop(kernel_id, None)
+
+
+def invalidate_kernel(kernel_id: str) -> None:
+    """Invalidate one kernel's dispatch state in place: thaw the frozen
+    tier (its tables may hold this kernel's now-stale records) and drop
+    the kernel's live memo shard.  The registration itself stays.
+
+    This is the hook `register_variant` / `unregister_variant` fire —
+    a variant-set mutation changes the kernel's key extras, so every
+    frozen or memoized answer for it belongs to a key the kernel no
+    longer asks.
+    """
+    if kernel_id in _REGISTRY:
+        thaw()
+    with _models_lock:
+        _DISPATCH_MEMO.pop(kernel_id, None)
 
 
 def registered() -> Tuple[str, ...]:

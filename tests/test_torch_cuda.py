@@ -4,11 +4,14 @@ decision is taken inside the fixture, never at import).  Run them on the
 H100 with ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 
 Tolerances are those of ``tests/test_kernels.py`` (2e-4 for float32 —
-1e-3 for atax and BiCG, 1e-5 for the Jacobi sweep — and 2e-2 for
-bfloat16): both sides accumulate in f32, in different orders.
+1e-3 for atax and BiCG, 1e-5 for the Jacobi sweeps, 1e-6 for saxpy2d —
+and 2e-2 for bfloat16): both sides accumulate in f32, in different
+orders.
 TF32 is switched off so the plain float32 products stay IEEE f32.
 """
 import ctypes
+import importlib
+import sys
 
 import numpy as np
 import pytest
@@ -30,6 +33,8 @@ from repro_torch.kernels.mlp_matmul import (GATED_TILES, STREAM_TILES,
                                             split_cuda, stream_cuda)
 from repro_torch.kernels.rms_norm import (RMS_TILES, rms_norm_cuda,
                                           rms_norm_plain)
+from repro_torch.kernels.stencil2d import (STENCIL_TILES, stencil2d_cuda,
+                                           stencil2d_plain)
 
 DTYPES = [torch.float32, torch.bfloat16]
 
@@ -249,3 +254,133 @@ def test_fallback_tile_is_feasible_at_the_serve_shapes(cuda):
     vid, tile = spec.fallback_tile("stream", m=256, d=3072, f=24576,
                                    act="gelu", dtype="bfloat16")
     assert vid in ("stream", "fused") and tile
+
+
+# ---------------------------------------------------------------------------
+# the extension path: stencil2d (kernels/) and saxpy2d (examples/)
+# ---------------------------------------------------------------------------
+
+# ragged against every tile, a grid of boundary cells only, one row
+EXT_SHAPES = [(257, 131), (3, 3), (1, 1000)]
+CUSTOM = "repro_torch.examples.custom_kernel"
+
+
+def _custom_kernel():
+    """The example module, imported (so its declaration registers) or
+    reloaded if another test unregistered it."""
+    mod = sys.modules.get(CUSTOM)
+    if mod is None:
+        return importlib.import_module(CUSTOM)
+    if "saxpy2d" not in api.registered_kernels():
+        mod = importlib.reload(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tile", list(STENCIL_TILES))
+@pytest.mark.parametrize("shape", EXT_SHAPES)
+def test_stencil2d_kernel(cuda, dtype, tile, shape):
+    u = _rand(shape, dtype, cuda, 60)
+    got = stencil2d_cuda(u, tile=tile)
+    torch.cuda.synchronize()
+    _close(got, stencil2d_plain(u), dtype, f32=1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tile", ["t128v1", "t256v2", "t1024v4"])
+@pytest.mark.parametrize("shape", EXT_SHAPES)
+def test_saxpy2d_kernel(cuda, dtype, tile, shape):
+    ck = _custom_kernel()
+    a, b = _rand(shape, dtype, cuda, 61), _rand(shape, dtype, cuda, 62)
+    got = ck.saxpy2d_cuda(a, b, tile=tile)
+    torch.cuda.synchronize()
+    _close(got, ck.saxpy2d_plain(a, b), dtype, f32=1e-6)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_saxpy2d_every_tile_and_unaligned_views(cuda, dtype):
+    """Every tile on a ragged shape, and on views one element past a
+    16-byte boundary (the scalar path)."""
+    ck = _custom_kernel()
+    a, b = _rand((257, 131), dtype, cuda, 63), _rand((257, 131), dtype,
+                                                   cuda, 64)
+    flat_a = _rand((1 + 37 * 41,), dtype, cuda, 65)
+    flat_b = _rand((1 + 37 * 41,), dtype, cuda, 66)
+    va, vb = flat_a[1:].view(37, 41), flat_b[1:].view(37, 41)
+    for tile in ck.SAXPY_TILES:
+        for x, y in ((a, b), (va, vb)):
+            got = ck.saxpy2d_cuda(x, y, tile=tile)
+            torch.cuda.synchronize()
+            _close(got, ck.saxpy2d_plain(x, y), dtype, f32=1e-6)
+
+
+def _compiled_table(lib, fn, width):
+    out, rows, i = (ctypes.c_int * 6)(), [], 0
+    while getattr(lib, fn)(i, out) == 0:
+        rows.append(tuple(out[j] for j in range(width)))
+        i += 1
+    return rows
+
+
+def test_extension_tile_tables_match_their_declarations(cuda):
+    """Each extension's compiled table is its declared hopper= tiles,
+    in order; and the compiled attributes are readable per tile."""
+    from repro_torch.kernels import stencil2d
+    ck = _custom_kernel()
+    for mod, fn, table, width in (
+            (stencil2d, "stencil2d_tile_info", STENCIL_TILES, 3),
+            (ck, "saxpy2d_tile_info", ck.SAXPY_TILES, 2)):
+        lib = mod.extension()
+        assert _compiled_table(lib, fn, width) == list(table.values())
+        assert api.get_spec(fn.split("_")[0])._hopper[None].tiles == \
+            tuple(table)
+        regs, smem, thr = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        attrs = getattr(lib, fn.replace("tile_info", "attrs"))
+        for i in range(len(table)):
+            assert attrs(i, 1, ctypes.byref(regs), ctypes.byref(smem),
+                         ctypes.byref(thr)) == 0
+            assert 0 < regs.value <= 255
+
+
+def test_load_extension_reuses_the_cached_library(cuda):
+    """A second load in the process returns the loaded library; a new
+    process (the in-process memo dropped) loads the cached file instead
+    of building."""
+    from repro_torch.kernels import stencil2d
+    lib = stencil2d.extension()
+    assert stencil2d.extension() is lib
+    _cuda._exts.pop("stencil2d")
+    again = stencil2d.extension()
+    log = _cuda.build_log("stencil2d")
+    assert log["cached"] and log["build_s"] == 0.0
+    u = _rand((40, 50), torch.float32, cuda, 67)
+    got = stencil2d_cuda(u, tile="x32y1r16")
+    torch.cuda.synchronize()
+    _close(got, stencil2d_plain(u), torch.float32, f32=1e-5)
+    assert again is not None
+
+
+def test_load_extension_raises_when_nvcc_fails(cuda, tmp_path):
+    bad = tmp_path / "broken.cu"
+    bad.write_text("this is not CUDA\n")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _cuda.load_extension("broken", bad, {})
+
+
+def test_extension_ops_dispatch_launches_the_kernels(cuda):
+    """stencil2d and saxpy2d through their generated ops under the H100
+    target: each launches its CUDA kernel and agrees with its plain
+    version."""
+    from repro_torch.core.target import use_target
+    ck = _custom_kernel()
+    kernels.reset_launch_counts()
+    u = _rand((70, 90), torch.float32, cuda, 68)
+    a, b = _rand((33, 65), torch.float32, cuda, 69), \
+        _rand((33, 65), torch.float32, cuda, 70)
+    with use_target("h100"):
+        _close(ops.stencil2d(u), stencil2d_plain(u), torch.float32,
+               f32=1e-5)
+        _close(ops.saxpy2d(a, b), ck.saxpy2d_plain(a, b), torch.float32,
+               f32=1e-6)
+    counts = kernels.launch_counts()
+    assert counts["stencil2d"] == 1 and counts["saxpy2d"] == 1, counts
