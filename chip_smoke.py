@@ -10,9 +10,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
              compiled instantiation's registers beside the analysis'
              declared estimate;
 2. kernels — every kernel wrapper on the card at the shapes the serving
-             path gives it, held against its plain PyTorch version, and
-             timed beside that version, its roofline bound and, where one
-             PyTorch call computes the same function, that call; then
+             path gives it (the matmul at decode, M = 4, on its split-K
+             GEMV pick and at prefill, M = 256, on its TMA + wgmma pick,
+             and the split-K reduction), held against its plain PyTorch
+             version, and timed beside that version, its roofline bound
+             and, where one PyTorch call computes the same function,
+             that call, with the matmul's host time per call; then
              every feasible (variant, tile) of the serving instances
              timed beside the H100 analysis' prediction (rank
              correlation, the static pick's regret);
@@ -41,7 +44,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
              it at 8192^2 (static, hybrid, exhaustive), the examples
              ``custom_kernel`` (saxpy2d, declared in its own file),
              ``annotated_tuning`` and ``autotune_kernel``, and the
-             mega-space matmul factory; launch counters set to 0 before
+             mega-space matmul factory (2048^3 bf16, timed beside its
+             bound and ``torch.matmul``); launch counters set to 0 before
              and read after.  Then both extension kernels are held against
              their plain versions at 8192^2 f32/bf16 and timed, and the
              4.2M-point mega space is ranked under tpu-v5e (host work).
@@ -76,6 +80,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 KERNELS = {
     "matmul": ("src/repro_torch/kernels/csrc/gemm.cu",
                "src/repro/kernels/matmul.py:34"),
+    "matmul_prefill": ("src/repro_torch/kernels/csrc/gemm.cu",
+                       "src/repro/kernels/matmul.py:34"),
+    "splitk_reduce": ("src/repro_torch/kernels/csrc/gemm.cu",
+                      "src/repro/kernels/matmul.py:34"),
     "rms_norm": ("src/repro_torch/kernels/csrc/rms_norm.cu",
                  "src/repro/kernels/rms_norm.py:30"),
     "flash": ("src/repro_torch/kernels/csrc/attention.cu",
@@ -101,8 +109,12 @@ KERNELS = {
     "saxpy2d": ("src/repro_torch/examples/saxpy2d.cu",
                 "examples/custom_kernel.py:34"),
 }
-SERVE_KERNELS = ("matmul", "rms_norm", "flash", "blocked", "fused", "stream",
-                 "split")
+SERVE_KERNELS = ("matmul", "matmul_prefill", "splitk_reduce", "rms_norm",
+                 "flash", "blocked", "fused", "stream", "split")
+# the launch counter of a kernel listed under another name: the prefill
+# matmul row is the wgmma family's GEMM kernel (matmul and the split
+# MLP's passes)
+COUNTER = {"matmul_prefill": "gemm_wgmma"}
 TABLE4 = ("matvec", "atax", "bicg", "jacobi3d")
 EXTEND = ("stencil2d", "saxpy2d")
 
@@ -173,6 +185,7 @@ def phase_build():
     import ctypes
     from repro_torch.examples import custom_kernel
     from repro_torch.kernels import _cuda, api, stencil2d
+    from repro_torch.kernels import matmul as mm
     t0 = time.perf_counter()
     # the library and the two extensions, each nvcc started at once
     with concurrent.futures.ThreadPoolExecutor(3) as ex:
@@ -216,6 +229,10 @@ def phase_build():
         for i, tile in enumerate(h.tiles):
             got = []
             for dt in (0, 1):
+                if kind == 0 and dt == 0 and \
+                        mm.GEMM_TILES[tile][5] == mm.WGMMA:
+                    got.append("-")         # bf16 only
+                    continue
                 rc = lib.repro_kernel_attrs(kind, i, dt, ctypes.byref(regs),
                                             ctypes.byref(smem),
                                             ctypes.byref(thr))
@@ -300,7 +317,7 @@ def phase_kernels(dev):
     results = {}
 
     def record(name, got, want, fn, plain, lib_fn, nbytes, flops,
-               shape):
+               shape, peak="bfloat16"):
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         ref = want.float().abs().max().item()
@@ -310,13 +327,13 @@ def phase_kernels(dev):
         except AssertionError as e:
             fail(f"{name} at {shape} disagrees with its plain version: "
                  f"{str(e).splitlines()[0:4]}")
-        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        b_ms, b_by = bound(nbytes, flops, peak)
         row = dict(max_abs_err=err, ms=time_ms(fn),
                    plain_ms=time_ms(plain),
                    bound_ms=b_ms, bound_by=b_by,
                    library_ms=(time_ms(lib_fn)
                                if lib_fn is not None else None),
-                   shape=shape)
+                   shape=shape, tile=shape.rpartition("tile ")[2])
         results[name] = row
         print(f"[kernels] {name} {shape}: max|err| {err:.3g} "
               f"(max|ref| {ref:.3g}, tol 2e-2 abs + 2e-2 rel) | kernel "
@@ -383,20 +400,49 @@ def phase_kernels(dev):
                         * (x @ wu))
     print(f"[kernels] torch composite for the gated MLP (two matmuls + "
           f"gelu + product, 4 calls): {composite:.4f} ms")
-    # the prefill shapes too (compared and timed, printed only)
+    # prefill matmul (down-projection of 4 x 64 tokens):
+    # (256, 24576) . (24576, 3072)
     a = randn(256, f)
-    sig = dict(m=256, n=d, k=f, dtype="bfloat16")
-    tile = _dispatch_tile("matmul", None, sig)
-    got = mm.matmul_cuda(a, w, tile=tile)
+    tile = _dispatch_tile("matmul", None,
+                          dict(m=256, n=d, k=f, dtype="bfloat16"))
+    record("matmul_prefill", mm.matmul_cuda(a, w, tile=tile),
+           mm.matmul_plain(a, w), lambda: mm.matmul_cuda(a, w, tile=tile),
+           lambda: mm.matmul_plain(a, w), lambda: torch.matmul(a, w),
+           2.0 * (256 * f + f * d + 256 * d), 2.0 * 256 * f * d,
+           f"(256x{f}).({f}x{d}) bf16 tile {tile}")
+
+    # the split-K reduction at the decode tile's workspace:
+    # [SPLIT, 4, 3072] f32 -> (4, 3072) bf16
+    split = mm.GEMM_TILES[results["matmul"]["tile"]][7]
+    if split == 1:
+        split = 16
+    ws = torch.randn((split, 4, d), generator=gen, device=dev)
+    got = mm.splitk_reduce_cuda(ws, bf)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), mm.matmul_plain(a, w).float(),
-                               rtol=2e-2, atol=2e-2)
-    ms = time_ms(lambda: mm.matmul_cuda(a, w, tile=tile))
-    lib = time_ms(lambda: torch.matmul(a, w))
-    b_ms = bound(2.0 * (256 * f + f * d + 256 * d), 2.0 * 256 * f * d,
-                 "bfloat16")[0]
-    print(f"[kernels] matmul prefill (256x{f}).({f}x{d}) tile {tile}: "
-          f"{ms:.4f} ms, torch.matmul {lib:.4f} ms, bound {b_ms:.4f} ms")
+    if not torch.equal(got, mm.splitk_reduce_plain(ws, bf)):
+        fail("splitk_reduce differs in its bits from the plain version "
+             "(the same f32 sums in the same order)")
+    record("splitk_reduce", got, mm.splitk_reduce_plain(ws, bf),
+           lambda: mm.splitk_reduce_cuda(ws, bf),
+           lambda: mm.splitk_reduce_plain(ws, bf),
+           lambda: torch.sum(ws, 0),
+           4.0 * split * 4 * d + 2.0 * 4 * d, float(split - 1) * 4 * d,
+           f"[{split}x4x{d}] f32 -> (4x{d}) bf16, library torch.sum "
+           f"(f32 out)", peak="float32")
+
+    # host cost of one matmul call (tensor maps encoded per wgmma call)
+    for m in (4, 256):
+        a = randn(m, f)
+        tile = _dispatch_tile("matmul", None,
+                              dict(m=m, n=d, k=f, dtype="bfloat16"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            mm.matmul_cuda(a, w, tile=tile)
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        print(f"[kernels] matmul host time per call, M={m} tile {tile}: "
+              f"{host_us:.1f} us (enqueue only, no sync)")
     x = randn(256, d)
     tile = _dispatch_tile("mlp_matmul", "fused",
                           dict(m=256, d=d, f=f, act="gelu", dtype="bfloat16"))
@@ -736,6 +782,12 @@ def phase_profile(dev, batch: int = 4, prompt_len: int = 64,
     for ms, key, n in rows[:12]:
         print(f"[profile]   {ms / steps:8.3f} ms/step  {100 * ms / busy:5.1f}%"
               f"  x{n // steps:<4d} {key[:90]}")
+    # the B1 kernels' device time per launch (GEMV, wgmma, split-K reduce)
+    for ms, key, n in rows:
+        if any(k in key for k in ("gemv_kernel", "wgmma_kernel",
+                                  "splitk_reduce")):
+            print(f"[profile]   B1 {key[:60]}: x{n // steps} per step, "
+                  f"{1e3 * ms / n:.2f} us device time per launch")
     del params, cache
     torch.cuda.empty_cache()
 
@@ -993,9 +1045,16 @@ def phase_extend(dev, card: str):
             fail(f"mega_matmul disagrees with the plain GEMM: "
                  f"{str(e).splitlines()[0:4]}")
         err = (got.float() - want.float()).abs().max().item()
+        with use_target("h100"):
+            ms = time_ms(lambda: ops.mega_matmul(a, b))
+        lib_ms = time_ms(lambda: torch.matmul(a, b))
+        b_ms, b_by = bound(2.0 * 3 * 2048 ** 2, 2.0 * 2048 ** 3, "bfloat16")
         print(f"[extend] mega_matmul 2048^3 bf16 under h100: space = the "
               f"GEMM tile table, pick {chosen}, launched through "
-              f"ops.mega_matmul, max|err| {err:.3g} (tol 2e-2 abs + rel)")
+              f"ops.mega_matmul, max|err| {err:.3g} (tol 2e-2 abs + rel) | "
+              f"kernel (frozen dispatch + launch) {ms:.4f} ms | bound "
+              f"{b_ms:.4f} ms ({b_by}) | torch.matmul {lib_ms:.4f} ms",
+              flush=True)
     finally:
         api.unregister("mega_matmul")
     launches = kernels.launch_counts()       # ... and ends here
@@ -1152,7 +1211,11 @@ def main() -> None:
     missing = [k for k in selected if launches.get(k, 0) == 0]
     if missing:
         fail(f"kernels picked for the main path never launched: {missing}")
-    for op, names in (("matmul", ("matmul",)), ("rms_norm", ("rms_norm",)),
+    for op, names in (("matmul", ("matmul",)),
+                      ("the decode matmul's GEMV tiles", ("gemm_gemv",)),
+                      ("the prefill matmul's wgmma tiles", ("gemm_wgmma",)),
+                      ("split-K", ("splitk_reduce",)),
+                      ("rms_norm", ("rms_norm",)),
                       ("flash_attention", ("flash", "blocked")),
                       ("mlp_matmul", ("fused", "stream", "split"))):
         if not any(launches[n] for n in names):
@@ -1177,7 +1240,8 @@ def main() -> None:
         r = rows[name]
         path, counts = paths[name]
         return {"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": counts[name],
+                "replaces": replaces,
+                "launches": counts[COUNTER.get(name, name)],
                 "path": path,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1185,10 +1249,11 @@ def main() -> None:
 
     for n in KERNELS:
         path, counts = paths[n]
-        status = "launched" if counts[n] else (
+        c = counts[COUNTER.get(n, n)]
+        status = "launched" if c else (
             "not picked by the H100 analysis for any instance")
         print(f"[smoke] kernel {n}: {status} on the {path} path"
-              f" ({counts[n]} launches), err {rows[n]['max_abs_err']:.3g}"
+              f" ({c} launches), err {rows[n]['max_abs_err']:.3g}"
               f" ok at {rows[n]['shape']}, {rows[n]['ms']:.4f} ms vs bound "
               f"{rows[n]['bound_ms']:.4f} ms")
     print(f"[smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")

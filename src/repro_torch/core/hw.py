@@ -322,6 +322,14 @@ class HopperSpec:
     # DRAM latency is ~15 KB in flight per SM; a warp of these scalar-
     # load kernels keeps ~512 B in flight, so ~32 warps (half of W_mp).
     latency_warps: int = 32
+    # Bytes an SM must keep in flight, for kernels that state their
+    # bytes in flight per block (16-byte vector loads with several rows
+    # outstanding, TMA stage rings) and so can draw more than their
+    # SM's share of the HBM rate.  Little's law at the loaded latency:
+    # 3.35 TB/s / 132 SMs x ~2.5 us.  A fit, not a datasheet number: the
+    # TMA GEMM tiles at M = 4 (chip_smoke.py [ranking]) drew 0.9-2.6 TB/s
+    # from 1.5-8 MB in flight, i.e. 1.3-3 us of latency under load.
+    latency_bytes: int = 64 * 1024
 
 
 H100_SXM = HopperSpec()

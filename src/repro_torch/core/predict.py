@@ -169,8 +169,9 @@ def default_hopper_model(spec: Union[str, HopperSpec, None] = None
                          ) -> CostModel:
     """Roofline pricing of one CUDA launch on a `HopperSpec` card.
 
-    The port's kernels do their arithmetic on the FP32 CUDA cores
-    (``mxu_flops`` and ``vpu_flops`` both at ``fp32_flops``), their
+    The port's kernels do their arithmetic on the bf16 tensor cores
+    (``mxu_flops`` at ``bf16_tensor_flops``: the wgmma GEMM tiles) or
+    on the FP32 CUDA cores (``vpu_flops`` at ``fp32_flops``), their
     exp/rsqrt on the special-function units (``trans_flops``), move
     ``hbm_bytes`` through device memory and ``vmem_bytes`` through
     shared memory; ``ctrl_ops`` counts launches.  Composition is
@@ -182,7 +183,7 @@ def default_hopper_model(spec: Union[str, HopperSpec, None] = None
         raise TypeError(
             f"default_hopper_model needs a HopperSpec; got {spec.name!r}")
     coeffs = {
-        "mxu_flops": 1.0 / spec.fp32_flops,
+        "mxu_flops": 1.0 / spec.bf16_tensor_flops,
         "vpu_flops": 1.0 / spec.fp32_flops,
         "trans_flops": 1.0 / spec.sfu_rate,
         "hbm_bytes": 1.0 / spec.hbm_bw,

@@ -21,7 +21,8 @@ import math
 from repro_torch.core import H100_SXM, InstructionMix, KernelTuner, annotate
 from repro_torch.kernels.api import HopperStaticInfo, TILE_AXIS, get_spec
 from repro_torch.kernels.common import resolve_device
-from repro_torch.kernels.matmul import GEMM_TILES, _matmul_inputs, matmul
+from repro_torch.kernels.matmul import (GEMM_TILES, SIMT, _matmul_inputs,
+                                        matmul)
 
 M = N = K = 1024
 
@@ -35,8 +36,10 @@ SPEC = """
 ) @*/
 """
 
-# (bm, bn, bk) -> the compiled GEMM tile with those dimensions
-TILE_OF = {fields[:3]: name for name, fields in GEMM_TILES.items()}
+# (bm, bn, bk) -> the compiled SIMT GEMM tile with those dimensions (the
+# annotation's space is the SIMT block space)
+TILE_OF = {fields[:3]: name for name, fields in GEMM_TILES.items()
+           if fields[5] == SIMT}
 
 
 def main(argv=None):

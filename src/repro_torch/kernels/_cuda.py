@@ -31,12 +31,13 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 __all__ = ["library", "load_extension", "build_log", "check", "stream_of",
-           "dtype_code", "require_operands", "CSRC", "SOURCES"]
+           "dtype_code", "require_operands", "CSRC", "SOURCES",
+           "TILE_INFO_INTS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("gemm.cu", "rms_norm.cu", "attention.cu", "blas2.cu",
            "jacobi3d.cu", "library.cu")
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "hopper.cuh")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
@@ -51,12 +52,17 @@ _ext_logs: Dict[str, Dict[str, object]] = {}
 _ext_locks: Dict[str, threading.Lock] = {}
 _ext_guard = threading.Lock()   # guards _ext_locks, never held over nvcc
 
+# ints one `repro_tile_info` call may write (common.cuh
+# REPRO_TILE_INFO_INTS): a caller's buffer holds this many
+TILE_INFO_INTS = 9
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every exported function (all return cudaError_t as int)
 _SIGNATURES = {
-    "repro_gemm": [_I, _I, _I, _P, _P, _P, _I, _I, _I, _P],
+    "repro_gemm": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "repro_splitk_reduce": [_I, _P, _P, _I, _I, _I, _P],
     "repro_gemm_gated": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "repro_gemm_stream": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "repro_rms_norm": [_I, _I, _P, _P, _P, _I, _I, _F, _P],

@@ -677,6 +677,27 @@ class KernelSpec:
             F[m], pipe[m], feasible[m] = info.F, info.pipe, info.feasible
         return JointBatchInfo(F=F, pipe=pipe, feasible=feasible, variant=var)
 
+    def _launchable_space(self, spec: HopperSpec,
+                          sig: Dict[str, Any]) -> SearchSpace:
+        """`hopper_space` less the rows the H100 analysis marks
+        infeasible at ``sig``."""
+        if self._variants is None:
+            h = self._hopper[None]
+            ok = h.info(h.tiles, sig, spec).feasible
+            return SearchSpace({TILE_AXIS: tuple(
+                t for t, f in zip(h.tiles, ok) if f)})
+        ok = {(vid, t) for vid, h in self._hopper.items()
+              for t, f in zip(h.tiles, h.info(h.tiles, sig, spec).feasible)
+              if f}
+
+        def _launchable(cols):
+            return np.array([(v, t) in ok for v, t in zip(
+                cols[VARIANT_AXIS], cols[TILE_AXIS])], dtype=bool)
+
+        sp = self.hopper_space(**sig)
+        return SearchSpace(dict(sp.axes), constraints=tuple(sp.constraints)
+                           + (Constraint(_launchable, name="launchable"),))
+
     def _hopper_scalar(self, spec: HopperSpec, sig: Dict[str, Any]
                        ) -> Callable[[Params], HopperStaticInfo]:
         """Scalar H100 analyzer: one row through the batch analyzer."""
@@ -684,7 +705,8 @@ class KernelSpec:
             cols = {k: np.asarray([v]) for k, v in p.items()}
             b = self.hopper_info_batch(cols, spec, **sig)
             return HopperStaticInfo(
-                mix=InstructionMix(vpu_flops=b.F[0, 1], trans_flops=b.F[0, 2],
+                mix=InstructionMix(mxu_flops=b.F[0, 0], vpu_flops=b.F[0, 1],
+                                   trans_flops=b.F[0, 2],
                                    hbm_bytes=b.F[0, 3], vmem_bytes=b.F[0, 4],
                                    ctrl_ops=b.F[0, 5]),
                 predicted_step_time=float(b.pipe[0]),
@@ -896,8 +918,11 @@ class KernelSpec:
         """Package this kernel as a `TunableKernel` for `KernelTuner`.
 
         The active target picks the space: under a `HopperSpec` the
-        compiled tile table (`hopper_space`), priced by the H100
-        analysis; under any other target the declared Pallas block space
+        compiled tile table (`hopper_space`) less the rows the H100
+        analysis marks infeasible for this signature (a shape the tile's
+        kernel does not take, a footprint past the card's limits: the
+        timed modes launch every row), priced by the H100 analysis;
+        under any other target the declared Pallas block space
         (``space`` narrows it), priced by the reference's analysis.
         ``build(p)`` returns a callable that launches the CUDA
         instantiation ``p["tile"]`` on CUDA tensors and runs the plain
@@ -909,7 +934,7 @@ class KernelSpec:
         sig = self.normalize(signature)
         target = default_target()
         if isinstance(target, HopperSpec):
-            sp = self.hopper_space(**sig)
+            sp = self._launchable_space(target, sig)
             static_info = self._hopper_scalar(target, sig)
             static_info_batch = (lambda c: self.hopper_info_batch(
                 c, target, **sig))

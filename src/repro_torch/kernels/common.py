@@ -373,23 +373,29 @@ class HopperBatchInfo:
 
 
 def hopper_info_batch(*, blocks, threads, regs, smem, flops,
-                      trans=0.0, hbm_bytes, smem_bytes=0.0, launches=1,
-                      busy_threads=None,
-                      spec: HopperSpec) -> HopperBatchInfo:
+                      tc_flops=0.0, trans=0.0, hbm_bytes, smem_bytes=0.0,
+                      launches=1, busy_threads=None, inflight_bytes=None,
+                      feasible=None, spec: HopperSpec) -> HopperBatchInfo:
     """Price N launch configurations of one CUDA kernel on ``spec``.
 
     Inputs are scalars or (N,) arrays: the grid size and threads per
     block of one launch, the declared registers per thread and shared
     bytes per block of the instantiation, and the whole op's FP32
-    ``flops``, special-function ``trans`` results, device-memory
-    ``hbm_bytes``, shared-memory ``smem_bytes`` traffic and number of
-    kernel ``launches``; ``busy_threads`` (default ``threads``) counts
-    the threads of a block that do work, where a kernel idles part of a
-    block on a short grid dimension.
+    ``flops`` on the CUDA cores, bf16 ``tc_flops`` on the tensor cores,
+    special-function ``trans`` results, device-memory ``hbm_bytes``,
+    shared-memory ``smem_bytes`` traffic and number of kernel
+    ``launches``; ``busy_threads`` (default ``threads``) counts the
+    threads of a block that do work, where a kernel idles part of a
+    block on a short grid dimension.  ``inflight_bytes`` states the
+    device-memory bytes one block keeps in flight, for a kernel whose
+    loads are not one scalar per thread (a row that gives 0 states
+    nothing); ``feasible`` is a mask of the rows whose kernel takes this
+    shape and dtype at all.
 
     * Feasibility and active blocks per SM come from Eqs. 1-5
       (`cuda_occupancy_batch`) over the per-block footprint (shared
-      bytes plus the driver's reserved kilobyte).
+      bytes plus the driver's reserved kilobyte), and-ed with
+      ``feasible``.
     * The work time is the roofline of `default_hopper_model` — compute
       overlaps memory — stretched by wave quantization over the SMs:
       with ``slots = SMs x active`` a grid of at least ``slots`` blocks
@@ -399,13 +405,20 @@ def hopper_info_batch(*, blocks, threads, regs, smem, flops,
     * A busy SM holding fewer warps than ``spec.latency_warps`` cannot
       keep enough loads in flight: the work time is further divided by
       ``min(1, resident warps / latency_warps)``.
+    * A row that states its bytes in flight is priced by Little's law
+      over the whole card instead: its device-memory time is divided by
+      ``min(1, resident blocks x inflight_bytes / (SMs x
+      spec.latency_bytes))`` and not stretched by idle SMs (a few SMs
+      with deep queues can pull the card's bandwidth), while its
+      on-chip time (arithmetic and shared memory) keeps the wave
+      stretch; the larger of the two is the row's time.
     * Each launch adds ``spec.launch_overhead_s``, unstretched.
     """
     if busy_threads is None:
         busy_threads = threads
     n = int(np.broadcast_shapes(*(np.shape(np.asarray(a)) for a in (
-        blocks, threads, regs, smem, flops, trans, hbm_bytes, smem_bytes,
-        launches, busy_threads)), (1,))[0])
+        blocks, threads, regs, smem, flops, tc_flops, trans, hbm_bytes,
+        smem_bytes, launches, busy_threads)), (1,))[0])
     vec = lambda a, dt: np.ascontiguousarray(
         np.broadcast_to(np.asarray(a, dtype=dt), (n,)))
     blocks = vec(blocks, np.int64)
@@ -416,13 +429,16 @@ def hopper_info_batch(*, blocks, threads, regs, smem, flops,
                                smem + spec.shmem_reserved_per_block, spec)
     feasible = ((occ.active_blocks > 0) & (threads > 0)
                 & (threads <= spec.threads_per_block)
-                & (smem <= spec.shmem_per_block))
+                & (smem <= spec.shmem_per_block)
+                & (True if feasible is None else vec(feasible, bool)))
     flops = vec(flops, np.float64)
+    tc = vec(tc_flops, np.float64)
     trans = vec(trans, np.float64)
     hbm = vec(hbm_bytes, np.float64)
     shm = vec(smem_bytes, np.float64)
     launches = vec(launches, np.float64)
-    compute = flops / spec.fp32_flops + trans / spec.sfu_rate
+    compute = (flops / spec.fp32_flops + tc / spec.bf16_tensor_flops
+               + trans / spec.sfu_rate)
     memory = hbm / spec.hbm_bw + shm / spec.smem_bw
     work = np.maximum(compute, memory)
     sms = spec.multiprocessors
@@ -434,15 +450,27 @@ def hopper_info_batch(*, blocks, threads, regs, smem, flops,
                        sms / np.minimum(bl, sms))
     # latency hiding: warps resident on a busy SM against the warps it
     # needs to keep its share of loads in flight (Eq. 2's occupancy in
-    # units of the card's latency_warps)
+    # units of the card's latency_warps), or the bytes its blocks state
+    # they keep in flight against the bytes it needs
     per_sm = np.minimum(active, -(-blocks // sms))
     busy = vec(busy_threads, np.int64)
     warps = per_sm * -(-busy // spec.threads_per_warp)
     hide = np.minimum(1.0, warps / float(spec.latency_warps))
-    pipe = np.where(feasible, work * stretch / np.maximum(hide, 1e-9)
-                    + launches * spec.launch_overhead_s, np.inf)
+    time = work * stretch / np.maximum(hide, 1e-9)
+    if inflight_bytes is not None:
+        # Little's law over the card for the rows that state their bytes
+        # in flight: resident blocks' queues against the card's need
+        inflight = vec(inflight_bytes, np.float64)
+        resident = np.minimum(blocks, slots).astype(np.float64)
+        queued = np.minimum(1.0, resident * inflight
+                            / float(sms * spec.latency_bytes))
+        stated = np.maximum((compute + shm / spec.smem_bw) * stretch,
+                            hbm / spec.hbm_bw / np.maximum(queued, 1e-9))
+        time = np.where(inflight > 0, stated, time)
+    pipe = np.where(feasible, time + launches * spec.launch_overhead_s,
+                    np.inf)
     zero = np.zeros(n)
-    F = np.column_stack([zero, flops, trans, hbm, shm, launches, zero])
+    F = np.column_stack([tc, flops, trans, hbm, shm, launches, zero])
     return HopperBatchInfo(F=F, pipe=pipe, feasible=feasible,
                            occupancy=occ, blocks=blocks, regs=regs,
                            smem=smem)

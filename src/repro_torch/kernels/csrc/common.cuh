@@ -12,6 +12,11 @@
 
 typedef __nv_bfloat16 bf16;
 
+// Ints one repro_tile_info call may write (the GEMM table's rows are the
+// widest: BM, BN, BK, TM, TN, threads, family, stages, split); callers
+// pass a buffer of this many.
+#define REPRO_TILE_INFO_INTS 9
+
 // Kernel kinds of the C interface (repro_kernel_attrs / repro_tile_*).
 enum ReproKind {
   KIND_GEMM = 0, KIND_GATED = 1, KIND_STREAM = 2, KIND_RMS = 3,

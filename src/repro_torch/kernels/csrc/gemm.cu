@@ -2,38 +2,72 @@
 // kernels.
 //
 // Replaces (src/repro/kernels/):
-//   matmul.py:_mm_kernel          -> gemm_kernel<T, T>     (repro_gemm, out_f32=0)
-//   mlp_matmul.py:_split_mm_kernel -> gemm_kernel<T, float> (repro_gemm, out_f32=1)
-//   mlp_matmul.py:_fused_kernel   -> gated_kernel          (repro_gemm_gated)
-//   mlp_matmul.py:_stream_kernel  -> stream_kernel         (repro_gemm_stream)
+//   matmul.py:_mm_kernel          -> gemm_kernel<T, T>, gemv_kernel,
+//                                    wgmma_kernel     (repro_gemm, out_f32=0)
+//   mlp_matmul.py:_split_mm_kernel -> the same three, f32 out (out_f32=1)
+//   mlp_matmul.py:_fused_kernel   -> gated_kernel     (repro_gemm_gated)
+//   mlp_matmul.py:_stream_kernel  -> stream_kernel    (repro_gemm_stream)
 //
-// Design.  One block per BM x BN output tile; the Pallas grid's
-// sequential K axis becomes a loop inside the block.  Each K step
-// stages an A tile (BM x BK, stored transposed) and a B tile (BK x BN)
-// in shared memory; each of the (BM/TM)*(BN/TN) threads keeps a TM x TN
-// micro-tile of f32 accumulators in registers, reading its A and B
-// fragments interleaved (thread t owns columns t, t+BN/TN, ...) so a
-// warp reads consecutive shared-memory words.  Edges are masked (zero
-// loads, guarded stores), so no shape has to divide a tile: decode
-// runs M = batch rows, far below any BM.  The gated kernel keeps a
-// second B operand and accumulator and applies act(g) * u at the
-// store; the stream kernel stages whole-D panels (no K loop) in
-// dynamic shared memory, so it fits only where BM*D + 2*D*BN elements
-// fit the 227 KB a block may opt in to.
+// The GEMM table (GEMM_TILES below, kernels/matmul.py GEMM_TILES on the
+// Python side) holds three families of tiles; the H100 analysis ranks
+// them together and the pick is what launches.
 //
-// What bounds it on the H100: at the serve shapes, prefill (M = 256
-// tokens) is FP32-FMA bound on the CUDA cores (the bf16 inputs are
-// widened; 67 TFLOP/s, not the 989 of the tensor cores), decode (M = 4)
-// is bound by reading the weight matrix once from HBM.  Left on the
-// table by this simple design: wgmma tensor-core MMA, TMA/cp.async
-// multi-stage pipelining (loads and FMAs do not overlap here), 16-byte
-// vector loads, and split-K for decode, whose N/BN blocks under-fill
-// 132 SMs when N is small.
+// SIMT tiles (gemm_kernel).  One block per BM x BN output tile; the
+// Pallas grid's sequential K axis becomes a loop inside the block.  Each
+// K step stages an A tile (BM x BK, stored transposed) and a B tile
+// (BK x BN) in shared memory; each of the (BM/TM)*(BN/TN) threads keeps
+// a TM x TN micro-tile of f32 accumulators in registers, reading its A
+// and B fragments interleaved (thread t owns columns t, t+BN/TN, ...) so
+// a warp reads consecutive shared-memory words.  Edges are masked (zero
+// loads, guarded stores), so no shape has to divide a tile.  Bound on
+// the H100 by the FP32 FMA rate of the CUDA cores (67 TFLOP/s, not the
+// 989 of the tensor cores); loads and FMAs do not overlap.  They are
+// the route for f32 products of any size.
+//
+// Decode family: split-K GEMV tiles (gemv_kernel, f32 and bf16).  At
+// small M the product reads the (K, N) weight once and is bound by
+// device memory; N/BN column blocks alone would fill a tenth of the 132
+// SMs, so the K axis is cut into SPLIT slices (grid (N/BN, SPLIT,
+// M/BM)).  Each lane owns 16 contiguous bytes of a B row (8 bf16 or 4
+// f32 columns, one 16-byte load), so a warp reads 512 contiguous bytes
+// of each row; the 8 warps of a block take interleaved 8-row chunks of
+// the slice, so a lane has 8 loads (128 bytes) in flight and a block
+// 32 KB; the chunk's 8 values of each of A's BM rows come as broadcast
+// 16-byte loads; each lane keeps BM x (8 or 4) f32 accumulators.  The
+// warps' sums meet in shared memory in warp order.  A ragged N, or a B
+// whose rows are not 16-byte aligned, takes a scalar path per lane (A
+// likewise), and a slice's ragged last chunk a row at a time.
+//
+// Prefill family: TMA + wgmma tiles (wgmma_kernel, bf16 only).  A 128 x
+// BN output tile per block, 3 warpgroups: warpgroup 0's first thread
+// keeps a ring of STAGES shared-memory stages filled with TMA loads (A
+// 128 x 64, K-major; B 64 x BN read in place from the row-major (K, N)
+// weight as 64-column boxes, N-major; 128-byte swizzle), guarded by a
+// full and an empty mbarrier per stage; warpgroups 1 and 2 each run
+// wgmma m64nBNk16 over their 64 rows (B through the transpose bit) and
+// store the masked result.  TMA zero-fills out-of-range rows and
+// columns, so only K % 8 == 0 and N % 8 == 0 (16-byte row pitches) and
+// 16-byte-aligned bases are required.  Bound by the tensor cores at
+// large M and by the weight read at small M.  Left for later: a
+// persistent grid, clusters with TMA multicast, overlapping one
+// k-block's MMAs with the next's wait.
+//
+// Split-K (both new families, SPLIT > 1): each K slice writes f32
+// partials to a caller-allocated workspace [SPLIT, M, N], and
+// splitk_reduce_kernel sums them in slice order and stores in the
+// output type, so results are bitwise repeatable.  Such a tile is two
+// launches of the library per call (the Python wrapper still counts
+// one call).
 #include "common.cuh"
+#include "hopper.cuh"
 
-// (index, BM, BN, BK, TM, TN) -- 256 threads each.  The Python side's
-// tile table (repro_torch/kernels/matmul.py GEMM_TILES) must list the
-// same rows in the same order; chip_smoke.py checks it.
+#include <algorithm>
+
+// The GEMM table: the SIMT rows, then the GEMV rows, then the wgmma
+// rows, indices running on.  The Python side's tile table
+// (repro_torch/kernels/matmul.py GEMM_TILES) must list the same rows in
+// the same order; tests/test_torch_cuda.py checks it.
+// SIMT: (index, BM, BN, BK, TM, TN) -- 256 threads each.
 #define GEMM_TILES(X)            \
   X(0, 16, 64, 32, 1, 4)         \
   X(1, 32, 64, 32, 2, 4)         \
@@ -43,6 +77,31 @@
   X(5, 128, 128, 16, 8, 8)       \
   X(6, 16, 32, 64, 1, 2)         \
   X(7, 16, 16, 64, 1, 1)
+
+// Split-K GEMV: (index, BM, SPLIT).  256 threads; a block spans 256 bf16
+// or 128 f32 columns and reads 8-row chunks of K.
+#define GEMV_TILES(X)            \
+  X(8, 4, 1)                     \
+  X(9, 4, 8)                     \
+  X(10, 4, 16)                   \
+  X(11, 4, 32)
+
+// TMA + wgmma, bf16: (index, BN, STAGES, SPLIT).  BM 128, BK 64, 384
+// threads.
+#define WGMMA_TILES(X)           \
+  X(12, 128, 4, 1)               \
+  X(13, 128, 4, 2)               \
+  X(14, 128, 4, 4)               \
+  X(15, 256, 4, 1)               \
+  X(16, 256, 4, 2)               \
+  X(17, 256, 4, 5)
+
+enum GemmFamily { FAMILY_SIMT = 0, FAMILY_GEMV = 1, FAMILY_WGMMA = 2 };
+constexpr int GEMV_WARPS = 8;
+// K rows of a GEMV chunk: a lane's loads in flight (16 bytes each)
+template <typename T> struct GemvRows { static constexpr int value = 8; };
+template <> struct GemvRows<bf16> { static constexpr int value = 16; };
+constexpr int WG_BM = 128, WG_BK = 64, WG_THREADS = 384;
 
 // Gated tiles (mlp_matmul.py GATED_TILES): two accumulators per thread.
 #define GATED_TILES(X)           \
@@ -231,6 +290,261 @@ stream_kernel(const T* __restrict__ X, const T* __restrict__ G,
 }
 
 // ---------------------------------------------------------------------------
+// Decode family: split-K GEMV
+// ---------------------------------------------------------------------------
+
+// The VecWidth<T> values of a 16-byte word, widened to f32.
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& v, float* out);
+template <>
+__device__ __forceinline__ void unpack16<float>(const uint4& v, float* out) {
+  out[0] = __uint_as_float(v.x); out[1] = __uint_as_float(v.y);
+  out[2] = __uint_as_float(v.z); out[3] = __uint_as_float(v.w);
+}
+template <>
+__device__ __forceinline__ void unpack16<bf16>(const uint4& v, float* out) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// One lane's VecWidth<T> columns of one B row, widened to f32: a 16-byte
+// load where ``vec``, else masked scalar loads.
+template <typename T>
+__device__ __forceinline__ void gemv_row(const T* __restrict__ row, int c0,
+                                         int N, bool vec, float* b) {
+  constexpr int V = VecWidth<T>::value;
+  if (vec) {
+    load16<T>(row + c0, b);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) b[j] = c0 + j < N ? to_f(row[c0 + j]) : 0.f;
+  }
+}
+
+// The raw 16-byte words of one aligned chunk: R B rows at the lane's
+// columns, and R values of each of A's BM rows (zero past M).
+template <typename T, int BM, int R, int AQ>
+__device__ __forceinline__ void gemv_load(const T* __restrict__ B,
+                                          const T* __restrict__ a0, int N,
+                                          int K, int c0, int k, int rows,
+                                          uint4* rb, uint4 (*ra)[AQ]) {
+  constexpr int V = VecWidth<T>::value;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    rb[r] = __ldg(reinterpret_cast<const uint4*>(B + (size_t)(k + r) * N + c0));
+#pragma unroll
+  for (int m = 0; m < BM; ++m)
+#pragma unroll
+    for (int q = 0; q < AQ; ++q)
+      ra[m][q] = m < rows ? __ldg(reinterpret_cast<const uint4*>(
+                                a0 + (size_t)m * K + k + q * V))
+                          : make_uint4(0, 0, 0, 0);
+}
+
+// C[slice] (M x N) = A[:, slice] . B[slice, :] for the K slice
+// blockIdx.y of gridDim.y (slices are whole chunks of GemvRows<T> rows); OutT
+// is f32 when the slices go to the split-K workspace.  Warp w takes the
+// chunks w, w + GEMV_WARPS, ... of the slice.
+template <typename T, typename OutT, int BM>
+__global__ void __launch_bounds__(GEMV_WARPS * 32, 2)
+gemv_kernel(const T* __restrict__ A, const T* __restrict__ B,
+            OutT* __restrict__ C, int M, int N, int K, int vec_b,
+            int vec_a) {
+  constexpr int V = VecWidth<T>::value, BN = 32 * V;
+  constexpr int W = GEMV_WARPS, R = GemvRows<T>::value, AQ = R / V;
+  __shared__ float red[BM][BN];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = blockIdx.x * BN + lane * V;
+  const int row0 = blockIdx.z * BM;
+  const int rows = min(BM, M - row0);
+  const int kc = ((K + gridDim.y - 1) / gridDim.y + R - 1) / R * R;
+  const int kb = min(K, (int)blockIdx.y * kc), ke = min(K, kb + kc);
+  const bool vec = vec_b && c0 + V <= N, fast = vec && vec_a;
+  const T* __restrict__ a0 = A + (size_t)row0 * K;
+  float acc[BM][V];
+#pragma unroll
+  for (int m = 0; m < BM; ++m)
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[m][j] = 0.f;
+  int k = kb + R * warp;
+  if (fast) {
+    // the aligned path: the chunk's R B rows and R values of each of
+    // A's rows are loaded raw (16-byte words) before the first use, so
+    // they are in flight together
+    for (; k + R <= ke; k += R * W) {
+      uint4 rb[R], ra[BM][AQ];
+      gemv_load<T, BM, R, AQ>(B, a0, N, K, c0, k, rows, rb, ra);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float b[V];
+        unpack16<T>(rb[r], b);
+#pragma unroll
+        for (int m = 0; m < BM; ++m) {
+          const float a = to_f(reinterpret_cast<const T*>(ra[m])[r]);
+#pragma unroll
+          for (int j = 0; j < V; ++j) acc[m][j] = fmaf(a, b[j], acc[m][j]);
+        }
+      }
+    }
+  }
+  // ragged or unaligned lanes, and a slice's ragged last chunk: a row
+  // at a time
+  for (; k < ke; k += R * W) {
+    const int kend = min(k + R, ke);
+    for (int kk = k; kk < kend; ++kk) {
+      float b[V];
+      gemv_row<T>(B + (size_t)kk * N, c0, N, vec, b);
+#pragma unroll
+      for (int m = 0; m < BM; ++m) {
+        if (m < rows) {
+          const float a = to_f(a0[(size_t)m * K + kk]);
+#pragma unroll
+          for (int j = 0; j < V; ++j) acc[m][j] = fmaf(a, b[j], acc[m][j]);
+        }
+      }
+    }
+  }
+  // the warps' sums, added in warp order
+  for (int w = 0; w < W; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int m = 0; m < BM; ++m)
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          red[m][lane * V + j] =
+              w == 0 ? acc[m][j] : red[m][lane * V + j] + acc[m][j];
+    }
+    __syncthreads();
+  }
+  OutT* __restrict__ out = C + (size_t)blockIdx.y * M * N;
+  for (int e = threadIdx.x; e < BM * BN; e += W * 32) {
+    const int m = e / BN, c = blockIdx.x * BN + e % BN;
+    if (m < rows && c < N)
+      out[(size_t)(row0 + m) * N + c] = from_f<OutT>(red[m][e % BN]);
+  }
+}
+
+// C = sum over the split slices of the f32 workspace, in slice order.
+template <typename OutT>
+__global__ void __launch_bounds__(256)
+splitk_reduce_kernel(const float* __restrict__ ws, OutT* __restrict__ C,
+                     size_t mn, int split) {
+  for (size_t i = (size_t)blockIdx.x * 256 + threadIdx.x; i < mn;
+       i += (size_t)gridDim.x * 256) {
+    float acc = ws[i];
+    for (int p = 1; p < split; ++p) acc += ws[(size_t)p * mn + i];
+    C[i] = from_f<OutT>(acc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Prefill family: TMA + wgmma (bf16)
+// ---------------------------------------------------------------------------
+
+template <int BN, int STAGES>
+struct WgmmaLayout {
+  static constexpr int A_BYTES = WG_BM * WG_BK * 2;   // 16 KB
+  static constexpr int B_BOX = WG_BK * 64 * 2;        // one 64-column box
+  static constexpr int B_BYTES = WG_BK * BN * 2;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  // the stages, their 2 * STAGES mbarriers, and room to align the ring
+  // to the 1024 bytes of the 128-byte swizzle's atom
+  static constexpr int SMEM = STAGES * STAGE + 16 * STAGES + 1024;
+};
+
+template <typename OutT, int BN, int STAGES>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
+             const __grid_constant__ CUtensorMap tma_b,
+             OutT* __restrict__ C, int M, int N, int K) {
+  using L = WgmmaLayout<BN, STAGES>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full = ring + STAGES * L::STAGE;   // full[s] at +8s
+  const uint32_t empty = full + 8 * STAGES;         // empty[s] at +8s
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * WG_BM;
+  const int kt = (K + WG_BK - 1) / WG_BK;
+  const int per = (kt + gridDim.z - 1) / gridDim.z;
+  const int t0 = blockIdx.z * per;
+  const int nk = max(0, min(kt, t0 + per) - t0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, WG_THREADS - 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty + 8 * s, ((i / STAGES) - 1) & 1);
+        const uint32_t sa = ring + s * L::STAGE, sb = sa + L::A_BYTES;
+        const int k0 = (t0 + i) * WG_BK;
+        mbar_expect_tx(full + 8 * s, L::STAGE);
+        tma_load_2d(sa, &tma_a, full + 8 * s, k0, m0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_2d(sb + j * L::B_BOX, &tma_b, full + 8 * s, n0 + 64 * j, k0);
+      }
+    }
+    return;
+  }
+  // consumers: warpgroup c = 1, 2 owns rows m0 + 64 (c - 1) ...
+  const int c = wg - 1;
+  const bool live = m0 + 64 * c < M;      // uniform over the warpgroup
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  fence_regs<BN / 2>(acc);
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(full + 8 * s, (i / STAGES) & 1);
+    if (live) {
+      const uint32_t sa = ring + s * L::STAGE + c * 64 * 128;
+      const uint32_t sb = ring + s * L::STAGE + L::A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk)
+        // A: K-major rows of 128 bytes, 8-row atoms 1024 bytes apart;
+        // B: N-major, 64-column boxes L::B_BOX apart (leading offset),
+        // 8-row groups 1024 bytes apart (stride offset)
+        wgmma_bf16<BN>(acc, desc_sw128(sa + 32 * kk, 16, 1024),
+                       desc_sw128(sb + 2048 * kk, L::B_BOX, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<BN / 2>(acc);
+    }
+    mbar_arrive(empty + 8 * s);
+  }
+  if (!live) return;
+  const int t = threadIdx.x - 128 * wg, w = t / 32, l = t % 32;
+  const int r = m0 + 64 * c + 16 * w + l / 4;
+  OutT* __restrict__ out = C + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (l % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r + 8 * h;
+      if (row < M) {
+        if (col < N) out[(size_t)row * N + col] = from_f<OutT>(acc[4 * j + 2 * h]);
+        if (col + 1 < N)
+          out[(size_t)row * N + col + 1] = from_f<OutT>(acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side: one switch per kernel over the compiled instantiations.
 // ---------------------------------------------------------------------------
 
@@ -241,6 +555,118 @@ static int launch_gemm(const void* A, const void* B, void* C, int M, int N,
   gemm_kernel<T, OutT, BM, BN, BK, TM, TN><<<grid, (BM / TM) * (BN / TN), 0, s>>>(
       (const T*)A, (const T*)B, (OutT*)C, M, N, K);
   return (int)cudaGetLastError();
+}
+
+// The split-K epilogue: sum ``split`` f32 slices of M x N into C.
+template <typename OutT>
+static int launch_reduce(const void* ws, void* C, int M, int N, int split,
+                         cudaStream_t s) {
+  const size_t mn = (size_t)M * N;
+  const int blocks = (int)std::min<size_t>((mn + 255) / 256, 132 * 16);
+  splitk_reduce_kernel<OutT><<<blocks, 256, 0, s>>>((const float*)ws,
+                                                    (OutT*)C, mn, split);
+  return (int)cudaGetLastError();
+}
+
+// SPLIT == 1 stores C directly; SPLIT > 1 writes f32 slices to ``ws``
+// ([split, M, N]) and reduces them into C.
+template <typename T, typename OutT, int BM>
+static int launch_gemv(const void* A, const void* B, void* C, void* ws,
+                       int M, int N, int K, int split, cudaStream_t s) {
+  constexpr int V = VecWidth<T>::value, BN = 32 * V;
+  if (split < 1 || split > 65535 || (M + BM - 1) / BM > 65535 ||
+      (split > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int vec_b = aligned16(B) && N % V == 0;
+  const int vec_a = aligned16(A) && K % V == 0;
+  dim3 grid((N + BN - 1) / BN, split, (M + BM - 1) / BM);
+  if (split == 1) {
+    gemv_kernel<T, OutT, BM><<<grid, GEMV_WARPS * 32, 0, s>>>(
+        (const T*)A, (const T*)B, (OutT*)C, M, N, K, vec_b, vec_a);
+    return (int)cudaGetLastError();
+  }
+  gemv_kernel<T, float, BM><<<grid, GEMV_WARPS * 32, 0, s>>>(
+      (const T*)A, (const T*)B, (float*)ws, M, N, K, vec_b, vec_a);
+  const int e = (int)cudaGetLastError();
+  return e ? e : launch_reduce<OutT>(ws, C, M, N, split, s);
+}
+
+// cuTensorMapEncodeTiled from the driver, fetched through the runtime
+// (the library links only libcudart).
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiledFn)p;
+    else
+      cudaGetLastError();
+  }
+  return fn;
+}
+
+// A bf16 row-major (outer x inner) matrix as 128-byte-swizzled boxes of
+// box_outer x box_inner; rows past the matrix are zero-filled.
+static int encode_bf16_2d(CUtensorMap* map, const void* base, int inner,
+                          int outer, int box_inner, int box_outer) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <typename OutT, int BN, int STAGES>
+static int launch_wgmma_kernel(const CUtensorMap& ta, const CUtensorMap& tb,
+                               void* C, int M, int N, int K, int split,
+                               cudaStream_t s) {
+  static int configured = 0;
+  constexpr int smem = WgmmaLayout<BN, STAGES>::SMEM;
+  cudaError_t e = allow_smem(wgmma_kernel<OutT, BN, STAGES>, smem,
+                             &configured);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((N + BN - 1) / BN, (M + WG_BM - 1) / WG_BM, split);
+  wgmma_kernel<OutT, BN, STAGES><<<grid, WG_THREADS, smem, s>>>(
+      ta, tb, (OutT*)C, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+template <typename OutT, int BN, int STAGES>
+static int launch_wgmma(const void* A, const void* B, void* C, void* ws,
+                        int M, int N, int K, int split, cudaStream_t s) {
+  if (K % 8 || N % 8 || !aligned16(A) || !aligned16(B) || split < 1 ||
+      split > 65535 || (split > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  int e = encode_bf16_2d(&ta, A, K, M, WG_BK, WG_BM);
+  if (!e) e = encode_bf16_2d(&tb, B, N, K, 64, WG_BK);
+  if (e) return e;
+  if (split == 1)
+    return launch_wgmma_kernel<OutT, BN, STAGES>(ta, tb, C, M, N, K, 1, s);
+  e = launch_wgmma_kernel<float, BN, STAGES>(ta, tb, ws, M, N, K, split, s);
+  return e ? e : launch_reduce<OutT>(ws, C, M, N, split, s);
 }
 
 template <typename T, int BM, int BN, int BK, int TM, int TN>
@@ -271,9 +697,11 @@ extern "C" {
 
 // C = A (M x K) . B (K x N), row-major, f32 accumulation; stored in the
 // input type, or in f32 when out_f32 (the split MLP's passes).
-// dtype: 0 float32, 1 bfloat16.
+// dtype: 0 float32, 1 bfloat16.  ``ws`` is the split-K workspace of a
+// tile whose SPLIT > 1 (f32, SPLIT * M * N), else unused.
 int repro_gemm(int tile, int dtype, int out_f32, const void* A,
-               const void* B, void* C, int M, int N, int K, void* stream) {
+               const void* B, void* C, void* ws, int M, int N, int K,
+               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
 #define GEMM_CASE(i, BM, BN, BK, TM, TN)                                     \
   case i:                                                                    \
@@ -282,9 +710,40 @@ int repro_gemm(int tile, int dtype, int out_f32, const void* A,
     if (out_f32)                                                             \
       return launch_gemm<bf16, float, BM, BN, BK, TM, TN>(A, B, C, M, N, K, s);  \
     return launch_gemm<bf16, bf16, BM, BN, BK, TM, TN>(A, B, C, M, N, K, s);
-  switch (tile) { GEMM_TILES(GEMM_CASE) default: break; }
+#define GEMV_CASE(i, BM, SPLIT)                                              \
+  case i:                                                                    \
+    if (dtype == 0)                                                          \
+      return launch_gemv<float, float, BM>(A, B, C, ws, M, N, K, SPLIT, s);  \
+    if (out_f32)                                                             \
+      return launch_gemv<bf16, float, BM>(A, B, C, ws, M, N, K, SPLIT, s);   \
+    return launch_gemv<bf16, bf16, BM>(A, B, C, ws, M, N, K, SPLIT, s);
+#define WGMMA_CASE(i, BN, STAGES, SPLIT)                                     \
+  case i:                                                                    \
+    if (dtype == 0) return (int)cudaErrorInvalidValue; /* bf16 only */       \
+    if (out_f32)                                                             \
+      return launch_wgmma<float, BN, STAGES>(A, B, C, ws, M, N, K, SPLIT, s); \
+    return launch_wgmma<bf16, BN, STAGES>(A, B, C, ws, M, N, K, SPLIT, s);
+  switch (tile) {
+    GEMM_TILES(GEMM_CASE)
+    GEMV_TILES(GEMV_CASE)
+    WGMMA_TILES(WGMMA_CASE)
+    default: break;
+  }
 #undef GEMM_CASE
+#undef GEMV_CASE
+#undef WGMMA_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+// C (M x N) = the sum of ws's ``split`` f32 slices [split, M, N] in
+// slice order, stored in f32 (out_dtype 0) or bf16 (1): the split-K
+// tiles' second launch, exported to be checked and timed on its own.
+int repro_splitk_reduce(int out_dtype, const void* ws, void* C, int M,
+                        int N, int split, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (split < 1) return (int)cudaErrorInvalidValue;
+  return out_dtype == 0 ? launch_reduce<float>(ws, C, M, N, split, s)
+                        : launch_reduce<bf16>(ws, C, M, N, split, s);
 }
 
 // O = act(X . G) * (X . U); X (M x K), G/U (K x N).  act: 0 silu,
@@ -335,8 +794,22 @@ int repro_gemm_attrs(int kind, int tile, int dtype, int* regs, int* smem,
     return dtype == 0                                                        \
         ? kernel_attrs(stream_kernel<float, BM, BN, TM, TN>, regs, smem, max_threads) \
         : kernel_attrs(stream_kernel<bf16, BM, BN, TM, TN>, regs, smem, max_threads);
+#define GEMV_ATTR(i, BM, SPLIT)                                              \
+  case i:                                                                    \
+    return dtype == 0                                                        \
+        ? kernel_attrs(gemv_kernel<float, float, BM>, regs, smem, max_threads) \
+        : kernel_attrs(gemv_kernel<bf16, bf16, BM>, regs, smem, max_threads);
+#define WGMMA_ATTR(i, BN, STAGES, SPLIT)                                     \
+  case i:                                                                    \
+    if (dtype == 0) return (int)cudaErrorInvalidValue; /* bf16 only */       \
+    return kernel_attrs(wgmma_kernel<bf16, BN, STAGES>, regs, smem, max_threads);
   if (kind == KIND_GEMM) {
-    switch (tile) { GEMM_TILES(GEMM_ATTR) default: break; }
+    switch (tile) {
+      GEMM_TILES(GEMM_ATTR)
+      GEMV_TILES(GEMV_ATTR)
+      WGMMA_TILES(WGMMA_ATTR)
+      default: break;
+    }
   } else if (kind == KIND_GATED) {
     switch (tile) { GATED_TILES(GATED_ATTR) default: break; }
   } else if (kind == KIND_STREAM) {
@@ -345,25 +818,47 @@ int repro_gemm_attrs(int kind, int tile, int dtype, int* regs, int* smem,
 #undef GEMM_ATTR
 #undef GATED_ATTR
 #undef STREAM_ATTR
+#undef GEMV_ATTR
+#undef WGMMA_ATTR
   return (int)cudaErrorInvalidValue;
 }
 
-// out[0..5] = BM, BN, BK (0 for stream), TM, TN, threads.
+// out[0..5] = BM, BN, BK (0 for stream), TM, TN, threads; for the GEMM
+// table also out[6..8] = family, stages, split (see REPRO_TILE_INFO_INTS).
+// GEMV rows: BN and TN in bf16 columns (f32 blocks span half), BK the K
+// rows a block reads per step, stages the rows in flight per lane.
 int repro_gemm_tile_info(int kind, int tile, int* out) {
 #define GEMM_INFO(i, BM, BN, BK, TM, TN)                                     \
   case i: out[0] = BM; out[1] = BN; out[2] = BK; out[3] = TM; out[4] = TN;  \
-    out[5] = (BM / TM) * (BN / TN); return 0;
+    out[5] = (BM / TM) * (BN / TN);                                          \
+    if (kind == KIND_GEMM) { out[6] = FAMILY_SIMT; out[7] = 1; out[8] = 1; } \
+    return 0;
+#define GEMV_INFO(i, BM, SPLIT)                                              \
+  case i: out[0] = BM; out[1] = 256; out[2] = GEMV_WARPS * GemvRows<bf16>::value; \
+    out[3] = BM; out[4] = 8; out[5] = GEMV_WARPS * 32; out[6] = FAMILY_GEMV; \
+    out[7] = GemvRows<bf16>::value; out[8] = SPLIT; return 0;
+#define WGMMA_INFO(i, BN, STAGES, SPLIT)                                     \
+  case i: out[0] = WG_BM; out[1] = BN; out[2] = WG_BK; out[3] = 64;          \
+    out[4] = BN; out[5] = WG_THREADS; out[6] = FAMILY_WGMMA;                 \
+    out[7] = STAGES; out[8] = SPLIT; return 0;
 #define STREAM_INFO(i, BM, BN, TM, TN)                                       \
   case i: out[0] = BM; out[1] = BN; out[2] = 0; out[3] = TM; out[4] = TN;   \
     out[5] = (BM / TM) * (BN / TN); return 0;
   if (kind == KIND_GEMM) {
-    switch (tile) { GEMM_TILES(GEMM_INFO) default: break; }
+    switch (tile) {
+      GEMM_TILES(GEMM_INFO)
+      GEMV_TILES(GEMV_INFO)
+      WGMMA_TILES(WGMMA_INFO)
+      default: break;
+    }
   } else if (kind == KIND_GATED) {
     switch (tile) { GATED_TILES(GEMM_INFO) default: break; }
   } else if (kind == KIND_STREAM) {
     switch (tile) { STREAM_TILES(STREAM_INFO) default: break; }
   }
 #undef GEMM_INFO
+#undef GEMV_INFO
+#undef WGMMA_INFO
 #undef STREAM_INFO
   return -1;
 }

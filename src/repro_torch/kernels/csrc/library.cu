@@ -42,8 +42,8 @@ int repro_kernel_attrs(int kind, int tile, int dtype, int* regs, int* smem,
   }
 }
 
-// Six ints describing one tile (see the per-source tile_info); -1 when
-// the index is past the table.
+// Up to REPRO_TILE_INFO_INTS ints describing one tile (see the per-source
+// tile_info); -1 when the index is past the table.
 int repro_tile_info(int kind, int tile, int* out) {
   switch (kind) {
     case KIND_GEMM: case KIND_GATED: case KIND_STREAM:
@@ -63,7 +63,7 @@ int repro_tile_info(int kind, int tile, int* out) {
 
 // Number of compiled tiles of one kind.
 int repro_tile_count(int kind) {
-  int out[6];
+  int out[REPRO_TILE_INFO_INTS];
   int n = 0;
   while (repro_tile_info(kind, n, out) == 0) ++n;
   return n;

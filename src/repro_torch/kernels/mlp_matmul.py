@@ -29,7 +29,8 @@ from repro_torch.kernels.api import (HopperSpace, KernelVariant, TILE_AXIS,
 from repro_torch.core.hw import dtype_bytes
 from repro_torch.kernels.common import cdiv, dtype_name, require_shape
 from repro_torch.kernels.matmul import (GEMM_TILES, gemm_hopper_cost,
-                                        gemm_launch, tile_fields)
+                                        gemm_launch, gemm_tiles_cost,
+                                        tile_fields)
 
 __all__ = ["mlp_matmul", "mlp_matmul_stream", "mlp_matmul_split",
            "mlp_plain", "fused_cuda", "stream_cuda", "split_cuda",
@@ -173,19 +174,18 @@ def _stream_hopper(cols, *, m: int, d: int, f: int, act: str = "silu",
 
 def _split_hopper(cols, *, m: int, d: int, f: int, act: str = "silu",
                   dtype: str = "float32"):
-    """Two GEMM passes with f32 outputs, then three elementwise torch
-    launches (activation, product, cast) over (m, f) f32 arrays."""
+    """Two GEMM passes with f32 outputs (any row of the GEMM table,
+    priced by `gemm_tiles_cost`), then three elementwise torch launches
+    (activation, product, cast) over (m, f) f32 arrays."""
     t = tile_fields(GEMM_TILES, cols[TILE_AXIS])
     eb = dtype_bytes(dtype)
-    one = gemm_hopper_cost(m=m, n=f, k=d, bm=t[:, 0], bn=t[:, 1],
-                           bk=t[:, 2], tm=t[:, 3], tn=t[:, 4],
-                           in_bytes=eb, out_bytes=4)
+    one = gemm_tiles_cost(t, m=m, n=f, k=d, dtype=dtype, out_bytes=4)
     mf = float(m) * f
-    return dict(blocks=one["blocks"], threads=one["threads"],
-                regs=one["regs"], smem=one["smem"],
-                flops=2.0 * one["flops"] + 3.0 * mf, trans=mf,
+    return dict(one, flops=2.0 * one["flops"] + 3.0 * mf,
+                tc_flops=2.0 * one["tc_flops"], trans=mf,
                 hbm_bytes=2.0 * one["hbm_bytes"] + mf * (7 * 4.0 + eb),
-                smem_bytes=2.0 * one["smem_bytes"], launches=5)
+                smem_bytes=2.0 * one["smem_bytes"],
+                launches=2 * one["launches"] + 3)
 
 
 # ---------------------------------------------------------------------------

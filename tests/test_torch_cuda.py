@@ -26,7 +26,9 @@ from repro_torch.kernels.flash_attention import (BLOCKED_TILES, FLASH_TILES,
                                                  blocked_cuda, flash_cuda)
 from repro_torch.kernels.jacobi3d import (JACOBI_TILES, jacobi3d_cuda,
                                           jacobi3d_plain)
-from repro_torch.kernels.matmul import GEMM_TILES, matmul_cuda, matmul_plain
+from repro_torch.kernels.matmul import (GEMM_TILES, GEMV, SIMT, WGMMA,
+                                        matmul_cuda, matmul_plain,
+                                        wgmma_takes)
 from repro_torch.kernels.matvec import MATVEC_TILES, matvec_cuda, matvec_plain
 from repro_torch.kernels.mlp_matmul import (GATED_TILES, STREAM_TILES,
                                             fused_cuda, mlp_plain,
@@ -69,16 +71,32 @@ def _close(got, want, dtype, f32=2e-4):
     (4, FLASH_TILES), (5, BLOCKED_TILES), (6, MATVEC_TILES),
     (7, BLAS2_TILES), (8, BLAS2_TILES), (9, JACOBI_TILES)])
 def test_tile_tables_match_the_library(cuda, kind, table):
-    """The Python tile tables name the C side's instantiations in order."""
+    """The Python tile tables name the C side's instantiations in order
+    (the GEMM table with its family, stages and split fields), through a
+    buffer of the width the C interface declares."""
     lib = _cuda.library()
     assert lib.repro_tile_count(kind) == len(table)
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * _cuda.TILE_INFO_INTS)()
     for i, fields in enumerate(table.values()):
         assert lib.repro_tile_info(kind, i, out) == 0
-        slots = {2: (0, 1, 3, 4), 3: (0,), 4: (0, 1, 5), 5: (0, 5),
-                 6: (0, 1), 7: (0, 1), 8: (0, 1), 9: (0, 1, 2)}.get(
-            kind, (0, 1, 2, 3, 4))
+        slots = {0: (0, 1, 2, 3, 4, 6, 7, 8), 2: (0, 1, 3, 4), 3: (0,),
+                 4: (0, 1, 5), 5: (0, 5), 6: (0, 1), 7: (0, 1), 8: (0, 1),
+                 9: (0, 1, 2)}.get(kind, (0, 1, 2, 3, 4))
         assert tuple(out[j] for j in slots) == tuple(fields), (kind, i)
+    threads = {SIMT: None, GEMV: 256, WGMMA: 384}
+    if kind == 0:
+        for i, fields in enumerate(table.values()):
+            lib.repro_tile_info(kind, i, out)
+            want = threads[fields[5]] or (fields[0] // fields[3]) * (
+                fields[1] // fields[4])
+            assert out[5] == want, (i, fields)
+
+
+def _takes(tile, dtype, n, k):
+    """Whether ``tile`` takes the product (wgmma rows: bf16, K and N
+    multiples of 8); the wrapper refuses the rest with ValueError."""
+    return GEMM_TILES[tile][5] != WGMMA or wgmma_takes(
+        str(dtype).rpartition(".")[2], n, k)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -87,9 +105,72 @@ def test_tile_tables_match_the_library(cuda, kind, table):
 def test_matmul_kernel(cuda, dtype, tile, m, n, k):
     a = _rand((m, k), dtype, cuda, 0)
     b = _rand((k, n), dtype, cuda, 1, scale=k ** -0.5)
+    if not _takes(tile, dtype, n, k):
+        with pytest.raises(ValueError, match="takes bfloat16"):
+            matmul_cuda(a, b, tile=tile)
+        return
     got = matmul_cuda(a, b, tile=tile)
     torch.cuda.synchronize()
     _close(got, matmul_plain(a, b), dtype)
+
+
+NEW_ROWS = [t for t, f in GEMM_TILES.items() if f[5] != SIMT]
+# every GEMV and wgmma row on every shape and dtype it takes: ragged M
+# and N, K not a multiple of SPLIT x BK (200 and 64 against splits up to
+# 32, so some K slices are empty), and the serving prefill shape
+FAMILY_CASES = [(tile, dtype, shape) for tile in NEW_ROWS
+                for dtype in DTYPES
+                for shape in [(4, 96, 200), (130, 70, 64), (130, 136, 200),
+                              (256, 3072, 24576)]
+                if _takes(tile, dtype, shape[1], shape[2])]
+
+
+@pytest.mark.parametrize("tile,dtype,shape", FAMILY_CASES,
+                         ids=[f"{t}-{str(d)[6:]}-{'x'.join(map(str, s))}"
+                              for t, d, s in FAMILY_CASES])
+def test_gemm_family_rows_against_plain(cuda, tile, dtype, shape):
+    """Each new row against the plain version; two calls give the same
+    bits (the split-K sums run in a fixed order)."""
+    m, n, k = shape
+    a = _rand((m, k), dtype, cuda, 2)
+    b = _rand((k, n), dtype, cuda, 3, scale=k ** -0.5)
+    got = matmul_cuda(a, b, tile=tile)
+    again = matmul_cuda(a, b, tile=tile)
+    torch.cuda.synchronize()
+    _close(got, matmul_plain(a, b), dtype)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("tile", [t for t in NEW_ROWS
+                                  if GEMM_TILES[t][5] == WGMMA])
+def test_wgmma_rows_refuse_what_they_cannot_take(cuda, tile):
+    """f32 operands, N or K not a multiple of 8, an unaligned base: a
+    ValueError before any launch."""
+    f32 = _rand((8, 64), torch.float32, cuda, 4)
+    with pytest.raises(ValueError, match="takes bfloat16"):
+        matmul_cuda(f32, _rand((64, 64), torch.float32, cuda, 5), tile=tile)
+    a = _rand((8, 64), torch.bfloat16, cuda, 6)
+    with pytest.raises(ValueError, match="takes bfloat16"):
+        matmul_cuda(a, _rand((64, 70), torch.bfloat16, cuda, 7), tile=tile)
+    with pytest.raises(ValueError, match="takes bfloat16"):
+        matmul_cuda(_rand((8, 60), torch.bfloat16, cuda, 8),
+                    _rand((60, 64), torch.bfloat16, cuda, 9), tile=tile)
+    flat = _rand((1 + 8 * 64,), torch.bfloat16, cuda, 10)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        matmul_cuda(flat[1:].view(8, 64),
+                    _rand((64, 64), torch.bfloat16, cuda, 11), tile=tile)
+
+
+@pytest.mark.parametrize("tile", NEW_ROWS)
+def test_split_mlp_takes_the_new_rows_with_f32_passes(cuda, tile):
+    """`split_cuda`'s two GEMM passes store f32 (out_f32) through the
+    new rows, at the decode shape of the serving path."""
+    x = _rand((4, 3072), torch.bfloat16, cuda, 12)
+    wg = _rand((3072, 1024), torch.bfloat16, cuda, 13, scale=3072 ** -0.5)
+    wu = _rand((3072, 1024), torch.bfloat16, cuda, 14, scale=3072 ** -0.5)
+    got = split_cuda(x, wg, wu, "gelu", tile=tile)
+    torch.cuda.synchronize()
+    _close(got, mlp_plain(x, wg, wu, "gelu"), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -133,6 +214,10 @@ def test_gated_mlp_kernels(cuda, dtype, act, variant, fn, tiles):
     wu = _rand((96, 72), dtype, cuda, 12, scale=96 ** -0.5)
     want = mlp_plain(x, wg, wu, act)
     for tile in tiles:
+        if variant == "split" and not _takes(tile, dtype, 72, 96):
+            with pytest.raises(ValueError, match="takes bfloat16"):
+                fn(x, wg, wu, act, tile=tile)
+            continue
         got = fn(x, wg, wu, act, tile=tile)
         torch.cuda.synchronize()
         _close(got, want, dtype)
@@ -315,7 +400,7 @@ def test_saxpy2d_every_tile_and_unaligned_views(cuda, dtype):
 
 
 def _compiled_table(lib, fn, width):
-    out, rows, i = (ctypes.c_int * 6)(), [], 0
+    out, rows, i = (ctypes.c_int * _cuda.TILE_INFO_INTS)(), [], 0
     while getattr(lib, fn)(i, out) == 0:
         rows.append(tuple(out[j] for j in range(width)))
         i += 1
