@@ -12,13 +12,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
 2. kernels — every kernel wrapper on the card at the shapes the serving
              path gives it (the matmul at decode, M = 4, on its split-K
              GEMV pick and at prefill, M = 256, on its TMA + wgmma pick,
-             and the split-K reduction), held against its plain PyTorch
-             version, and timed beside that version, its roofline bound
-             and, where one PyTorch call computes the same function,
-             that call, with the matmul's host time per call; then
-             every feasible (variant, tile) of the serving instances
-             timed beside the H100 analysis' prediction (rank
-             correlation, the static pick's regret);
+             and the split-K reduction; rms_norm on its row-in-register
+             pick and flash on its tensor-core pick; the older families
+             of both tables on their dispatch picks where they are the
+             route: rms_norm on a row too long for the vector rows,
+             flash in float32), held against its plain PyTorch version, and timed beside that version, its
+             roofline bound and, where one PyTorch call computes the
+             same function, that call, with the host time per call of
+             matmul, rms_norm and the attention wrappers and the device
+             time per launch (`torch.profiler`) of rms_norm, flash,
+             blocked and their library calls; then
+             every feasible (variant, tile) of the serving instances,
+             and of one long-sequence flash instance, timed beside the
+             H100 analysis' prediction (rank correlation, the static
+             pick's regret);
 3. check   — gemma-smoke in float32: prefill logits and 8 greedy tokens
              of the tuned CUDA path against the plain path on the CPU;
 4. serve   — the serving path: gemma-7b at full width and depth
@@ -28,7 +35,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
              generated; 1 x 64, 8 generated), with every launch counter
              set to 0 before and read after;
 5. profile — `torch.profiler` over a few decode steps of the first
-             request's shape: device time by kernel, idle share;
+             request's shape: device time by kernel, idle share, and
+             the device time per launch of the B1, B2 and B3 kernels
+             (decode steps, then one prefill for attention);
 6. tuner   — the tuning path, the paper's own experiment: `KernelTuner`
              over the Table IV kernels (matvec, atax, BiCG at 8192 x 8192
              in float32 and bfloat16, jacobi3d at 256^3 float32) and the
@@ -88,6 +97,10 @@ KERNELS = {
                  "src/repro/kernels/rms_norm.py:30"),
     "flash": ("src/repro_torch/kernels/csrc/attention.cu",
               "src/repro/kernels/flash_attention.py:49"),
+    "flash_simt": ("src/repro_torch/kernels/csrc/attention.cu",
+                   "src/repro/kernels/flash_attention.py:49"),
+    "rms_simt": ("src/repro_torch/kernels/csrc/rms_norm.cu",
+                 "src/repro/kernels/rms_norm.py:30"),
     "blocked": ("src/repro_torch/kernels/csrc/attention.cu",
                 "src/repro/kernels/flash_attention.py:122"),
     "fused": ("src/repro_torch/kernels/csrc/gemm.cu",
@@ -110,10 +123,13 @@ KERNELS = {
                 "examples/custom_kernel.py:34"),
 }
 SERVE_KERNELS = ("matmul", "matmul_prefill", "splitk_reduce", "rms_norm",
-                 "flash", "blocked", "fused", "stream", "split")
+                 "flash", "flash_simt", "rms_simt", "blocked", "fused",
+                 "stream", "split")
 # the launch counter of a kernel listed under another name: the prefill
 # matmul row is the wgmma family's GEMM kernel (matmul and the split
-# MLP's passes)
+# MLP's passes); flash_simt and rms_simt are the older families of the
+# flash and rms_norm tables (f32, ragged or very long rows), counted by
+# their wrappers under those names
 COUNTER = {"matmul_prefill": "gemm_wgmma"}
 TABLE4 = ("matvec", "atax", "bicg", "jacobi3d")
 EXTEND = ("stencil2d", "saxpy2d")
@@ -175,6 +191,38 @@ def bound(nbytes: float, flops: float, dtype: str):
         ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def device_us(fn, calls: int = 100) -> float:
+    """Device time per call of ``fn()`` in microseconds: the self device
+    time `torch.profiler` records over ``calls`` back-to-back calls (every
+    kernel the call launches), over ``calls``."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))
+                for ev in prof.key_averages())
+    return total / calls
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time per call of ``fn()`` in microseconds (enqueue only: no
+    synchronize inside the window)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 # ---------------------------------------------------------------------------
 # phase 1: build
 # ---------------------------------------------------------------------------
@@ -185,6 +233,7 @@ def phase_build():
     import ctypes
     from repro_torch.examples import custom_kernel
     from repro_torch.kernels import _cuda, api, stencil2d
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
     t0 = time.perf_counter()
     # the library and the two extensions, each nvcc started at once
@@ -229,8 +278,9 @@ def phase_build():
         for i, tile in enumerate(h.tiles):
             got = []
             for dt in (0, 1):
-                if kind == 0 and dt == 0 and \
-                        mm.GEMM_TILES[tile][5] == mm.WGMMA:
+                if dt == 0 and (
+                        (kind == 0 and mm.GEMM_TILES[tile][5] == mm.WGMMA)
+                        or (kind == 4 and fa.FLASH_TILES[tile][3] == fa.MMA)):
                     got.append("-")         # bf16 only
                     continue
                 rc = lib.repro_kernel_attrs(kind, i, dt, ctypes.byref(regs),
@@ -317,7 +367,7 @@ def phase_kernels(dev):
     results = {}
 
     def record(name, got, want, fn, plain, lib_fn, nbytes, flops,
-               shape, peak="bfloat16"):
+               shape, peak="bfloat16", device=False):
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         ref = want.float().abs().max().item()
@@ -341,6 +391,14 @@ def phase_kernels(dev):
               f"bound {b_ms:.4f} ms ({b_by}) | library "
               + (f"{row['library_ms']:.4f} ms" if lib_fn else "none"),
               flush=True)
+        if device:
+            row["device_us"] = device_us(fn)
+            row["library_device_us"] = device_us(lib_fn)
+            row["host_us"] = host_us(fn)
+            print(f"[kernels]   {name}: device {row['device_us']:.2f} us "
+                  f"per launch (library {row['library_device_us']:.2f} us "
+                  f"per call), host {row['host_us']:.1f} us per wrapper "
+                  f"call (enqueue only)", flush=True)
 
     # decode-step matmul (down-projection): (4, 24576) . (24576, 3072)
     a, w = randn(4, f), randn(f, d, scale=f ** -0.5)
@@ -353,18 +411,37 @@ def phase_kernels(dev):
            2.0 * (4 * f + f * d + 4 * d), 2.0 * 4 * f * d,
            f"(4x{f}).({f}x{d}) bf16 tile {tile}")
 
-    # decode-step RMSNorm: (4, 3072)
-    x, g = randn(4, d), torch.ones(d, device=dev)
-    tile = _dispatch_tile("rms_norm", None,
-                          dict(m=4, d=d, dtype="bfloat16"))
-    gb = g.to(bf)
-    record("rms_norm", rn.rms_norm_cuda(x, g, tile=tile),
+    # RMSNorm at decode, (4, 3072), and at prefill, (256, 3072)
+    for name, m in (("rms_norm", 4), ("rms_norm_prefill", 256)):
+        x = randn(m, d)
+        g = torch.randn(d, generator=gen, device=dev)
+        gb = g.to(bf)
+        tile = _dispatch_tile("rms_norm", None,
+                              dict(m=m, d=d, dtype="bfloat16"))
+        record(name, rn.rms_norm_cuda(x, g, tile=tile),
+               rn.rms_norm_plain(x, g),
+               lambda: rn.rms_norm_cuda(x, g, tile=tile),
+               lambda: rn.rms_norm_plain(x, g),
+               lambda: F.rms_norm(x, (d,), gb, 1e-6),
+               2.0 * 2 * m * d + 4.0 * d, 4.0 * m * d,
+               f"({m}x{d}) bf16 tile {tile}", device=True)
+
+    # the warp-per-row family on a row too long for the vector rows:
+    # (4, 24576) bf16, gemma-7b's d_ff
+    m, dl = 4, f
+    x = randn(m, dl)
+    g = torch.randn(dl, generator=gen, device=dev)
+    tile = _dispatch_tile("rms_norm", None, dict(m=m, d=dl, dtype="bfloat16"))
+    if rn.RMS_TILES[tile][2] != rn.SIMT:
+        fail(f"rms_norm ({m}x{dl}) bf16: dispatch picked {tile}, not a "
+             f"warp-per-row row")
+    record("rms_simt", rn.rms_norm_cuda(x, g, tile=tile),
            rn.rms_norm_plain(x, g),
            lambda: rn.rms_norm_cuda(x, g, tile=tile),
            lambda: rn.rms_norm_plain(x, g),
-           lambda: F.rms_norm(x, (d,), gb, 1e-6),
-           2.0 * 2 * 4 * d + 4.0 * d, 4.0 * 4 * d,
-           f"(4x{d}) bf16 tile {tile}")
+           lambda: F.rms_norm(x, (dl,), g.to(bf), 1e-6),
+           2.0 * 2 * m * dl + 4.0 * dl, 4.0 * m * dl,
+           f"({m}x{dl}) bf16 tile {tile}", device=True)
 
     # prefill attention, batch 4 (flash) and batch 1 (blocked)
     for name, b, fn in (("flash", 4, fa.flash_cuda),
@@ -381,7 +458,26 @@ def phase_kernels(dev):
                lambda: F.scaled_dot_product_attention(q, k, v,
                                                       is_causal=True),
                2.0 * 4 * b * h * s * hd, 4.0 * pairs * hd,
-               f"({b}x{h}x{s}x{hd}) causal bf16 tile {tile}")
+               f"({b}x{h}x{s}x{hd}) causal bf16 tile {tile}", device=True)
+
+    # the SIMT family, the route for float32: the serve's flash shape
+    b = 4
+    q, k, v = (torch.randn((b, h, s, hd), generator=gen, device=dev)
+               for _ in range(3))
+    tile = _dispatch_tile("flash_attention", "flash",
+                          dict(b=b, h=h, sq=s, skv=s, d=hd, causal=True,
+                               dtype="float32"))
+    if fa.FLASH_TILES[tile][3] != fa.SIMT:
+        fail(f"flash f32: dispatch picked {tile}, not a SIMT row")
+    pairs = b * h * s * (s + 1) / 2
+    record("flash_simt", fa.flash_cuda(q, k, v, True, tile=tile),
+           fa.attention_plain(q, k, v, True),
+           lambda: fa.flash_cuda(q, k, v, True, tile=tile),
+           lambda: fa.attention_plain(q, k, v, True),
+           lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+           4.0 * 4 * b * h * s * hd, 4.0 * pairs * hd,
+           f"({b}x{h}x{s}x{hd}) causal f32 tile {tile}", peak="float32",
+           device=True)
 
     # decode-step gated MLP front half: (4, 3072) . (3072, 24576) x2
     x = randn(4, d)
@@ -435,14 +531,9 @@ def phase_kernels(dev):
         a = randn(m, f)
         tile = _dispatch_tile("matmul", None,
                               dict(m=m, n=d, k=f, dtype="bfloat16"))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            mm.matmul_cuda(a, w, tile=tile)
-        host_us = (time.perf_counter() - t0) / 200 * 1e6
-        torch.cuda.synchronize()
+        us = host_us(lambda: mm.matmul_cuda(a, w, tile=tile))
         print(f"[kernels] matmul host time per call, M={m} tile {tile}: "
-              f"{host_us:.1f} us (enqueue only, no sync)")
+              f"{us:.1f} us (enqueue only, no sync)")
     x = randn(256, d)
     tile = _dispatch_tile("mlp_matmul", "fused",
                           dict(m=256, d=d, f=f, act="gelu", dtype="bfloat16"))
@@ -558,12 +649,19 @@ def phase_table4(dev):
 # ---------------------------------------------------------------------------
 
 
+# kernels whose rows run shorter than a wrapper call's host time: their
+# [ranking] also sets device time per launch (torch.profiler) beside the
+# predictions, since back-to-back calls time the host there
+DEVICE_RANKED = ("rms_norm", "flash_attention")
+
+
 def phase_ranking(dev):
     """Time every feasible (variant, tile) of the main path's instances
     and set the H100 analysis' predicted times beside them, ranked as
     dispatch ranks them: Spearman rank correlation, the static pick (the
     row dispatch launches), the measured best, and the pick's regret
-    (its time over the best's)."""
+    (its time over the best's); for DEVICE_RANKED kernels the same on
+    device time per launch."""
     import numpy as np
     import torch
     from repro_torch.core.hw import H100_SXM
@@ -605,23 +703,29 @@ def phase_ranking(dev):
                                          dtype="bfloat16"),
                       (randn(m, d), randn(d, f, scale=d ** -0.5),
                        randn(d, f, scale=d ** -0.5))))
-    for b in (4, 1):
-        cases.append(("flash_attention", dict(b=b, h=16, sq=64, skv=64,
-                                              d=256, causal=True,
+    # the serve's two prefill instances, then one the tensor-core rows'
+    # chain constant (HopperSpec.mma_warp_flops) was not fitted to:
+    # d = 128 over 16 KV tiles
+    for b, s, hd in ((4, 64, 256), (1, 64, 256), (1, 1024, 128)):
+        cases.append(("flash_attention", dict(b=b, h=16, sq=s, skv=s,
+                                              d=hd, causal=True,
                                               dtype="bfloat16"),
-                      tuple(randn(b, 16, 64, 256) for _ in range(3))))
+                      tuple(randn(b, 16, s, hd) for _ in range(3))))
     rows_out = []
     for kid, sig, args in cases:
         spec = api.get_spec(kid)
         pts = spec.hopper_space(**sig).enumerate()
         cols = {k: np.asarray([p[k] for p in pts]) for k in pts[0]}
         info = spec.hopper_info_batch(cols, H100_SXM, **sig)
-        pred, meas, names = [], [], []
+        pred, meas, dev_ms, names = [], [], [], []
         for p, t_pred in zip(pts, _static_times(info)):
             if not np.isfinite(t_pred):
                 continue
             fn = launch[(kid, p.get("variant"))]
             meas.append(time_ms(lambda: fn(p["tile"], *args), warmup=1))
+            if kid in DEVICE_RANKED:
+                dev_ms.append(device_us(lambda: fn(p["tile"], *args),
+                                        calls=50) / 1e3)
             pred.append(float(t_pred) * 1e3)
             names.append(f"{p.get('variant', kid)}/{p['tile']}")
         pick = int(np.argmin(pred))
@@ -645,6 +749,19 @@ def phase_ranking(dev):
               f"{regret:.2f}x", flush=True)
         print("[ranking]   " + "; ".join(
             f"{n} {p:.4f}/{m:.4f}" for n, p, m in zip(names, pred, meas)))
+        if dev_ms:
+            best = int(np.argmin(dev_ms))
+            rho = spearman(pred, dev_ms) if len(pred) > 2 else float("nan")
+            rows_out[-1].update(device_rho=rho,
+                                device_regret=dev_ms[pick] / dev_ms[best],
+                                device_best=names[best])
+            print(f"[ranking] {kid} {shape} on device time per launch: "
+                  f"spearman {rho:.2f}; pick {names[pick]} "
+                  f"{1e3 * dev_ms[pick]:.2f} us; best {names[best]} "
+                  f"{1e3 * dev_ms[best]:.2f} us; regret "
+                  f"{dev_ms[pick] / dev_ms[best]:.2f}x", flush=True)
+            print("[ranking]   device us: " + "; ".join(
+                f"{n} {1e3 * m:.2f}" for n, m in zip(names, dev_ms)))
     return rows_out
 
 
@@ -765,13 +882,7 @@ def phase_profile(dev, batch: int = 4, prompt_len: int = 64,
                 _, cache = decode(params, cache, tok)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        dt = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if dt > 0:
-            rows.append((dt / 1e3, ev.key, ev.count))
-    rows.sort(reverse=True)
+    rows = _device_rows(prof)
     busy = sum(r[0] for r in rows)
     if busy <= 0:
         print("[profile] the profiler recorded no device time")
@@ -782,14 +893,56 @@ def phase_profile(dev, batch: int = 4, prompt_len: int = 64,
     for ms, key, n in rows[:12]:
         print(f"[profile]   {ms / steps:8.3f} ms/step  {100 * ms / busy:5.1f}%"
               f"  x{n // steps:<4d} {key[:90]}")
-    # the B1 kernels' device time per launch (GEMV, wgmma, split-K reduce)
-    for ms, key, n in rows:
-        if any(k in key for k in ("gemv_kernel", "wgmma_kernel",
-                                  "splitk_reduce")):
-            print(f"[profile]   B1 {key[:60]}: x{n // steps} per step, "
-                  f"{1e3 * ms / n:.2f} us device time per launch")
+    _per_launch("decode", rows, steps)
+    # prefill runs the attention kernels: one profiled prefill
+    with torch.inference_mode(), use_tuned_layers():
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    print(f"[profile] prefill batch {batch} x {prompt_len}: {wall_ms:.1f} "
+          f"ms wall, device busy {busy:.1f} ms, idle share "
+          f"{1 - busy / wall_ms:.3f}")
+    for ms, key, n in rows[:8]:
+        print(f"[profile]   {ms:8.3f} ms  {100 * ms / busy:5.1f}%  x{n:<4d} "
+              f"{key[:90]}")
+    _per_launch("prefill", rows, 1)
     del params, cache
     torch.cuda.empty_cache()
+
+
+# the kernels of B1 (GEMV, wgmma, split-K reduce), B2 (warp-per-row and
+# vector rms_norm) and B3 (SIMT and tensor-core flash, blocked) by the
+# names `torch.profiler` gives them
+PROFILED = {"B1": ("gemv_kernel", "wgmma_kernel", "splitk_reduce_kernel"),
+            "B2": ("rms_kernel", "rms_vec_kernel"),
+            "B3": ("flash_kernel", "flash_mma_kernel", "blocked_kernel")}
+
+
+def _device_rows(prof):
+    """(device ms, kernel name, launches) of a profile, largest first."""
+    rows = []
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if dt > 0:
+            rows.append((dt / 1e3, ev.key, ev.count))
+    rows.sort(reverse=True)
+    return rows
+
+
+def _per_launch(what: str, rows, steps: int) -> None:
+    """The port's kernels' device time per launch in a profile."""
+    for ms, key, n in rows:
+        for tag, names in PROFILED.items():
+            if any(k + "<" in key for k in names):
+                print(f"[profile]   {what} {tag} {key[:60]}: x{n // steps} "
+                      f"per step, {1e3 * ms / n:.2f} us device time per "
+                      f"launch")
 
 
 # ---------------------------------------------------------------------------
@@ -1216,7 +1369,9 @@ def main() -> None:
                       ("the prefill matmul's wgmma tiles", ("gemm_wgmma",)),
                       ("split-K", ("splitk_reduce",)),
                       ("rms_norm", ("rms_norm",)),
+                      ("rms_norm's vector rows", ("rms_vec",)),
                       ("flash_attention", ("flash", "blocked")),
+                      ("flash's tensor-core rows", ("flash_mma",)),
                       ("mlp_matmul", ("fused", "stream", "split"))):
         if not any(launches[n] for n in names):
             fail(f"{op}: no CUDA kernel launched on the main path")
@@ -1245,7 +1400,9 @@ def main() -> None:
                 "path": path,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                **{k: r[k] for k in ("device_us", "library_device_us")
+                   if k in r}}
 
     for n in KERNELS:
         path, counts = paths[n]

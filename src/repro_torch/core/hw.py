@@ -330,6 +330,19 @@ class HopperSpec:
     # TMA GEMM tiles at M = 4 (chip_smoke.py [ranking]) drew 0.9-2.6 TB/s
     # from 1.5-8 MB in flight, i.e. 1.3-3 us of latency under load.
     latency_bytes: int = 64 * 1024
+    # bf16 FLOP/s one warp's own stream of mma.sync m16n8k16 reaches,
+    # with its ldmatrix operands and the dependences between them: the
+    # tensor-core flash tiles are bound by their slowest warp's chain of
+    # MMAs at the serve shapes, not by the card's tensor rate.  A fit,
+    # not a datasheet number: the device time per launch of the best
+    # tensor-core flash row of each warp split in chip_smoke.py's
+    # [ranking] at 4 x 16 x 64 x 256 causal (one run on an H100 SXM at
+    # 700 W: chains of 1.573, 1.049 and 0.786 MFLOP a warp in 16.97,
+    # 11.77 and 9.93 us), less launch_overhead_s, which the model adds
+    # on top; the least-squares line through the origin is 7.92 us per
+    # MFLOP (residuals +0.51, -0.54, -0.30 us), about one MMA every 64
+    # cycles at 1.98 GHz.
+    mma_warp_flops: float = 1.26e11
 
 
 H100_SXM = HopperSpec()

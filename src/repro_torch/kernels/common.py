@@ -15,7 +15,7 @@ Every kernel module in this package follows the same contract:
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Dict, Sequence
 
 import numpy as np
 
@@ -372,10 +372,32 @@ class HopperBatchInfo:
         return int(self.F.shape[0])
 
 
+def family_costs(fam, costs, keys) -> Dict[str, np.ndarray]:
+    """`hopper_info_batch` arguments of a tile table whose rows come in
+    families: ``fam`` is the (N,) family column, ``costs`` maps each
+    family to a function of the boolean row mask that prices those rows,
+    and ``keys`` names every argument the table prices.  A key a family
+    does not state is 0 on its rows (no tensor-core flops, no bytes in
+    flight, ...); ``feasible`` rows default to True; the grid and
+    resource keys come back as int64."""
+    out = {key: np.zeros(len(fam)) for key in keys}
+    out["feasible"] = np.ones(len(fam), dtype=bool)
+    for family, cost in costs.items():
+        sel = fam == family
+        if sel.any():
+            for key, v in cost(sel).items():
+                out[key][sel] = v
+    for key in ("blocks", "threads", "busy_threads", "regs", "smem"):
+        if key in out:
+            out[key] = out[key].astype(np.int64)
+    return out
+
+
 def hopper_info_batch(*, blocks, threads, regs, smem, flops,
                       tc_flops=0.0, trans=0.0, hbm_bytes, smem_bytes=0.0,
                       launches=1, busy_threads=None, inflight_bytes=None,
-                      feasible=None, spec: HopperSpec) -> HopperBatchInfo:
+                      warp_tc_flops=None, feasible=None,
+                      spec: HopperSpec) -> HopperBatchInfo:
     """Price N launch configurations of one CUDA kernel on ``spec``.
 
     Inputs are scalars or (N,) arrays: the grid size and threads per
@@ -389,8 +411,10 @@ def hopper_info_batch(*, blocks, threads, regs, smem, flops,
     block on a short grid dimension.  ``inflight_bytes`` states the
     device-memory bytes one block keeps in flight, for a kernel whose
     loads are not one scalar per thread (a row that gives 0 states
-    nothing); ``feasible`` is a mask of the rows whose kernel takes this
-    shape and dtype at all.
+    nothing); ``warp_tc_flops`` states the tensor-core FLOPs on the
+    longest warp's own chain of warp-level MMAs in a block (a row that
+    gives 0 states nothing); ``feasible`` is a mask of the rows whose
+    kernel takes this shape and dtype at all.
 
     * Feasibility and active blocks per SM come from Eqs. 1-5
       (`cuda_occupancy_batch`) over the per-block footprint (shared
@@ -412,6 +436,8 @@ def hopper_info_batch(*, blocks, threads, regs, smem, flops,
       with deep queues can pull the card's bandwidth), while its
       on-chip time (arithmetic and shared memory) keeps the wave
       stretch; the larger of the two is the row's time.
+    * A row that states its warp's MMA chain takes at least that chain
+      at ``spec.mma_warp_flops`` once per wave of blocks.
     * Each launch adds ``spec.launch_overhead_s``, unstretched.
     """
     if busy_threads is None:
@@ -467,6 +493,10 @@ def hopper_info_batch(*, blocks, threads, regs, smem, flops,
         stated = np.maximum((compute + shm / spec.smem_bw) * stretch,
                             hbm / spec.hbm_bw / np.maximum(queued, 1e-9))
         time = np.where(inflight > 0, stated, time)
+    if warp_tc_flops is not None:
+        chain = vec(warp_tc_flops, np.float64)
+        time = np.where(chain > 0, np.maximum(
+            time, waves * chain / spec.mma_warp_flops), time)
     pipe = np.where(feasible, time + launches * spec.launch_overhead_s,
                     np.inf)
     zero = np.zeros(n)

@@ -1,9 +1,12 @@
-// Hopper-only device helpers for the TMA + wgmma GEMM tiles of gemm.cu:
-// tensor-map loads (cp.async.bulk.tensor), mbarriers, shared-memory
-// matrix descriptors and the bf16 warpgroup MMAs.  PTX for sm_90a.
+// Device helpers for the tensor-core tiles: the TMA + wgmma GEMM tiles
+// of gemm.cu (tensor-map loads, mbarriers, shared-memory matrix
+// descriptors, the bf16 warpgroup MMAs) and the warp-level MMA tiles of
+// attention.cu (cp.async, ldmatrix, mma.sync m16n8k16).  PTX for
+// sm_90a.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -159,4 +162,67 @@ template <>
 __device__ __forceinline__ void wgmma_bf16<256>(float* d, uint64_t da,
                                                 uint64_t db) {
   wgmma_m64n256k16(d, da, db);
+}
+
+// ---------------------------------------------------------------------------
+// warp-level MMA (attention.cu's tensor-core flash tiles)
+// ---------------------------------------------------------------------------
+
+// 16-byte asynchronous copy global -> shared; ``src_bytes`` 0 writes
+// 16 zero bytes (the source is not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses of matrix i; lane l receives row l/4, columns 2(l%4), +1 of
+// matrix i in r[i] (of the transposed matrix with .trans).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr)
+      : "memory");
+}
+
+// d (16 x 8 f32) += a (16 x 16 bf16, row-major) . b (16 x 8 bf16,
+// column-major).  With g = lane/4, q = lane%4: a[0] holds (g, 2q..2q+1),
+// a[1] (g+8, 2q..), a[2] (g, 2q+8..), a[3] (g+8, 2q+8..); b0 (k 2q..2q+1,
+// n g), b1 (k 2q+8.., n g); d[0..1] (g, 2q..2q+1), d[2..3] (g+8, ...).
+__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 values as bf16x2 (x in the low half): hi = bf16(x), and the
+// rounding remainder lo = bf16(x - hi), so hi + lo carries x to about
+// 2^-17 relative.
+__device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }

@@ -7,7 +7,11 @@ noted there):
 
 * ``flash`` (primary) — online softmax over KV tiles
   (`_flash_kernel`): per-row running max, denominator and f32
-  accumulator, KV tiles past the causal diagonal skipped.
+  accumulator, KV tiles past the causal diagonal skipped.  Its tile
+  table (`FLASH_TILES`) holds two families priced together by
+  `flash_tiles_cost`: SIMT rows (f32 and bf16, any head width) and
+  tensor-core rows (``mma_*``: bf16 only, d a multiple of 16 up to 256,
+  else infeasible and refused with ValueError).
 * ``blocked`` — the whole KV of a head resident in shared memory, one
   stable softmax pass (`_blocked_kernel`); it fits only while K, V and
   the logits block fit the 227 KB a block may opt in to, so long
@@ -32,25 +36,47 @@ from repro_torch.kernels.api import (HopperSpace, KernelVariant, TILE_AXIS,
                                      tuned_kernel)
 from repro_torch.core.hw import dtype_bytes
 from repro_torch.kernels.common import (cdiv, dtype_name, dtype_str,
+                                        family_costs,
                                         pick_divisor_candidates,
                                         require_shape)
 
 __all__ = ["flash_attention", "blocked_attention", "attention_plain",
            "flash_cuda", "blocked_cuda", "make_tunable_flash",
-           "FLASH_TILES", "BLOCKED_TILES", "LAUNCHES"]
+           "FLASH_TILES", "BLOCKED_TILES", "SIMT", "MMA", "mma_takes",
+           "flash_tiles_cost", "LAUNCHES"]
 
-# Launches of each CUDA kernel by its wrapper (one per call).
-LAUNCHES = {"flash": 0, "blocked": 0}
+# Launches of each CUDA kernel by its wrapper (one per call): "flash"
+# counts calls of `flash_cuda` whatever the tile, "flash_simt" /
+# "flash_mma" the kernel of each family that it launched.
+LAUNCHES = {"flash": 0, "blocked": 0, "flash_simt": 0, "flash_mma": 0}
+_FAMILY_COUNTER = ("flash_simt", "flash_mma")
 
 _NEG_INF = -1e30
 
-# name -> (BQ, BKV, threads); order = csrc/attention.cu FLASH_TILES.
+# tile families of the flash table (csrc/attention.cu FlashFamily); the
+# widest head the tensor-core rows take
+SIMT, MMA = 0, 1
+MMA_DMAX = 256
+
+# name -> (BQ, BKV, threads, family); order = csrc/attention.cu
+# FLASH_TILES, then FLASH_MMA_TILES.  Tensor-core rows run DS = threads
+# / (2 BQ) warps per 16 query rows, each on 1/DS of the features
+# (``w``: one warp per 16 rows, kept only in 64-row blocks, for long
+# sequences; ``d2``, ``d4``: two, four).
 FLASH_TILES: Dict[str, Tuple[int, ...]] = {
-    "q16k32": (16, 32, 128),
-    "q16k64": (16, 64, 128),
-    "q32k32": (32, 32, 256),
-    "q32k64": (32, 64, 256),
-    "q64k64": (64, 64, 256),
+    "q16k32": (16, 32, 128, SIMT),
+    "q16k64": (16, 64, 128, SIMT),
+    "q32k32": (32, 32, 256, SIMT),
+    "q32k64": (32, 64, 256, SIMT),
+    "q64k64": (64, 64, 256, SIMT),
+    "mma_q64k32w4": (64, 32, 128, MMA),
+    "mma_q64k64w4": (64, 64, 128, MMA),
+    "mma_q16k32d2": (16, 32, 64, MMA),
+    "mma_q16k64d2": (16, 64, 64, MMA),
+    "mma_q32k64d2": (32, 64, 128, MMA),
+    "mma_q64k64d2": (64, 64, 256, MMA),
+    "mma_q16k64d4": (16, 64, 128, MMA),
+    "mma_q32k64d4": (32, 64, 256, MMA),
 }
 
 # name -> (BQ, threads); order = csrc/attention.cu BLOCKED_TILES.
@@ -61,9 +87,18 @@ BLOCKED_TILES: Dict[str, Tuple[int, ...]] = {
     "q64": (64, 256),
 }
 
+# a tile's index in its C table (the launch's ``tile`` argument)
+_TILE_INDEX = {"repro_flash": {t: i for i, t in enumerate(FLASH_TILES)},
+               "repro_blocked": {t: i for i, t in enumerate(BLOCKED_TILES)}}
+
 # declared registers per thread (loop indices, one dot accumulator,
-# pointers); the smoke prints the compiled count beside it
+# pointers) of the SIMT and blocked kernels; the tensor-core kernel's by
+# (BKV, DS) are its compiled counts for sm_90a (O's 128 / DS f32
+# registers at d <= 256, S's BKV / 2, fragments); the smoke prints the
+# compiled counts beside them
 _ATTN_REGS = 40
+_MMA_REGS = {(32, 1): 221, (64, 1): 247, (32, 2): 153, (64, 2): 187,
+             (64, 4): 153}
 
 
 def _kpad(eb: int) -> int:
@@ -95,13 +130,45 @@ def _visited_tiles(bq: int, bkv: int, sq: int, skv: int,
                for q0 in range(0, sq, bq))
 
 
-def _flash_hopper(cols, *, b: int, h: int, sq: int, skv: int, d: int,
-                  causal: bool = True, dtype: str = "float32"):
-    t = np.array([FLASH_TILES[str(x)] for x in cols[TILE_AXIS]],
-                 dtype=np.int64).reshape(-1, 3)
+def mma_takes(dtype: str, d: int) -> bool:
+    """Whether the tensor-core rows take a head width: bf16 only (f32
+    stays full f32 on the SIMT rows), d a multiple of 16 (whole MMA
+    steps) up to MMA_DMAX (O's registers)."""
+    return dtype == "bfloat16" and d % 16 == 0 and d <= MMA_DMAX
+
+
+def mma_smem_bytes(bq, bkv, skv: int, d: int):
+    """Shared bytes of `flash_mma_kernel`: the bf16 Q tile and one stage
+    of K and V tiles, or two when skv needs more than one tile; rows
+    padded by 16 bytes."""
+    stages = np.where(skv > np.asarray(bkv), 2, 1)
+    return 2 * (d + 8) * (bq + stages * 2 * bkv)
+
+
+def _group_tiles(bq: int, bkv: int, sq: int, skv: int,
+                 causal: bool) -> Tuple[int, float]:
+    """KV tiles the tensor-core kernel's 16-row groups run per head:
+    each group of a block with rows below sq walks the block's tiles,
+    skipping (causal) those wholly above its own last row.  Returns the
+    (group, tile) pairs, and the tiles of the longest group (the last
+    block's last, under the causal skip): the kernel's critical path
+    when its blocks run in one wave."""
+    n_kv = cdiv(skv, bkv)
+    pairs, longest = 0, []
+    for q0 in range(0, sq, bq):
+        tiles = n_kv if not causal else min(
+            n_kv, (min(q0 + bq, sq) - 1) // bkv + 1)
+        runs = [tiles if not causal else sum(
+            1 for t in range(tiles) if w0 + 15 >= t * bkv)
+            for w0 in range(q0, min(q0 + bq, sq), 16)]
+        pairs += sum(runs)
+        longest.append(runs[-1])
+    return pairs, float(max(longest))
+
+
+def _simt_cost(t, *, bh: int, sq: int, skv: int, d: int, causal: bool,
+               eb: int):
     bq, bkv, nt = t[:, 0], t[:, 1], t[:, 2]
-    eb = dtype_bytes(dtype)
-    bh = b * h
     vis = np.array([_visited_tiles(int(q), int(k), sq, skv, causal)
                     for q, k in zip(bq, bkv)], dtype=np.float64)
     logits = vis * bq * bkv * bh                    # padded (row, col) pairs
@@ -113,6 +180,71 @@ def _flash_hopper(cols, *, b: int, h: int, sq: int, skv: int, d: int,
         # per logit: d words of q and d of k; per (row, feature): bkv
         # words of p and bkv of v — 4 * d words per logit in all
         smem_bytes=logits * 4.0 * d * 4.0)
+
+
+def _mma_cost(t, *, bh: int, sq: int, skv: int, d: int, causal: bool,
+              eb: int):
+    """Tensor-core rows: QK^T (2 d FLOPs a logit, in each of the DS
+    warps of a 16-row group) and the two P.V MMAs of P's hi and lo
+    halves (4 d, split over the DS warps) on the tensor cores, over the
+    (16-row group, tile) pairs that run; the softmax on the CUDA cores
+    (scale, mask, max, subtract, sum, the hi/lo split: 8 a logit, in
+    each warp) with one exp a logit and one a row and tile, and O's
+    rescale (d a row and tile).  Device memory as the SIMT rows; shared
+    memory: each visited K/V tile stored once per block, and per group
+    and tile the ldmatrix reads of Q and K (by every warp) and V.  The
+    block keeps one K/V stage in flight.  A warp's own MMA chain per
+    tile is its QK^T and its 1/DS of P.V ((2 + 4 / DS) x 16 x BKV x d
+    FLOPs), over the tiles of the longest group."""
+    bq, bkv, nt = t[:, 0], t[:, 1], t[:, 2]
+    ds = nt // (2 * bq)
+    vis = np.array([_visited_tiles(int(q), int(k), sq, skv, causal)
+                    for q, k in zip(bq, bkv)], dtype=np.float64)
+    wt, chain = np.array([_group_tiles(int(q), int(k), sq, skv, causal)
+                          for q, k in zip(bq, bkv)], dtype=np.float64).T
+    logits = wt * 16 * bkv * bh                     # padded, per group
+    rows = wt * 16 * bh
+    return dict(
+        blocks=bh * cdiv(sq, bq), threads=nt,
+        regs=np.array([_MMA_REGS[(int(k), int(s))]
+                       for k, s in zip(bkv, ds)]),
+        smem=mma_smem_bytes(bq, bkv, skv, d),
+        flops=ds * (8.0 * logits) + rows * d,
+        tc_flops=(2.0 * ds + 4.0) * logits * d,
+        trans=ds * (logits + rows),
+        hbm_bytes=bh * (2.0 * sq * d * eb + vis * bkv * 2.0 * d * eb),
+        smem_bytes=bh * vis * 2.0 * bkv * d * 2
+        + wt * bh * (ds * (16.0 + bkv) + bkv) * d * 2,
+        inflight_bytes=2.0 * bkv * d * 2,
+        warp_tc_flops=chain * (2.0 + 4.0 / ds) * 16 * bkv * d)
+
+
+def flash_tiles_cost(t, *, b: int, h: int, sq: int, skv: int, d: int,
+                     causal: bool = True,
+                     dtype: str = "float32") -> Dict[str, np.ndarray]:
+    """`hopper_info_batch` arguments of FLASH_TILES rows ``t`` (an (N, 4)
+    array of the table's fields), each row priced by its family; the
+    tensor-core rows are infeasible unless `mma_takes` the shape.  SIMT
+    rows state no tensor-core flops, bytes in flight or MMA chain: they
+    are priced on the CUDA cores with their latency hiding in warps."""
+    kw = dict(bh=b * h, sq=sq, skv=skv, d=d, causal=causal,
+              eb=dtype_bytes(dtype))
+    fam = t[:, 3]
+    out = family_costs(fam, {SIMT: lambda sel: _simt_cost(t[sel], **kw),
+                             MMA: lambda sel: _mma_cost(t[sel], **kw)},
+                       keys=("blocks", "threads", "regs", "smem", "flops",
+                             "tc_flops", "trans", "hbm_bytes", "smem_bytes",
+                             "inflight_bytes", "warp_tc_flops"))
+    out["feasible"] &= (fam != MMA) | mma_takes(dtype, d)
+    return out
+
+
+def _flash_hopper(cols, *, b: int, h: int, sq: int, skv: int, d: int,
+                  causal: bool = True, dtype: str = "float32"):
+    t = np.array([FLASH_TILES[str(x)] for x in cols[TILE_AXIS]],
+                 dtype=np.int64).reshape(-1, 4)
+    return flash_tiles_cost(t, b=b, h=h, sq=sq, skv=skv, d=d, causal=causal,
+                            dtype=dtype)
 
 
 def _blocked_hopper(cols, *, b: int, h: int, sq: int, skv: int, d: int,
@@ -203,15 +335,24 @@ def _check_qkv(kernel: str, q, k, v) -> Tuple[int, int, int, int, int]:
     return b, h, sq, skv, d
 
 
-def _attn_launch(kernel: str, fn_name: str, tiles, q, k, v, causal: bool,
+def _attn_launch(kernel: str, fn_name: str, q, k, v, causal: bool,
                  tile: str):
     import torch
     b, h, sq, skv, d = _check_qkv(kernel, q, k, v)
-    if tile not in tiles:
+    idx = _TILE_INDEX[fn_name].get(tile)
+    if idx is None:
         raise ValueError(f"{kernel}: unknown tile {tile!r}")
+    if fn_name == "repro_flash" and FLASH_TILES[tile][3] == MMA:
+        if not mma_takes(dtype_name(q), d):
+            raise ValueError(
+                f"{kernel}: tile {tile} takes bfloat16 with d a multiple "
+                f"of 16 up to {MMA_DMAX}, got {dtype_name(q)} d={d}")
+        if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+            raise ValueError(f"{kernel}: tile {tile} needs 16-byte-aligned "
+                             f"operands")
     out = torch.empty_like(q)
     rc = getattr(_cuda.library(), fn_name)(
-        list(tiles).index(tile), _cuda.dtype_code(q), int(bool(causal)),
+        idx, _cuda.dtype_code(q), int(bool(causal)),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b * h, sq, skv, d, 1.0 / math.sqrt(d), _cuda.stream_of(q))
     _cuda.check(rc, kernel)
@@ -219,17 +360,20 @@ def _attn_launch(kernel: str, fn_name: str, tiles, q, k, v, causal: bool,
 
 
 def flash_cuda(q, k, v, causal: bool = True, *, tile: str):
-    """Launch the online-softmax CUDA kernel ``tile`` on CUDA tensors."""
-    out = _attn_launch("flash_attention", "repro_flash", FLASH_TILES,
-                       q, k, v, causal, tile)
+    """Launch the online-softmax CUDA kernel ``tile`` on CUDA tensors (a
+    tensor-core row refuses with ValueError what `mma_takes` refuses, or
+    an operand off a 16-byte boundary)."""
+    out = _attn_launch("flash_attention", "repro_flash", q, k, v, causal,
+                       tile)
     LAUNCHES["flash"] += 1
+    LAUNCHES[_FAMILY_COUNTER[FLASH_TILES[tile][3]]] += 1
     return out
 
 
 def blocked_cuda(q, k, v, causal: bool = True, *, tile: str):
     """Launch the whole-KV-resident CUDA kernel ``tile``."""
-    out = _attn_launch("blocked_attention", "repro_blocked", BLOCKED_TILES,
-                       q, k, v, causal, tile)
+    out = _attn_launch("blocked_attention", "repro_blocked", q, k, v,
+                       causal, tile)
     LAUNCHES["blocked"] += 1
     return out
 

@@ -26,6 +26,7 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, TILE_AXIS, cuda_profile,
                                      divisors, get_spec, tuned_kernel)
 from repro_torch.kernels.common import (cdiv, dtype_name, dtype_str,
+                                        family_costs,
                                         pick_divisor_candidates)
 from repro_torch.kernels.ref import matmul_ref
 
@@ -198,31 +199,19 @@ def gemm_tiles_cost(t, *, m: int, n: int, k: int, dtype: str,
     the shape."""
     eb = dtype_bytes(dtype)
     fam, split = t[:, 5], t[:, 7]
-    rows = len(t)
-    out = {key: np.zeros(rows) for key in (
-        "blocks", "threads", "regs", "smem", "flops", "tc_flops",
-        "hbm_bytes", "smem_bytes", "inflight_bytes")}
-    out["feasible"] = np.ones(rows, dtype=bool)
-    for family, cost in ((SIMT, None), (GEMV, _gemv_cost),
-                         (WGMMA, _wgmma_cost)):
-        sel = fam == family
-        if not sel.any():
-            continue
-        r = t[sel]
-        if cost is None:
-            part = gemm_hopper_cost(m=m, n=n, k=k, bm=r[:, 0], bn=r[:, 1],
-                                    bk=r[:, 2], tm=r[:, 3], tn=r[:, 4],
-                                    in_bytes=eb, out_bytes=out_bytes)
-        else:
-            part = cost(r, m=m, n=n, k=k, in_bytes=eb, out_bytes=out_bytes)
-        for key, v in part.items():
-            out[key][sel] = v
+    kw = dict(m=m, n=n, k=k, in_bytes=eb, out_bytes=out_bytes)
+    out = family_costs(fam, {
+        SIMT: lambda sel: gemm_hopper_cost(
+            bm=t[sel, 0], bn=t[sel, 1], bk=t[sel, 2], tm=t[sel, 3],
+            tn=t[sel, 4], **kw),
+        GEMV: lambda sel: _gemv_cost(t[sel], **kw),
+        WGMMA: lambda sel: _wgmma_cost(t[sel], **kw)},
+        keys=("blocks", "threads", "regs", "smem", "flops", "tc_flops",
+              "hbm_bytes", "smem_bytes", "inflight_bytes"))
     partials = 2.0 * split * float(m) * n * 4
     out["hbm_bytes"] = out["hbm_bytes"] + np.where(split > 1, partials, 0.0)
     out["launches"] = np.where(split > 1, 2, 1)
     out["feasible"] &= (fam != WGMMA) | wgmma_takes(dtype, n, k)
-    for key in ("blocks", "threads", "regs", "smem"):
-        out[key] = out[key].astype(np.int64)
     return out
 
 

@@ -1,13 +1,16 @@
 """RMSNorm: y = x * rsqrt(mean(x^2) + eps) * w over rows, in f32.
 
-Port of `src/repro/kernels/rms_norm.py:_rms_kernel` as the warp-per-row
-CUDA kernel of ``csrc/rms_norm.cu`` (design, bound and what it leaves
-on the table are noted there).  The serving path normalizes every
-layer's input rows through it.
+Port of `src/repro/kernels/rms_norm.py:_rms_kernel` as the CUDA
+kernels of ``csrc/rms_norm.cu`` (design, bound and what they leave on
+the table are noted there).  The serving path normalizes every layer's
+input rows through it.
 
 The declaration keeps the reference's TPU space (``bm`` rows per grid
-step), analysis and pretune grid; its H100 space is the rows-per-block
-instantiations of the kernel (`RMS_TILES`).
+step), analysis and pretune grid; its H100 space is the compiled
+instantiations of the kernel (`RMS_TILES`), in two families priced
+together by `rms_tiles_cost`: warp-per-row rows (any D) and
+row-in-register rows (one block per row, 16-byte vectors; D a multiple
+of a vector and at most THREADS x VMAX vectors, else infeasible).
 """
 from __future__ import annotations
 
@@ -19,18 +22,43 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, TILE_AXIS, divisors,
                                      tuned_kernel)
 from repro_torch.core.hw import dtype_bytes
-from repro_torch.kernels.common import cdiv, dtype_name, require_shape
+from repro_torch.kernels.common import (cdiv, dtype_name, family_costs,
+                                        require_shape)
 
 __all__ = ["rms_norm", "rms_norm_cuda", "rms_norm_plain", "RMS_TILES",
-           "LAUNCHES"]
+           "SIMT", "VEC", "vec_takes", "rms_tiles_cost", "LAUNCHES"]
 
-# Launches of the CUDA kernel by `rms_norm_cuda` (one per call).
-LAUNCHES = {"rms_norm": 0}
+# Launches by kernel: "rms_norm" counts calls of `rms_norm_cuda` (one per
+# call, whatever the tile), "rms_simt" / "rms_vec" the kernel of each
+# family that it launched.
+LAUNCHES = {"rms_norm": 0, "rms_simt": 0, "rms_vec": 0}
+_FAMILY_COUNTER = ("rms_simt", "rms_vec")
 
-# name -> (rows per block,), threads = 32 * rows; order = csrc RMS_TILES.
+# tile families (csrc/rms_norm.cu RmsFamily), and the 16-byte vectors of
+# x a thread of the vector rows holds
+SIMT, VEC = 0, 1
+VMAX = 8
+
+# name -> (rows per block, threads, family, VMAX); order = csrc
+# RMS_TILES, then RMS_VEC_TILES.  Warp-per-row rows run 32 threads a
+# row; vector rows one block of THREADS threads a row, widest first
+# (where the analysis ties them, the first wins).
 RMS_TILES: Dict[str, Tuple[int, ...]] = {
-    "r1": (1,), "r2": (2,), "r4": (4,), "r8": (8,), "r16": (16,),
+    "r1": (1, 32, SIMT, 0), "r2": (2, 64, SIMT, 0),
+    "r4": (4, 128, SIMT, 0), "r8": (8, 256, SIMT, 0),
+    "r16": (16, 512, SIMT, 0),
+    "vec_t256": (1, 256, VEC, VMAX), "vec_t128": (1, 128, VEC, VMAX),
+    "vec_t64": (1, 64, VEC, VMAX),
 }
+
+# a tile's index in the C table (the launch's ``tile`` argument)
+_TILE_INDEX = {t: i for i, t in enumerate(RMS_TILES)}
+# declared registers per thread: the warp-per-row kernel's, and the
+# vector kernel's by element size (its compiled counts for sm_90a: a
+# held bf16 vector widens to eight floats, an f32 one to four); the
+# smoke prints the compiled counts beside them
+_SIMT_REGS = 24
+_VEC_REGS = {2: 80, 4: 48}
 
 
 def _rms_analysis(p, *, m: int, d: int, dtype: str = "float32"):
@@ -49,18 +77,63 @@ def _rms_analysis(p, *, m: int, d: int, dtype: str = "float32"):
     )
 
 
-def _rms_hopper(cols, *, m: int, d: int, dtype: str = "float32"):
+def vec_takes(dtype: str, d: int, threads) -> np.ndarray:
+    """Whether the vector rows of ``threads`` threads take rows of ``d``
+    elements: whole 16-byte vectors, at most VMAX a thread."""
+    v = 16 // dtype_bytes(dtype)
+    return (d % v == 0) & (d <= np.asarray(threads) * VMAX * v)
+
+
+def _simt_cost(t, *, m: int, d: int, eb: int):
     """One warp per row: no shared memory, x read and y written once
     from device memory (the second pass over a row hits L1/L2), the f32
     weight read once per block."""
-    rows = np.array([RMS_TILES[str(t)][0] for t in cols[TILE_AXIS]],
-                    dtype=np.int64)
-    eb = dtype_bytes(dtype)
+    rows = t[:, 0]
     blocks = cdiv(m, rows)
     return dict(blocks=blocks, threads=32 * rows,
-                busy_threads=32 * np.minimum(rows, m), regs=24, smem=0,
-                flops=4.0 * m * d, trans=float(m),
+                busy_threads=32 * np.minimum(rows, m), regs=_SIMT_REGS,
+                smem=0, flops=4.0 * m * d, trans=float(m),
                 hbm_bytes=2.0 * m * d * eb + blocks * d * 4.0)
+
+
+def _vec_cost(t, *, m: int, d: int, eb: int):
+    """One block per row: x read and y written once, w once from device
+    memory (later blocks find it in L2); the threads that hold a vector
+    do work; every vector of the row is in flight at once, so the row's
+    bytes are the block's bytes in flight (Little's law over the card),
+    and the warps' partial sums meet in shared memory."""
+    nt = t[:, 1]
+    nv = max(1, d * eb // 16)
+    return dict(blocks=np.full(len(t), m), threads=nt,
+                busy_threads=np.minimum(nt, nv), regs=_VEC_REGS[eb],
+                smem=4 * (nt // 32), flops=4.0 * m * d, trans=float(m),
+                hbm_bytes=2.0 * m * d * eb + d * 4.0,
+                smem_bytes=m * 8.0 * (nt // 32),
+                inflight_bytes=np.full(len(t), float(d * eb)))
+
+
+def rms_tiles_cost(t, *, m: int, d: int,
+                   dtype: str) -> Dict[str, np.ndarray]:
+    """`hopper_info_batch` arguments of RMS_TILES rows ``t`` (an (N, 4)
+    array of the table's fields) for an (m, d) ``dtype`` input, each row
+    priced by its family; vector rows are infeasible unless `vec_takes`
+    the row.  Warp-per-row rows state no bytes in flight, so their
+    latency hiding is counted in warps."""
+    eb = dtype_bytes(dtype)
+    fam = t[:, 2]
+    out = family_costs(
+        fam, {SIMT: lambda sel: _simt_cost(t[sel], m=m, d=d, eb=eb),
+              VEC: lambda sel: _vec_cost(t[sel], m=m, d=d, eb=eb)},
+        keys=("blocks", "threads", "busy_threads", "regs", "smem", "flops",
+              "trans", "hbm_bytes", "smem_bytes", "inflight_bytes"))
+    out["feasible"] &= (fam != VEC) | vec_takes(dtype, d, t[:, 1])
+    return out
+
+
+def _rms_hopper(cols, *, m: int, d: int, dtype: str = "float32"):
+    t = np.array([RMS_TILES[str(x)] for x in cols[TILE_AXIS]],
+                 dtype=np.int64).reshape(-1, 4)
+    return rms_tiles_cost(t, m=m, d=d, dtype=dtype)
 
 
 def rms_norm_plain(x, w, eps: float = 1e-6):
@@ -73,22 +146,39 @@ def rms_norm_plain(x, w, eps: float = 1e-6):
 
 def rms_norm_cuda(x, w, eps: float = 1e-6, *, tile: str):
     """Launch the CUDA RMSNorm instantiation ``tile`` on CUDA tensors
-    (x (M, D) float32/bfloat16, w (D,) any float type, widened)."""
+    (x (M, D) float32/bfloat16, w (D,) any float type, widened).  A
+    vector row refuses with ValueError a row it cannot hold (`vec_takes`)
+    or an operand off a 16-byte boundary."""
     import torch
     _cuda.require_operands("rms_norm", x)
     if x.dim() != 2:
         raise ValueError(f"rms_norm: x must be (M, D), got {tuple(x.shape)}")
     m, d = x.shape
     require_shape("rms_norm", "w", tuple(w.shape), (d,))
-    if tile not in RMS_TILES:
+    idx = _TILE_INDEX.get(tile)
+    if idx is None:
         raise ValueError(f"rms_norm: unknown tile {tile!r}")
-    wf = w.to(device=x.device, dtype=torch.float32).contiguous()
+    wf = w if (w.dtype == torch.float32 and w.device == x.device
+               and w.is_contiguous()) else \
+        w.to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty_like(x)
+    _, threads, family, _ = RMS_TILES[tile]
+    if family == VEC:
+        v = 16 // x.element_size()
+        if d % v or d > threads * VMAX * v:
+            raise ValueError(
+                f"rms_norm: tile {tile} takes rows of whole 16-byte vectors"
+                f", at most {threads * VMAX} of them, got D={d} "
+                f"{dtype_name(x)}")
+        if x.data_ptr() % 16 or wf.data_ptr() % 16:
+            raise ValueError(f"rms_norm: tile {tile} needs 16-byte-aligned "
+                             f"operands")
     rc = _cuda.library().repro_rms_norm(
-        list(RMS_TILES).index(tile), _cuda.dtype_code(x), x.data_ptr(),
-        wf.data_ptr(), out.data_ptr(), m, d, float(eps), _cuda.stream_of(x))
+        idx, _cuda.dtype_code(x), x.data_ptr(), wf.data_ptr(),
+        out.data_ptr(), m, d, float(eps), _cuda.stream_of(x))
     _cuda.check(rc, "rms_norm")
     LAUNCHES["rms_norm"] += 1
+    LAUNCHES[_FAMILY_COUNTER[family]] += 1
     return out
 
 

@@ -22,7 +22,7 @@ from repro_torch.kernels import _cuda, api, ops
 from repro_torch.kernels.atax import BLAS2_TILES, atax_cuda, atax_plain
 from repro_torch.kernels.bicg import bicg_cuda, bicg_plain
 from repro_torch.kernels.flash_attention import (BLOCKED_TILES, FLASH_TILES,
-                                                 attention_plain,
+                                                 MMA, attention_plain,
                                                  blocked_cuda, flash_cuda)
 from repro_torch.kernels.jacobi3d import (JACOBI_TILES, jacobi3d_cuda,
                                           jacobi3d_plain)
@@ -33,8 +33,8 @@ from repro_torch.kernels.matvec import MATVEC_TILES, matvec_cuda, matvec_plain
 from repro_torch.kernels.mlp_matmul import (GATED_TILES, STREAM_TILES,
                                             fused_cuda, mlp_plain,
                                             split_cuda, stream_cuda)
-from repro_torch.kernels.rms_norm import (RMS_TILES, rms_norm_cuda,
-                                          rms_norm_plain)
+from repro_torch.kernels.rms_norm import (RMS_TILES, VEC, rms_norm_cuda,
+                                          rms_norm_plain, vec_takes)
 from repro_torch.kernels.stencil2d import (STENCIL_TILES, stencil2d_cuda,
                                            stencil2d_plain)
 
@@ -79,9 +79,10 @@ def test_tile_tables_match_the_library(cuda, kind, table):
     out = (ctypes.c_int * _cuda.TILE_INFO_INTS)()
     for i, fields in enumerate(table.values()):
         assert lib.repro_tile_info(kind, i, out) == 0
-        slots = {0: (0, 1, 2, 3, 4, 6, 7, 8), 2: (0, 1, 3, 4), 3: (0,),
-                 4: (0, 1, 5), 5: (0, 5), 6: (0, 1), 7: (0, 1), 8: (0, 1),
-                 9: (0, 1, 2)}.get(kind, (0, 1, 2, 3, 4))
+        slots = {0: (0, 1, 2, 3, 4, 6, 7, 8), 2: (0, 1, 3, 4),
+                 3: (0, 5, 1, 2), 4: (0, 1, 5, 6), 5: (0, 5), 6: (0, 1),
+                 7: (0, 1), 8: (0, 1), 9: (0, 1, 2)}.get(kind,
+                                                        (0, 1, 2, 3, 4))
         assert tuple(out[j] for j in slots) == tuple(fields), (kind, i)
     threads = {SIMT: None, GEMV: 256, WGMMA: 384}
     if kind == 0:
@@ -173,8 +174,14 @@ def test_split_mlp_takes_the_new_rows_with_f32_passes(cuda, tile):
     _close(got, mlp_plain(x, wg, wu, "gelu"), torch.bfloat16)
 
 
+RMS_WARP_ROWS = [t for t, f in RMS_TILES.items() if f[2] != VEC]
+RMS_VEC_ROWS = [t for t, f in RMS_TILES.items() if f[2] == VEC]
+FLASH_SIMT_ROWS = [t for t, f in FLASH_TILES.items() if f[3] != MMA]
+FLASH_MMA_ROWS = [t for t, f in FLASH_TILES.items() if f[3] == MMA]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("tile", list(RMS_TILES))
+@pytest.mark.parametrize("tile", RMS_WARP_ROWS)
 def test_rms_norm_kernel(cuda, dtype, tile):
     x = _rand((37, 300), dtype, cuda, 2)
     w = _rand((300,), torch.float32, cuda, 3)
@@ -184,13 +191,77 @@ def test_rms_norm_kernel(cuda, dtype, tile):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tile", RMS_VEC_ROWS)
+@pytest.mark.parametrize("d", [2048, 3072, 4096])
+@pytest.mark.parametrize("m", [1, 4, 37, 256])
+def test_rms_vec_rows_against_plain(cuda, dtype, tile, d, m):
+    """Each vector row against the plain version where it holds the row
+    (ValueError before any launch where it does not); two calls give
+    the same bits (the partial sums meet in warp order)."""
+    x = _rand((m, d), dtype, cuda, 70)
+    w = _rand((d,), torch.float32, cuda, 71)
+    if not vec_takes(str(dtype).rpartition(".")[2], d, RMS_TILES[tile][1]):
+        with pytest.raises(ValueError, match="16-byte vectors"):
+            rms_norm_cuda(x, w, 1e-6, tile=tile)
+        return
+    got = rms_norm_cuda(x, w, 1e-6, tile=tile)
+    again = rms_norm_cuda(x, w, 1e-6, tile=tile)
+    torch.cuda.synchronize()
+    _close(got, rms_norm_plain(x, w, 1e-6), dtype)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 300),
+                                     (torch.bfloat16, 301),
+                                     (torch.float32, 301)])
+@pytest.mark.parametrize("tile", RMS_VEC_ROWS)
+def test_rms_vec_rows_refuse_ragged_rows(cuda, dtype, d, tile):
+    """Rows that are not whole 16-byte vectors (D = 300 is 75 of them in
+    float32, which the vector rows take): a ValueError before any
+    launch."""
+    x = _rand((37, d), dtype, cuda, 72)
+    w = _rand((d,), torch.float32, cuda, 73)
+    with pytest.raises(ValueError, match="16-byte vectors"):
+        rms_norm_cuda(x, w, 1e-6, tile=tile)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("tile", list(FLASH_TILES))
+@pytest.mark.parametrize("tile", FLASH_SIMT_ROWS)
 def test_flash_kernel(cuda, dtype, causal, tile):
     q, k, v = (_rand((2, 3, 80, 64), dtype, cuda, s) for s in (4, 5, 6))
     got = flash_cuda(q, k, v, causal, tile=tile)
     torch.cuda.synchronize()
     _close(got, attention_plain(q, k, v, causal), dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("tile", FLASH_MMA_ROWS)
+def test_flash_mma_rows_against_plain(cuda, tile, d, causal):
+    """Each tensor-core row on a ragged sq (80 against every BQ and
+    BKV), bf16, against the plain version; two calls give the same
+    bits."""
+    q, k, v = (_rand((2, 3, 80, d), torch.bfloat16, cuda, s)
+               for s in (74, 75, 76))
+    got = flash_cuda(q, k, v, causal, tile=tile)
+    again = flash_cuda(q, k, v, causal, tile=tile)
+    torch.cuda.synchronize()
+    _close(got, attention_plain(q, k, v, causal), torch.bfloat16)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("tile", FLASH_MMA_ROWS)
+def test_flash_mma_rows_refuse_what_they_cannot_take(cuda, tile):
+    """f32 operands, d not a multiple of 16 or past 256: a ValueError
+    before any launch."""
+    f32 = _rand((1, 2, 16, 64), torch.float32, cuda, 77)
+    with pytest.raises(ValueError, match="takes bfloat16"):
+        flash_cuda(f32, f32, f32, True, tile=tile)
+    for d in (72, 272):
+        b = _rand((1, 2, 16, d), torch.bfloat16, cuda, 78)
+        with pytest.raises(ValueError, match="takes bfloat16"):
+            flash_cuda(b, b, b, True, tile=tile)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
