@@ -13,19 +13,25 @@ Phases, each fatal on failure (exit code != 0, no result line):
              path gives it (the matmul at decode, M = 4, on its split-K
              GEMV pick and at prefill, M = 256, on its TMA + wgmma pick,
              and the split-K reduction; rms_norm on its row-in-register
-             pick and flash on its tensor-core pick; the older families
-             of both tables on their dispatch picks where they are the
-             route: rms_norm on a row too long for the vector rows,
-             flash in float32), held against its plain PyTorch version, and timed beside that version, its
-             roofline bound and, where one PyTorch call computes the
+             pick; attention's tensor-core families on their dispatch
+             picks: flash bf16 (mma.sync) at batch 4, flash float32
+             (3xTF32) and blocked (whole-KV tensor-core rows, bf16) at
+             their serve shapes; the older families on the rows the
+             analysis ranks first among them: rms_norm on a row too long
+             for the vector rows, flash and blocked on their SIMT rows),
+             held against its plain PyTorch version (float32 attention
+             at 2e-4, the rest at 2e-2), and timed beside that version,
+             its roofline bound and, where one PyTorch call computes the
              same function, that call, with the host time per call of
              matmul, rms_norm and the attention wrappers and the device
-             time per launch (`torch.profiler`) of rms_norm, flash,
-             blocked and their library calls; then
+             time per launch (`torch.profiler`) of rms_norm, the
+             attention kernels and their library calls; then
              every feasible (variant, tile) of the serving instances,
-             and of one long-sequence flash instance, timed beside the
-             H100 analysis' prediction (rank correlation, the static
-             pick's regret);
+             of float32 attention at the serve shape and of two
+             long-sequence instances, timed beside the H100 analysis'
+             prediction (rank correlation, the static pick's regret,
+             each instance labelled in or out of the sample the
+             analysis' fitted constant came from);
 3. check   — gemma-smoke in float32: prefill logits and 8 greedy tokens
              of the tuned CUDA path against the plain path on the CPU;
 4. serve   — the serving path: gemma-7b at full width and depth
@@ -97,12 +103,16 @@ KERNELS = {
                  "src/repro/kernels/rms_norm.py:30"),
     "flash": ("src/repro_torch/kernels/csrc/attention.cu",
               "src/repro/kernels/flash_attention.py:49"),
+    "flash_tf32": ("src/repro_torch/kernels/csrc/attention.cu",
+                   "src/repro/kernels/flash_attention.py:49"),
     "flash_simt": ("src/repro_torch/kernels/csrc/attention.cu",
                    "src/repro/kernels/flash_attention.py:49"),
     "rms_simt": ("src/repro_torch/kernels/csrc/rms_norm.cu",
                  "src/repro/kernels/rms_norm.py:30"),
-    "blocked": ("src/repro_torch/kernels/csrc/attention.cu",
-                "src/repro/kernels/flash_attention.py:122"),
+    "blocked_tc": ("src/repro_torch/kernels/csrc/attention.cu",
+                   "src/repro/kernels/flash_attention.py:122"),
+    "blocked_simt": ("src/repro_torch/kernels/csrc/attention.cu",
+                     "src/repro/kernels/flash_attention.py:122"),
     "fused": ("src/repro_torch/kernels/csrc/gemm.cu",
               "src/repro/kernels/mlp_matmul.py:54"),
     "stream": ("src/repro_torch/kernels/csrc/gemm.cu",
@@ -123,14 +133,14 @@ KERNELS = {
                 "examples/custom_kernel.py:34"),
 }
 SERVE_KERNELS = ("matmul", "matmul_prefill", "splitk_reduce", "rms_norm",
-                 "flash", "flash_simt", "rms_simt", "blocked", "fused",
-                 "stream", "split")
+                 "flash", "flash_tf32", "flash_simt", "rms_simt",
+                 "blocked_tc", "blocked_simt", "fused", "stream", "split")
 # the launch counter of a kernel listed under another name: the prefill
 # matmul row is the wgmma family's GEMM kernel (matmul and the split
-# MLP's passes); flash_simt and rms_simt are the older families of the
-# flash and rms_norm tables (f32, ragged or very long rows), counted by
-# their wrappers under those names
-COUNTER = {"matmul_prefill": "gemm_wgmma"}
+# MLP's passes), the flash row its bf16 tensor-core family's kernel;
+# the other attention and rms_norm rows are one family each, counted by
+# their wrappers under the row's name
+COUNTER = {"matmul_prefill": "gemm_wgmma", "flash": "flash_mma"}
 TABLE4 = ("matvec", "atax", "bicg", "jacobi3d")
 EXTEND = ("stencil2d", "saxpy2d")
 
@@ -191,22 +201,31 @@ def bound(nbytes: float, flops: float, dtype: str):
         ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_us(fn, calls: int = 100) -> float:
+def device_us(fn, calls: int = 100, tries: int = 3) -> float:
     """Device time per call of ``fn()`` in microseconds: the self device
     time `torch.profiler` records over ``calls`` back-to-back calls (every
-    kernel the call launches), over ``calls``."""
+    kernel the call launches), over ``calls``.  A profile whose kernel
+    count is not a whole number a call has lost records and would read
+    short: it is taken again, at most ``tries`` times, then fatal."""
     import torch
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(ev, "self_device_time_total",
-                        getattr(ev, "self_cuda_time_total", 0.0))
-                for ev in prof.key_averages())
-    return total / calls
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0)), ev.count)
+                for ev in prof.key_averages()]
+        kernels = sum(n for t, n in rows if t > 0)
+        if kernels and kernels % calls == 0:
+            return sum(t for t, _ in rows) / calls
+        print(f"[smoke] the profiler recorded {kernels} kernels over "
+              f"{calls} calls: profiling again", flush=True)
+    fail(f"the profiler recorded {kernels} kernels over {calls} calls, "
+         f"{tries} times: device time not measured")
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -278,10 +297,12 @@ def phase_build():
         for i, tile in enumerate(h.tiles):
             got = []
             for dt in (0, 1):
-                if dt == 0 and (
+                if (dt == 0 and (
                         (kind == 0 and mm.GEMM_TILES[tile][5] == mm.WGMMA)
-                        or (kind == 4 and fa.FLASH_TILES[tile][3] == fa.MMA)):
-                    got.append("-")         # bf16 only
+                        or (kind == 4 and fa.FLASH_TILES[tile][3] == fa.MMA))
+                        or dt == 1 and kind == 4
+                        and fa.FLASH_TILES[tile][3] == fa.TF32):
+                    got.append("-")         # one element type only
                     continue
                 rc = lib.repro_kernel_attrs(kind, i, dt, ctypes.byref(regs),
                                             ctypes.byref(smem),
@@ -345,6 +366,19 @@ def _dispatch_tile(kid: str, vid, sig):
                                                       H100_SXM))))]
 
 
+def _family_tile(kid: str, vid, sig, family_of) -> str:
+    """The row the H100 ranking puts first among the rows of variant
+    ``vid`` for which ``family_of(tile)`` is true: how an older family
+    is held where dispatch picks a newer one."""
+    import numpy as np
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.kernels import api
+    h = api.get_spec(kid)._hopper[vid]
+    tiles = [t for t in h.tiles if family_of(t)]
+    return tiles[int(np.argmin(_static_times(h.info(tiles, sig,
+                                                    H100_SXM))))]
+
+
 def phase_kernels(dev):
     """Returns {kernel: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
     library_ms, shape}}."""
@@ -367,13 +401,13 @@ def phase_kernels(dev):
     results = {}
 
     def record(name, got, want, fn, plain, lib_fn, nbytes, flops,
-               shape, peak="bfloat16", device=False):
+               shape, peak="bfloat16", device=False, tol=2e-2):
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         ref = want.float().abs().max().item()
         try:
             torch.testing.assert_close(got.float(), want.float(),
-                                       rtol=2e-2, atol=2e-2)
+                                       rtol=tol, atol=tol)
         except AssertionError as e:
             fail(f"{name} at {shape} disagrees with its plain version: "
                  f"{str(e).splitlines()[0:4]}")
@@ -386,7 +420,7 @@ def phase_kernels(dev):
                    shape=shape, tile=shape.rpartition("tile ")[2])
         results[name] = row
         print(f"[kernels] {name} {shape}: max|err| {err:.3g} "
-              f"(max|ref| {ref:.3g}, tol 2e-2 abs + 2e-2 rel) | kernel "
+              f"(max|ref| {ref:.3g}, tol {tol:g} abs + {tol:g} rel) | kernel "
               f"{row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | "
               f"bound {b_ms:.4f} ms ({b_by}) | library "
               + (f"{row['library_ms']:.4f} ms" if lib_fn else "none"),
@@ -443,41 +477,44 @@ def phase_kernels(dev):
            2.0 * 2 * m * dl + 4.0 * dl, 4.0 * m * dl,
            f"({m}x{dl}) bf16 tile {tile}", device=True)
 
-    # prefill attention, batch 4 (flash) and batch 1 (blocked)
-    for name, b, fn in (("flash", 4, fa.flash_cuda),
-                        ("blocked", 1, fa.blocked_cuda)):
-        q, k, v = (randn(b, h, s, hd) for _ in range(3))
-        sig = dict(b=b, h=h, sq=s, skv=s, d=hd, causal=True,
-                   dtype="bfloat16")
-        tile = _dispatch_tile("flash_attention", name, sig)
+    # prefill attention at the serve shapes: flash's bf16 tensor-core
+    # rows at batch 4, the blocked tensor-core rows at batch 1, each on
+    # its variant's dispatch tile; flash's 3xTF32 rows at batch 4 in
+    # float32; then the SIMT rows of both tables, each on the row the
+    # analysis ranks first among them (float32 flash, bf16 blocked)
+    fam = {"flash": lambda t: fa.FLASH_TILES[t][3],
+           "blocked": lambda t: fa.BLOCKED_TILES[t][2]}
+    launch = {"flash": fa.flash_cuda, "blocked": fa.blocked_cuda}
+    for name, vid, b, dtype, family in (
+            ("flash", "flash", 4, bf, fa.MMA),
+            ("blocked_tc", "blocked", 1, bf, fa.TC),
+            ("flash_tf32", "flash", 4, torch.float32, fa.TF32),
+            ("flash_simt", "flash", 4, torch.float32, fa.SIMT),
+            ("blocked_simt", "blocked", 1, bf, fa.SIMT)):
+        dt = "float32" if dtype == torch.float32 else "bfloat16"
+        q, k, v = ((torch.randn((b, h, s, hd), generator=gen, device=dev)
+                    ).to(dtype) for _ in range(3))
+        sig = dict(b=b, h=h, sq=s, skv=s, d=hd, causal=True, dtype=dt)
+        if family == fa.SIMT:
+            tile = _family_tile("flash_attention", vid, sig,
+                                lambda t: fam[vid](t) == fa.SIMT)
+        else:
+            tile = _dispatch_tile("flash_attention", vid, sig)
+        if fam[vid](tile) != family:
+            fail(f"{name} {dt}: the {vid} pick {tile} is not of the "
+                 f"family this row holds")
+        fn = launch[vid]
         pairs = b * h * s * (s + 1) / 2          # unmasked (row, col)
+        eb = 4 if dt == "float32" else 2
         record(name, fn(q, k, v, True, tile=tile),
                fa.attention_plain(q, k, v, True),
                lambda: fn(q, k, v, True, tile=tile),
                lambda: fa.attention_plain(q, k, v, True),
                lambda: F.scaled_dot_product_attention(q, k, v,
                                                       is_causal=True),
-               2.0 * 4 * b * h * s * hd, 4.0 * pairs * hd,
-               f"({b}x{h}x{s}x{hd}) causal bf16 tile {tile}", device=True)
-
-    # the SIMT family, the route for float32: the serve's flash shape
-    b = 4
-    q, k, v = (torch.randn((b, h, s, hd), generator=gen, device=dev)
-               for _ in range(3))
-    tile = _dispatch_tile("flash_attention", "flash",
-                          dict(b=b, h=h, sq=s, skv=s, d=hd, causal=True,
-                               dtype="float32"))
-    if fa.FLASH_TILES[tile][3] != fa.SIMT:
-        fail(f"flash f32: dispatch picked {tile}, not a SIMT row")
-    pairs = b * h * s * (s + 1) / 2
-    record("flash_simt", fa.flash_cuda(q, k, v, True, tile=tile),
-           fa.attention_plain(q, k, v, True),
-           lambda: fa.flash_cuda(q, k, v, True, tile=tile),
-           lambda: fa.attention_plain(q, k, v, True),
-           lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-           4.0 * 4 * b * h * s * hd, 4.0 * pairs * hd,
-           f"({b}x{h}x{s}x{hd}) causal f32 tile {tile}", peak="float32",
-           device=True)
+               eb * 4.0 * b * h * s * hd, 4.0 * pairs * hd,
+               f"({b}x{h}x{s}x{hd}) causal {dt} tile {tile}", peak=dt,
+               device=True, tol=2e-4 if dt == "float32" else 2e-2)
 
     # decode-step gated MLP front half: (4, 3072) . (3072, 24576) x2
     x = randn(4, d)
@@ -703,14 +740,25 @@ def phase_ranking(dev):
                                          dtype="bfloat16"),
                       (randn(m, d), randn(d, f, scale=d ** -0.5),
                        randn(d, f, scale=d ** -0.5))))
-    # the serve's two prefill instances, then one the tensor-core rows'
-    # chain constant (HopperSpec.mma_warp_flops) was not fitted to:
-    # d = 128 over 16 KV tiles
-    for b, s, hd in ((4, 64, 256), (1, 64, 256), (1, 1024, 128)):
-        cases.append(("flash_attention", dict(b=b, h=16, sq=s, skv=s,
-                                              d=hd, causal=True,
-                                              dtype="bfloat16"),
-                      tuple(randn(b, 16, s, hd) for _ in range(3))))
+    # the serve's two prefill instances (the tensor-core rows' chain
+    # constant, HopperSpec.mma_warp_flops, was fitted at the first and
+    # the second shares its d and sq: in sample), float32 at the serve
+    # shape (the 3xTF32 rows: no constant fitted to them), and two the
+    # constant was not fitted to, d = 128 over 16 KV tiles, bf16 and
+    # float32 (a pretune-grid row)
+    sample = {}
+    for b, h, s, hd, dt, label in (
+            (4, 16, 64, 256, "bfloat16", "in sample (the fit's shape)"),
+            (1, 16, 64, 256, "bfloat16", "in sample (the fit's d, sq)"),
+            (4, 16, 64, 256, "float32", "TF32 rows out of sample"),
+            (1, 16, 1024, 128, "bfloat16", "out of sample"),
+            (2, 4, 1024, 128, "float32", "out of sample")):
+        sig = dict(b=b, h=h, sq=s, skv=s, d=hd, causal=True, dtype=dt)
+        tdt = torch.float32 if dt == "float32" else bf
+        cases.append(("flash_attention", sig, tuple(
+            torch.randn((b, h, s, hd), generator=gen, device=dev).to(tdt)
+            for _ in range(3))))
+        sample[repr(sig)] = label
     rows_out = []
     for kid, sig, args in cases:
         spec = api.get_spec(kid)
@@ -740,8 +788,10 @@ def phase_ranking(dev):
         regret = meas[pick] / meas[best]
         rows_out.append(dict(kernel=kid, sig=sig, rho=rho, regret=regret,
                              pick=names[pick], best=names[best]))
-        shape = {k: v for k, v in sig.items() if k not in ("dtype", "act",
+        shape = {k: v for k, v in sig.items() if k not in ("act",
                                                               "causal")}
+        if repr(sig) in sample:
+            shape["sample"] = sample[repr(sig)]
         print(f"[ranking] {kid} {shape}: {len(pred)} feasible rows, "
               f"spearman {rho:.2f}; pick {names[pick]} "
               f"pred {pred[pick]:.4f} ms meas {meas[pick]:.4f} ms; best "
@@ -749,6 +799,14 @@ def phase_ranking(dev):
               f"{regret:.2f}x", flush=True)
         print("[ranking]   " + "; ".join(
             f"{n} {p:.4f}/{m:.4f}" for n, p, m in zip(names, pred, meas)))
+        if kid == "flash_attention":
+            q, k, v = args
+            lib_us = device_us(lambda: torch.nn.functional
+                               .scaled_dot_product_attention(
+                                   q, k, v, is_causal=True), calls=50)
+            rows_out[-1]["library_device_us"] = lib_us
+            print(f"[ranking] {kid} {shape}: SDPA {lib_us:.2f} us device "
+                  f"time per call (the yardstick)", flush=True)
         if dev_ms:
             best = int(np.argmin(dev_ms))
             rho = spearman(pred, dev_ms) if len(pred) > 2 else float("nan")
@@ -916,11 +974,12 @@ def phase_profile(dev, batch: int = 4, prompt_len: int = 64,
 
 
 # the kernels of B1 (GEMV, wgmma, split-K reduce), B2 (warp-per-row and
-# vector rms_norm) and B3 (SIMT and tensor-core flash, blocked) by the
-# names `torch.profiler` gives them
+# vector rms_norm) and B3 (SIMT, bf16 and 3xTF32 tensor-core flash; SIMT
+# and tensor-core blocked) by the names `torch.profiler` gives them
 PROFILED = {"B1": ("gemv_kernel", "wgmma_kernel", "splitk_reduce_kernel"),
             "B2": ("rms_kernel", "rms_vec_kernel"),
-            "B3": ("flash_kernel", "flash_mma_kernel", "blocked_kernel")}
+            "B3": ("flash_kernel", "flash_mma_kernel", "flash_tf32_kernel",
+                   "blocked_kernel", "blocked_tc_kernel")}
 
 
 def _device_rows(prof):
@@ -1371,7 +1430,8 @@ def main() -> None:
                       ("rms_norm", ("rms_norm",)),
                       ("rms_norm's vector rows", ("rms_vec",)),
                       ("flash_attention", ("flash", "blocked")),
-                      ("flash's tensor-core rows", ("flash_mma",)),
+                      ("attention's tensor-core rows",
+                       ("flash_mma", "flash_tf32", "blocked_tc")),
                       ("mlp_matmul", ("fused", "stream", "split"))):
         if not any(launches[n] for n in names):
             fail(f"{op}: no CUDA kernel launched on the main path")

@@ -26,20 +26,22 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from repro_torch.core.autotuner import TunableKernel
+from repro_torch.core.autotuner import KernelStaticInfo, TunableKernel
 from repro_torch.core.hw import H100_SXM, dtype_bytes
 from repro_torch.core.occupancy import cuda_occupancy_batch
 from repro_torch.core.search import SearchSpace
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, TILE_AXIS, cuda_profile,
                                      divisors, get_spec, tuned_kernel)
-from repro_torch.kernels.common import (cdiv, dtype_name, dtype_str,
+from repro_torch.kernels.common import (block_info, cdiv, dtype_name,
+                                        dtype_str,
                                         pick_divisor_candidates,
                                         require_shape)
 from repro_torch.kernels.matmul import tile_fields
 from repro_torch.kernels.ref import atax_ref
 
-__all__ = ["atax", "atax_cuda", "atax_plain", "make_tunable_atax",
+__all__ = ["atax", "atax_static_info", "atax_cuda", "atax_plain",
+           "make_tunable_atax",
            "BLAS2_TILES", "blas2_workspace_rows", "KIND", "LAUNCHES"]
 
 # Launches of the CUDA kernel pair by `atax_cuda` (one per call).
@@ -212,6 +214,14 @@ def atax(a, x, *, tile: str | None = None):
     if a.device.type == "cpu":
         return atax_plain(a, x)
     return atax_cuda(a, x, tile=tile)
+
+
+def atax_static_info(m: int, n: int, dtype,
+                     params: Dict) -> KernelStaticInfo:
+    """Scalar static info for one configuration (wrapper over the
+    declared analysis; kept as a stable public helper)."""
+    return block_info(**_atax_analysis(params, m=m, n=n,
+                                     dtype=dtype_str(dtype)))
 
 
 def make_tunable_atax(m: int = 2048, n: int = 2048, dtype="float32",

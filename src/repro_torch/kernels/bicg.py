@@ -14,22 +14,25 @@ The declaration keeps the reference's TPU block space, analysis,
 """
 from __future__ import annotations
 
+from typing import Dict
+
 import numpy as np
 
-from repro_torch.core.autotuner import TunableKernel
+from repro_torch.core.autotuner import KernelStaticInfo, TunableKernel
 from repro_torch.core.search import SearchSpace
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, cuda_profile, divisors,
                                      get_spec, tuned_kernel)
 from repro_torch.kernels.atax import (BLAS2_TILES, _blas2_hopper,
                                       blas2_workspace_rows, check_blas2)
-from repro_torch.kernels.common import (cdiv, dtype_name, dtype_str,
+from repro_torch.kernels.common import (block_info, cdiv, dtype_name,
+                                        dtype_str,
                                         pick_divisor_candidates,
                                         require_shape)
 from repro_torch.kernels.ref import bicg_ref
 
-__all__ = ["bicg", "bicg_cuda", "bicg_plain", "make_tunable_bicg", "KIND",
-           "LAUNCHES"]
+__all__ = ["bicg", "bicg_static_info", "bicg_cuda", "bicg_plain",
+           "make_tunable_bicg", "KIND", "LAUNCHES"]
 
 # Launches of the CUDA kernel pair by `bicg_cuda` (one per call).
 LAUNCHES = {"bicg": 0}
@@ -126,6 +129,14 @@ def bicg(a, p, r, *, tile: str | None = None):
     if a.device.type == "cpu":
         return bicg_plain(a, p, r)
     return bicg_cuda(a, p, r, tile=tile)
+
+
+def bicg_static_info(m: int, n: int, dtype,
+                     params: Dict) -> KernelStaticInfo:
+    """Scalar static info for one configuration (wrapper over the
+    declared analysis; kept as a stable public helper)."""
+    return block_info(**_bicg_analysis(params, m=m, n=n,
+                                     dtype=dtype_str(dtype)))
 
 
 def make_tunable_bicg(m: int = 2048, n: int = 2048, dtype="float32",

@@ -1,8 +1,8 @@
 // Device helpers for the tensor-core tiles: the TMA + wgmma GEMM tiles
 // of gemm.cu (tensor-map loads, mbarriers, shared-memory matrix
 // descriptors, the bf16 warpgroup MMAs) and the warp-level MMA tiles of
-// attention.cu (cp.async, ldmatrix, mma.sync m16n8k16).  PTX for
-// sm_90a.
+// attention.cu (cp.async, ldmatrix, mma.sync m16n8k16 bf16 and m16n8k8
+// tf32, the hi + lo splits).  PTX for sm_90a.
 #pragma once
 
 #include <cuda.h>
@@ -183,6 +183,20 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+// The same for a count known only at run time: N past 7 waits for 7,
+// which is stricter and so still correct.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
 
 // Four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the row
 // addresses of matrix i; lane l receives row l/4, columns 2(l%4), +1 of
@@ -225,4 +239,29 @@ __device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi,
   const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// d (16 x 8 f32) += a (16 x 8 tf32, row-major) . b (8 x 8 tf32,
+// column-major).  With g = lane/4, q = lane%4: a[0] holds (g, q), a[1]
+// (g+8, q), a[2] (g, q+4), a[3] (g+8, q+4); b0 (k q, n g), b1 (k q+4,
+// n g); d as mma_bf16_16816's.  Each operand is an f32 bit pattern the
+// tensor core reads to tf32 (10 mantissa bits).
+__device__ __forceinline__ void mma_tf32_1688(float* d, const uint32_t* a,
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo in tf32: hi = tf32(x) rounded to nearest (cvt.rna), lo =
+// tf32(x - hi) (x - hi is exact in f32), so hi + lo carries x to about
+// 2^-21 relative; the 3xTF32 product hi.hi + hi.lo + lo.hi drops only
+// lo.lo.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float r = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
 }

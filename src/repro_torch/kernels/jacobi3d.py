@@ -21,18 +21,20 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from repro_torch.core.autotuner import TunableKernel
+from repro_torch.core.autotuner import KernelStaticInfo, TunableKernel
 from repro_torch.core.hw import dtype_bytes
 from repro_torch.core.search import SearchSpace
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, TILE_AXIS, cuda_profile,
                                      divisors, get_spec, tuned_kernel)
-from repro_torch.kernels.common import (cdiv, dtype_name, dtype_str,
+from repro_torch.kernels.common import (block_info, cdiv, dtype_name,
+                                        dtype_str,
                                         pick_divisor_candidates)
 from repro_torch.kernels.matmul import tile_fields
 from repro_torch.kernels.ref import jacobi3d_ref
 
-__all__ = ["jacobi3d", "jacobi3d_cuda", "jacobi3d_plain",
+__all__ = ["jacobi3d", "jacobi3d_static_info", "jacobi3d_cuda",
+           "jacobi3d_plain",
            "make_tunable_jacobi3d", "JACOBI_TILES", "KIND", "LAUNCHES"]
 
 C0_DEFAULT = 0.5
@@ -155,6 +157,14 @@ def jacobi3d(u, c0: float = C0_DEFAULT, c1: float = C1_DEFAULT, *,
     if u.device.type == "cpu":
         return jacobi3d_plain(u, c0, c1)
     return jacobi3d_cuda(u, c0, c1, tile=tile)
+
+
+def jacobi3d_static_info(z: int, y: int, x: int, dtype,
+                         params: Dict) -> KernelStaticInfo:
+    """Scalar static info for one configuration (wrapper over the
+    declared analysis; kept as a stable public helper)."""
+    return block_info(**_jacobi3d_analysis(params, z=z, y=y, x=x,
+                                         dtype=dtype_str(dtype)))
 
 
 def make_tunable_jacobi3d(z: int = 128, y: int = 128, x: int = 128,

@@ -19,18 +19,20 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from repro_torch.core.autotuner import TunableKernel
+from repro_torch.core.autotuner import KernelStaticInfo, TunableKernel
 from repro_torch.core.hw import dtype_bytes
 from repro_torch.core.search import SearchSpace
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, TILE_AXIS, cuda_profile,
                                      divisors, get_spec, tuned_kernel)
-from repro_torch.kernels.common import (cdiv, dtype_name, dtype_str,
+from repro_torch.kernels.common import (block_info, cdiv, dtype_name,
+                                        dtype_str,
                                         family_costs,
                                         pick_divisor_candidates)
 from repro_torch.kernels.ref import matmul_ref
 
-__all__ = ["matmul", "matmul_cuda", "matmul_plain", "make_tunable_matmul",
+__all__ = ["matmul", "matmul_static_info", "matmul_cuda", "matmul_plain",
+           "make_tunable_matmul",
            "GEMM_TILES", "SIMT", "GEMV", "WGMMA", "gemm_hopper_cost",
            "gemm_tiles_cost", "wgmma_takes", "tile_fields",
            "splitk_reduce", "splitk_reduce_cuda", "splitk_reduce_plain",
@@ -370,6 +372,14 @@ def matmul(a, b, *, tile: str | None = None):
     if a.device.type == "cpu":
         return matmul_plain(a, b)
     return matmul_cuda(a, b, tile=tile)
+
+
+def matmul_static_info(m: int, n: int, k: int, dtype,
+                       params: Dict) -> KernelStaticInfo:
+    """Scalar static info for one configuration (wrapper over the
+    declared analysis; kept as a stable public helper)."""
+    return block_info(**_matmul_analysis(params, m=m, n=n, k=k,
+                                       dtype=dtype_str(dtype)))
 
 
 def make_tunable_matmul(m: int = 1024, n: int = 1024, k: int = 1024,

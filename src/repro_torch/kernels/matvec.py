@@ -18,19 +18,21 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from repro_torch.core.autotuner import TunableKernel
+from repro_torch.core.autotuner import KernelStaticInfo, TunableKernel
 from repro_torch.core.hw import dtype_bytes
 from repro_torch.core.search import SearchSpace
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, TILE_AXIS, cuda_profile,
                                      divisors, get_spec, tuned_kernel)
-from repro_torch.kernels.common import (cdiv, dtype_name, dtype_str,
+from repro_torch.kernels.common import (block_info, cdiv, dtype_name,
+                                        dtype_str,
                                         pick_divisor_candidates,
                                         require_shape)
 from repro_torch.kernels.matmul import tile_fields
 from repro_torch.kernels.ref import matvec_ref
 
-__all__ = ["matvec", "matvec_cuda", "matvec_plain", "make_tunable_matvec",
+__all__ = ["matvec", "matvec_static_info", "matvec_cuda", "matvec_plain",
+           "make_tunable_matvec",
            "MATVEC_TILES", "KIND", "LAUNCHES"]
 
 # Launches of the CUDA kernel by `matvec_cuda` (one per call).
@@ -141,6 +143,14 @@ def matvec(a, x, *, tile: str | None = None):
     if a.device.type == "cpu":
         return matvec_plain(a, x)
     return matvec_cuda(a, x, tile=tile)
+
+
+def matvec_static_info(m: int, n: int, dtype,
+                       params: Dict) -> KernelStaticInfo:
+    """Scalar static info for one configuration (wrapper over the
+    declared analysis; kept as a stable public helper)."""
+    return block_info(**_matvec_analysis(params, m=m, n=n,
+                                       dtype=dtype_str(dtype)))
 
 
 def make_tunable_matvec(m: int = 2048, n: int = 2048, dtype="float32",

@@ -32,22 +32,26 @@ from repro_torch.tuning_cache.registry import (ENV_MODEL, MODEL_KINDS,
                                                clear_dispatch_memo,
                                                default_model_kind,
                                                dispatch_key, freeze,
-                                               frozen_lookup, get_problem,
-                                               is_frozen, lookup_or_tune,
+                                               frozen_lookup, frozen_table,
+                                               get_problem,
+                                               invalidate_kernel, is_frozen,
+                                               lookup_or_tune,
                                                normalize_signature,
                                                on_dispatch_memo_clear,
-                                               rank_space, register_entry,
-                                               registered, set_default_model,
-                                               thaw)
+                                               rank_space, register,
+                                               register_entry, registered,
+                                               set_default_model, thaw,
+                                               unregister)
 
 __all__ = [
     "CacheKey", "MODEL_VERSION", "canonical_json", "fingerprint_spec",
     "make_key", "CacheStats", "DiskStore", "TuningDatabase", "TuningRecord",
     "TuningProblem", "clear_dispatch_memo", "get_problem", "lookup_or_tune",
     "normalize_signature", "on_dispatch_memo_clear", "rank_space",
-    "register_entry", "registered", "dispatch_key",
+    "register", "register_entry", "registered", "unregister",
+    "invalidate_kernel", "dispatch_key",
     "ENV_MODEL", "MODEL_KINDS", "default_model_kind", "set_default_model",
-    "freeze", "thaw", "is_frozen", "frozen_lookup",
+    "freeze", "thaw", "is_frozen", "frozen_lookup", "frozen_table",
     "get_default_db", "set_default_db", "reset_default_db",
 ]
 

@@ -1,10 +1,18 @@
 """Trace-time dispatch registry (DESIGN.md §7, §10).
 
-Kernel modules register a :class:`~repro_torch.kernels.api.KernelSpec`
-(the `@tuned_kernel` declaration) under a stable ``kernel_id`` via
-:func:`register_entry`.  The registry consumes only its entry protocol
-— ``problem(**signature)``, ``normalize(signature)``, ``sig_binder()``
-and ``key_extras(spec)`` — so it needs no import of the kernel layer.
+Kernel modules register under a stable ``kernel_id`` either
+
+* a :class:`~repro_torch.kernels.api.KernelSpec` (the `@tuned_kernel`
+  declaration — every in-tree kernel registers this way), via
+  :func:`register_entry`; or
+* a hand-rolled *dispatch problem factory* ``(**signature) ->
+  TuningProblem`` via the :func:`register` decorator (signature
+  normalization is derived from the factory's own
+  ``inspect.signature``).
+
+The registry consumes only the entry protocol — ``problem(**signature)``,
+``normalize(signature)``, ``sig_binder()`` and, where an entry has it,
+``key_extras(spec)`` — so it needs no import of the kernel layer.
 
 ``lookup_or_tune(kernel_id, m=.., n=.., dtype=..)`` is then the one call
 a kernel entry point makes at trace time: key the tuning database on
@@ -41,11 +49,12 @@ asking for ``model="pipeline"`` raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import json
 import math
 import os
 import threading
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -58,17 +67,19 @@ from repro_torch.core.predict import (CostModel, default_cuda_model,
 from repro_torch.core.target import (on_default_target_change,
                                      unscoped_default, use_target)
 from repro_torch.core.search import DEFAULT_CHUNK, Params, SearchSpace
-from repro_torch.tuning_cache.binder import SigBinder, compile_probe
+from repro_torch.tuning_cache.binder import (SigBinder, compile_binder,
+                                             compile_probe, schema_of)
 from repro_torch.tuning_cache.keys import (CacheKey, MODEL_VERSION,
                                            fingerprint_spec, make_key)
 from repro_torch.tuning_cache.store import (TuningDatabase, TuningRecord,
                                             now_unix)
 
-__all__ = ["TuningProblem", "register_entry", "unregister",
+__all__ = ["TuningProblem", "register", "register_entry", "unregister",
            "invalidate_kernel", "dispatch_key",
            "get_problem", "registered", "rank_space", "lookup_or_tune",
-           "clear_dispatch_memo", "on_dispatch_memo_clear",
-           "freeze", "thaw", "is_frozen", "frozen_lookup",
+           "clear_dispatch_memo", "on_dispatch_memo_clear", "reset_models",
+           "freeze", "thaw", "is_frozen", "frozen_lookup", "frozen_table",
+           "dispatch_memo_keys",
            "MODEL_KINDS", "ENV_MODEL", "default_model_kind",
            "set_default_model"]
 
@@ -100,8 +111,55 @@ class TuningProblem:
     chunk_size: Optional[int] = None
 
 
-# kernel_id -> KernelSpec (duck-typed: the registry never imports the
-# kernel layer).
+class _FactoryEntry:
+    """Adapter giving a ``(**signature) -> TuningProblem`` factory the
+    entry protocol."""
+
+    __slots__ = ("factory", "_sig", "_binder", "_binder_built")
+
+    def __init__(self, factory: Callable[..., TuningProblem]):
+        self.factory = factory
+        self._sig: Optional[inspect.Signature] = None
+        self._binder: Optional[SigBinder] = None
+        self._binder_built = False
+
+    def problem(self, **signature: Any) -> TuningProblem:
+        return self.factory(**signature)
+
+    def sig_binder(self) -> Optional[SigBinder]:
+        """Declaration-derived key builder (``None``: the factory's
+        signature is not compilable — e.g. ``**kwargs``)."""
+        if not self._binder_built:
+            self._binder = compile_binder(schema_of(
+                inspect.signature(self.factory).parameters.values()))
+            self._binder_built = True
+        return self._binder
+
+    def normalize(self, signature: Dict[str, Any]) -> Dict[str, Any]:
+        b = self.sig_binder()
+        if b is not None:
+            out = b.normalized(signature)
+            if out is not None:
+                return out
+        if self._sig is None:
+            self._sig = inspect.signature(self.factory)
+        ba = self._sig.bind(**signature)
+        ba.apply_defaults()
+        out: Dict[str, Any] = {}
+        for name, value in ba.arguments.items():
+            # a **kwargs factory collects the signature under the
+            # var-keyword name — flatten it back to the caller's keys
+            if (self._sig.parameters[name].kind
+                    is inspect.Parameter.VAR_KEYWORD):
+                out.update(value)
+            else:
+                out[name] = value
+        return out
+
+
+# kernel_id -> entry with .problem(**sig) / .normalize(sig): a KernelSpec
+# or a _FactoryEntry (duck-typed: the registry never imports the kernel
+# layer).
 _REGISTRY: Dict[str, Any] = {}
 
 
@@ -119,6 +177,14 @@ def register_entry(kernel_id: str, entry: Any) -> Any:
             f"(registered: {registered()})")
     _REGISTRY[kernel_id] = entry
     return entry
+
+
+def register(kernel_id: str):
+    """Decorator: register a ``(**signature) -> TuningProblem`` factory."""
+    def deco(factory: Callable[..., TuningProblem]):
+        register_entry(kernel_id, _FactoryEntry(factory))
+        return factory
+    return deco
 
 
 def unregister(kernel_id: str) -> None:
@@ -295,6 +361,18 @@ def _shard(kernel_id: str) -> _MemoShard:
     return s
 
 
+def dispatch_memo_keys() -> List[Tuple]:
+    """Flat ``(kernel_id, mode, spec_fingerprint, sig_key, model_kind)``
+    view of every live memo entry — introspection for tests and
+    tooling; the memo itself is sharded per kernel_id."""
+    out: List[Tuple] = []
+    for kid, shard in list(_DISPATCH_MEMO.items()):
+        with shard.lock:
+            keys = list(shard.entries)
+        out.extend((kid,) + k for k in keys)
+    return out
+
+
 def _binder_of(entry: Any) -> Optional[SigBinder]:
     get = getattr(entry, "sig_binder", None)
     return get() if get is not None else None
@@ -341,6 +419,18 @@ def on_dispatch_memo_clear(hook: Callable[[], None]) -> Callable[[], None]:
     if hook not in _MEMO_CLEAR_HOOKS:
         _MEMO_CLEAR_HOOKS.append(hook)
     return hook
+
+
+def reset_models() -> None:
+    """Drop the per-spec default-model memo (`_model_for`) — without
+    this the memo grows one entry per distinct spec fingerprint forever
+    and keeps serving stale models after a spec-table change.
+
+    :func:`clear_dispatch_memo` performs the same sweep itself,
+    atomically with the memo clear; this standalone hook is for callers
+    that want fresh models without discarding the warm memo."""
+    with _models_lock:
+        _DEFAULT_MODELS.clear()
 
 
 def clear_dispatch_memo() -> None:
@@ -597,6 +687,19 @@ def freeze() -> int:
             _FROZEN = None
             return 0
         return size
+
+
+def frozen_table(kernel_id: str, mode: str = "static"
+                 ) -> Optional[Callable[..., Optional[Dict[str, Any]]]]:
+    """The raw compiled probe for one (kernel, mode), or ``None`` when
+    nothing is frozen for it.  ``probe(signature_dict)`` returns a
+    fresh params dict or ``None`` — the hot-loop entry point for op
+    wrappers and benchmarks; re-fetch it whenever :func:`is_frozen` /
+    the table identity changes."""
+    fz = _FROZEN
+    if fz is None:
+        return None
+    return fz.tables.get((kernel_id, mode))
 
 
 def frozen_lookup(kernel_id: str, signature: Dict[str, Any], *,

@@ -4,17 +4,22 @@ tile tables, their analysis and the kernels' arithmetic.
 * The Python tables mirror the C X-macros of ``csrc/attention.cu`` and
   ``csrc/rms_norm.cu``, family fields included.
 * Every row is priced finite exactly where its kernel launches: the
-  tensor-core flash rows take bfloat16 with d a multiple of 16 up to
-  256, the vector rms rows whole 16-byte vectors, at most THREADS x
+  bf16 tensor-core flash rows take bfloat16 with d a multiple of 16 up
+  to 256, the 3xTF32 rows float32 with d a multiple of 8 up to 256, the
+  blocked tensor-core rows either while K, V and the logits fit shared
+  memory, the vector rms rows whole 16-byte vectors, at most THREADS x
   VMAX of them.
-* Under the H100 the new families are picked at the serving instances;
-  the old rows' predicted times are bitwise those of the parent tree
-  (captured there, as ``float.hex``) and of a model that prices
-  ``mxu_flops`` at the FP32 rate.
+* Under the H100 the tensor-core families are picked at the serving
+  instances, float32 included; the SIMT rows' predicted times are
+  bitwise those before the tensor-core rows (captured then, as
+  ``float.hex``) and of a model that prices ``mxu_flops`` at the FP32
+  rate.
 * The hi + lo bf16 split of P keeps 2^-16 relative error, and a numpy
   model of the tensor-core kernel's tiling (16-row warps, KV tiles, the
   causal skip, online softmax, P split into hi + lo) computes the
-  Pallas kernel's function.
+  Pallas kernel's function; a numpy model of 3xTF32 (operands rounded
+  to tf32 as ``cvt.rna`` rounds them, three products) keeps Q.K^T and
+  P.V within 2e-4 of float64 where plain TF32 does not.
 * The plain versions agree with the Pallas kernels in interpret mode.
 """
 import math
@@ -84,18 +89,37 @@ def _macro_rows(source: str, macro: str):
 def test_tables_mirror_the_c_x_macros():
     simt = _macro_rows("attention.cu", "FLASH_TILES")
     mma = _macro_rows("attention.cu", "FLASH_MMA_TILES")
-    rows = simt + mma
+    tf32 = _macro_rows("attention.cu", "FLASH_TF32_TILES")
+    rows = simt + mma + tf32
     assert [r[0] for r in rows] == list(range(len(fa.FLASH_TILES)))
     want = [(bq, bkv, nt, fa.SIMT) for _, bq, bkv, nt in simt] + \
-        [(bq, bkv, 32 * w, fa.MMA) for _, bq, bkv, w, _ in mma]
+        [(bq, bkv, 32 * w, fa.MMA) for _, bq, bkv, w, _ in mma] + \
+        [(bq, bkv, 32 * w, fa.TF32) for _, bq, bkv, w, _ in tf32]
     assert list(fa.FLASH_TILES.values()) == want
-    assert all(bq * ds == 16 * w for _, bq, _, w, ds in mma)
+    assert all(bq * ds == 16 * w for _, bq, _, w, ds in mma + tf32)
     assert [f[3] for f in fa.FLASH_TILES.values()] == sorted(
         f[3] for f in fa.FLASH_TILES.values())
     src = (_cuda.CSRC / "attention.cu").read_text()
     assert f"MMA_DMAX = {fa.MMA_DMAX};" in src
-    assert "FLASH_SIMT = 0, FLASH_MMA = 1" in src and (fa.SIMT, fa.MMA) \
-        == (0, 1)
+    assert "FLASH_SIMT = 0, FLASH_MMA = 1, FLASH_TF32 = 2" in src
+    assert (fa.SIMT, fa.MMA, fa.TF32) == (0, 1, 2)
+    # the pricing's shared-S flag and element bytes are the MMA policy's
+    for ctype, fam in (("bf16", fa.MMA), ("float", fa.TF32)):
+        m = re.search(rf"struct TcStep<{ctype}> {{.*?SHARE_S = (\w+);",
+                      src, re.S)
+        assert m and (m.group(1) == "true") == fa._TC_UNITS[fam][5]
+        assert fa._TC_UNITS[fam][0] == (2 if ctype == "bf16" else 4)
+
+    bsimt = _macro_rows("attention.cu", "BLOCKED_TILES")
+    btc = _macro_rows("attention.cu", "BLOCKED_TC_TILES")
+    assert [r[0] for r in bsimt + btc] == list(range(len(fa.BLOCKED_TILES)))
+    want = [(bq, nt, fa.SIMT) for _, bq, nt in bsimt] + \
+        [(bq, 32 * w, fa.TC) for _, bq, w in btc]
+    assert list(fa.BLOCKED_TILES.values()) == want
+    assert all((16 * w) % bq == 0 and 16 * w // bq in (1, 2, 4)
+               for _, bq, w in btc)
+    assert "BLOCKED_SIMT = 0, BLOCKED_TC = 1" in src and fa.TC == 1
+    assert f"BLOCKED_KT = {fa.BLOCKED_KT};" in src
 
     warp = _macro_rows("rms_norm.cu", "RMS_TILES")
     vec = _macro_rows("rms_norm.cu", "RMS_VEC_TILES")
@@ -112,14 +136,39 @@ def test_wrappers_take_the_tile_index_from_a_dict_and_count_families():
     assert rn._TILE_INDEX == {t: i for i, t in enumerate(rn.RMS_TILES)}
     assert fa._TILE_INDEX["repro_flash"] == {
         t: i for i, t in enumerate(fa.FLASH_TILES)}
+    assert fa._TILE_INDEX["repro_blocked"] == {
+        t: i for i, t in enumerate(fa.BLOCKED_TILES)}
     counts = kernels.launch_counts()
     for name in ("rms_norm", "rms_simt", "rms_vec", "flash", "blocked",
-                 "flash_simt", "flash_mma"):
+                 "flash_simt", "flash_mma", "flash_tf32", "blocked_simt",
+                 "blocked_tc"):
         assert name in counts, name
+    # one counter a family, in the family's code order
+    assert fa._FAMILY_COUNTER == {
+        "repro_flash": ("flash_simt", "flash_mma", "flash_tf32"),
+        "repro_blocked": ("blocked_simt", "blocked_tc")}
 
 
+# (sq = skv, d): the last three are K/V lengths at d = 256 around the
+# blocked tensor-core rows' shared-memory limit (bf16 up to 128, f32 up
+# to 96 at 16 query rows)
 ATTN_SHAPES = [(64, 256), (64, 128), (64, 64), (80, 32), (64, 72),
-               (64, 272), (64, 8)]
+               (64, 272), (64, 8), (96, 256), (128, 256), (256, 256)]
+
+
+def _smem_fits(p, s, d, dtype):
+    """Whether a tensor-core row's shared memory fits a block at sq =
+    skv = s, from the kernels' own layouts."""
+    eb = 4 if dtype == "float32" else 2
+    if p["variant"] == "flash":
+        bq, bkv = fa.FLASH_TILES[p["tile"]][:2]
+        stages = 2 if s > bkv else 1
+        smem = eb * (d + 16 // eb) * (bq + stages * 2 * bkv)
+    else:
+        bq, skvp = fa.BLOCKED_TILES[p["tile"]][0], -(-s // 16) * 16
+        smem = eb * (d + 16 // eb) * (bq + 2 * skvp) \
+            + 4 * (bq * (skvp + 8) + bq)
+    return smem <= H100.shmem_per_block
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -127,21 +176,36 @@ ATTN_SHAPES = [(64, 256), (64, 128), (64, 64), (80, 32), (64, 72),
 @pytest.mark.parametrize("s,d", ATTN_SHAPES)
 def test_every_flash_row_is_priced_finite_exactly_where_it_launches(
         dtype, causal, s, d):
+    """Flash rows of all three families and the blocked rows of both:
+    a tensor-core row is finite exactly where its wrapper launches (its
+    dtype and head width, and shared memory that fits)."""
     sig = dict(b=2, h=3, sq=s, skv=s, d=d, causal=causal, dtype=dtype)
     pts, t = _times("flash_attention", sig)
     for p, v in zip(pts, t):
-        if p["variant"] != "flash":
+        table = fa.FLASH_TILES if p["variant"] == "flash" \
+            else fa.BLOCKED_TILES
+        fam = table[p["tile"]][-1]
+        if p["variant"] == "flash":
+            takes = {fa.SIMT: True,
+                     fa.MMA: dtype == "bfloat16" and d % 16 == 0
+                     and d <= 256,
+                     fa.TF32: dtype == "float32" and d % 8 == 0
+                     and d <= 256}[fam]
+            assert takes == {fa.SIMT: True,
+                             fa.MMA: fa.mma_takes(dtype, d),
+                             fa.TF32: fa.tf32_takes(dtype, d)}[fam]
+        else:
+            takes = fam == fa.SIMT or (d <= 256 and d % (
+                16 if dtype == "bfloat16" else 8) == 0)
+            assert takes == (fam == fa.SIMT or fa.tc_takes(dtype, d))
+        if fam == fa.SIMT:
+            # the SIMT rows' shared memory grows with d and skv: they
+            # are not all feasible past d = 128
+            if p["variant"] == "flash" and d <= 128:
+                assert np.isfinite(v), (p, v)
             continue
-        mma = fa.FLASH_TILES[p["tile"]][3] == fa.MMA
-        takes = not mma or (dtype == "bfloat16" and d % 16 == 0
-                            and d <= 256)
-        assert takes == (not mma or fa.mma_takes(dtype, d))
-        # the SIMT rows' shared memory grows with d: past d = 256 in f32
-        # some of them do not fit; the MMA rows' always fits
-        if takes and (mma or d <= 128):
-            assert np.isfinite(v), (p, v)
-        if not takes:
-            assert np.isinf(v), (p, v)
+        assert np.isfinite(v) == (takes and _smem_fits(p, s, d, dtype)), \
+            (p, v)
 
 
 RMS_SHAPES = [(4, 3072), (256, 3072), (37, 300), (4, 4096), (1, 64),
@@ -167,40 +231,83 @@ def test_h100_picks_the_new_families_at_the_serve_instances():
     def pick(kid, **sig):
         return tc.lookup_or_tune(kid, spec="h100", db=tc.TuningDatabase(),
                                  **sig)
+
+    def flash_pick(**sig):
+        """The flash variant's best row under the same ranking."""
+        pts, t = _times("flash_attention", sig)
+        rows = [(v, p["tile"]) for p, v in zip(pts, t)
+                if p["variant"] == "flash"]
+        return min(rows)[1]
+    # bf16 at the serve shape: the blocked tensor-core rows, and the
+    # bf16 MMA rows within flash
     p = pick("flash_attention", **FLASH_SERVE)
-    assert p["variant"] == "flash"
-    assert fa.FLASH_TILES[p["tile"]][3] == fa.MMA
+    assert p["variant"] == "blocked"
+    assert fa.BLOCKED_TILES[p["tile"]][2] == fa.TC
+    assert fa.FLASH_TILES[flash_pick(**FLASH_SERVE)][3] == fa.MMA
     for m in (4, 256):
         p = pick("rms_norm", m=m, d=3072, dtype="bfloat16")
         assert rn.RMS_TILES[p["tile"]][2] == rn.VEC, (m, p)
-    # float32 never reaches a tensor-core row; ragged rows stay on warps
-    p = pick("flash_attention", **dict(FLASH_SERVE, dtype="float32"))
-    assert fa.FLASH_TILES[p["tile"]][3] == fa.SIMT
+    # float32 reaches the tensor cores only through 3xTF32: the pick is
+    # a TF32 flash row (tied in the model with a blocked tensor-core
+    # row, which comes after it), and no bf16 MMA row is feasible;
+    # ragged rms rows stay on warps
+    f32 = dict(FLASH_SERVE, dtype="float32")
+    p = pick("flash_attention", **f32)
+    assert p["variant"] == "flash"
+    assert fa.FLASH_TILES[p["tile"]][3] == fa.TF32
+    assert fa.FLASH_TILES[flash_pick(**f32)][3] == fa.TF32
+    pts, t = _times("flash_attention", f32)
+    mma = [v for p, v in zip(pts, t) if p["variant"] == "flash"
+           and fa.FLASH_TILES[p["tile"]][3] == fa.MMA]
+    assert mma and np.isinf(mma).all()
     p = pick("rms_norm", m=37, d=300, dtype="bfloat16")
     assert rn.RMS_TILES[p["tile"]][2] == rn.SIMT
 
 
 def test_new_rows_state_their_work_on_the_right_units():
-    """Tensor-core rows carry QK^T (in each of a group's DS warps) and
-    the two P.V MMAs as tc_flops ((2 DS + 4) d a logit) and a K/V stage
-    in flight; vector rows carry the row's bytes in flight; the old rows
-    state neither."""
+    """Tensor-core rows carry QK^T and P.V as tc_flops — bf16: QK^T in
+    each of a group's DS warps, (2 DS + 4) d a logit, one MMA a product
+    and two for P = hi + lo; 3xTF32: QK^T once per group (its warps
+    share S), (12 + 12) d, three MMAs a product at two bf16 FLOPs a TF32
+    one — and a K/V stage in flight; vector rows carry the row's bytes
+    in flight; the SIMT rows state neither."""
     t = np.array(list(fa.FLASH_TILES.values()), dtype=np.int64)
-    c = fa.flash_tiles_cost(t, **FLASH_SERVE)
-    mma = t[:, 3] == fa.MMA
-    assert (c["tc_flops"][mma] > 0).all() and (c["tc_flops"][~mma] == 0).all()
-    assert (c["inflight_bytes"][mma] > 0).all()
-    assert (c["inflight_bytes"][~mma] == 0).all()
-    ds = t[mma, 2] // (2 * t[mma, 0])             # warps per 16 rows
-    assert set(ds) == {1, 2, 4}
-    assert (c["warp_tc_flops"][mma] > 0).all()
-    assert (c["warp_tc_flops"][~mma] == 0).all()
-    # a warp's chain: its QK^T and its 1/DS of P.V, (2 + 4/DS) d a logit
-    one = (t[:, 0] == 64) & (t[:, 1] == 64) & mma
+    for dtype, fam, qk, pv, warps in (("bfloat16", fa.MMA, 2.0, 4.0, None),
+                                      ("float32", fa.TF32, 12.0, 12.0, 1)):
+        c = fa.flash_tiles_cost(t, **dict(FLASH_SERVE, dtype=dtype))
+        sel = t[:, 3] == fam
+        simt = t[:, 3] == fa.SIMT
+        assert (c["tc_flops"][sel] > 0).all()
+        assert (c["tc_flops"][simt] == 0).all()
+        assert (c["inflight_bytes"][sel] > 0).all()
+        assert (c["inflight_bytes"][simt] == 0).all()
+        ds = t[sel, 2] // (2 * t[sel, 0])             # warps per 16 rows
+        assert set(ds) == {1, 2, 4}
+        assert (c["warp_tc_flops"][sel] > 0).all()
+        assert (c["warp_tc_flops"][simt] == 0).all()
+        # a warp's chain: its QK^T (all of it, or its 16-column pairs of
+        # a shared S) and its 1/DS of P.V, over the longest group's tiles
+        for (bq, bkv, nt, _), chain in zip(t[sel], c["warp_tc_flops"][sel]):
+            _, longest = fa._group_tiles(int(bq), int(bkv), 64, 64, True)
+            w = nt // (2 * bq)
+            cols = bkv if warps is None else 16 * -(-bkv // (16 * w))
+            assert chain == longest * (qk * cols + pv * bkv / w) * 16 * 256
+        ratio = c["tc_flops"][sel] / (
+            (qk * (ds if warps is None else warps) + pv) * FLASH_SERVE["d"])
+        assert (ratio % (16 * 32) == 0).all()  # whole (group, tile) pairs
+    # the blocked tensor-core rows compute S once per group: (qk + pv)
+    # d a logit over the columns up to each group's last row
+    b = np.array(list(fa.BLOCKED_TILES.values()), dtype=np.int64)
+    c = fa.blocked_tiles_cost(b, **FLASH_SERVE)
+    tc_rows = b[:, 2] == fa.TC
+    bh = FLASH_SERVE["b"] * FLASH_SERVE["h"]
     np.testing.assert_array_equal(
-        c["warp_tc_flops"][one], (2.0 + 4.0 / ds[one[mma]]) * 16 * 64 * 256)
-    ratio = c["tc_flops"][mma] / ((2.0 * ds + 4.0) * FLASH_SERVE["d"])
-    assert (ratio % (16 * 32) == 0).all()     # whole (group, tile) pairs
+        c["tc_flops"][tc_rows], 6.0 * 16 * (16 + 32 + 48 + 64) * bh * 256)
+    assert (c["tc_flops"][~tc_rows] == 0).all()
+    assert (c["warp_tc_flops"][~tc_rows] == 0).all()
+    assert fa._blocked_groups(16, 64, 64, True) == (160, 160, 64)
+    assert fa._blocked_groups(32, 64, 64, False) == (128, 256, 64)
+    assert fa._blocked_groups(16, 80, 72, True) == (240, 240, 80)
     # causal skip: at sq = skv = 64 the 16-row warps of a 64-row tile
     # see 1, 1, 1, 1 tiles of 64 or 1, 1, 2, 2 tiles of 32
     assert fa._group_tiles(64, 64, 64, 64, True) == (4, 1.0)
@@ -232,11 +339,12 @@ def test_a_stated_warp_chain_floors_the_row_and_nothing_else():
     assert chain.pipe[2] >= waves * floor
 
 
-# (kernel, signature, the parent tree's pick, the pick now, {row: the
-# parent tree's predicted seconds as float.hex}): the serving instances
-# of gemma-smoke and gemma-7b (batch 4 and 1 x 64).  The first twelve
-# were pinned before this change beside the other kernels' picks; the
-# picks move here by design, the old rows' prices do not.
+# (kernel, signature, the pick before the tensor-core rows, the pick
+# now, {row: the SIMT rows' predicted seconds before the tensor-core
+# rows, as float.hex}): the serving instances of gemma-smoke and
+# gemma-7b (batch 4 and 1 x 64).  The picks move as tensor-core
+# families join the tables (the flash bf16 rows, then the blocked and
+# 3xTF32 rows); the SIMT rows' prices do not.
 MOVED = [
     ('rms_norm', dict(m=256, d=64, dtype='bfloat16'),
      (None, 'r16'), (None, 'r16'), {
@@ -327,7 +435,7 @@ MOVED = [
          'blocked/q64': '0x1.4cdef3899c046p-15',
      }),
     ('flash_attention', dict(b=4, h=16, sq=64, skv=64, d=256, causal=True, dtype='bfloat16'),
-     ('flash', 'q32k32'), ('flash', 'mma_q32k64d4'), {
+     ('flash', 'q32k32'), ('blocked', 'tc_q32w8'), {
          'flash/q16k32': '0x1.f8a91e38ffa77p-14',
          'flash/q16k64': '0x1.4a24adc304e35p-13',
          'flash/q32k32': '0x1.e769f833b2e29p-14',
@@ -339,7 +447,7 @@ MOVED = [
          'blocked/q64': '0x1.2f82c2305da4ap-12',
      }),
     ('flash_attention', dict(b=1, h=16, sq=64, skv=64, d=256, causal=True, dtype='bfloat16'),
-     ('blocked', 'q8'), ('flash', 'mma_q16k64d4'), {
+     ('blocked', 'q8'), ('blocked', 'tc_q16w4'), {
          'flash/q16k32': '0x1.03f417b6e0faap-13',
          'flash/q16k64': '0x1.5432b7529a32bp-13',
          'flash/q32k32': '0x1.e769f833b2e29p-14',
@@ -362,7 +470,7 @@ OFF_SERVE = [
          'r16': '0x1.af52dd906bbe0p-18',
      }),
     ('flash_attention', dict(b=4, h=16, sq=64, skv=64, d=256, causal=True, dtype='float32'),
-     ('flash', 'q32k32'), ('flash', 'q32k32'), {
+     ('flash', 'q32k32'), ('flash', 'tf32_q32k64d4'), {
          'flash/q16k32': '0x1.26576c7ed68c4p-13',
          'flash/q16k64': '0x1.8628aacb30814p-12',
          'flash/q32k32': '0x1.0ec8d4ca3b563p-13',
@@ -522,6 +630,66 @@ def test_the_tensor_core_tiling_computes_the_pallas_flash_kernel(causal, bq,
     plain = fa.attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
                                causal).numpy()
     np.testing.assert_allclose(got, plain, rtol=2e-5, atol=2e-5)
+
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """float32 -> tf32 as ``cvt.rna.tf32.f32`` rounds: to 10 mantissa
+    bits, to nearest with ties away from zero, as float32."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split_tf32(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm_3xtf32(a, b):
+    """a . b as the 3xTF32 kernels form it: lo.hi + hi.lo + hi.hi of the
+    split operands (each tf32 product exact), summed in float64 and
+    rounded once to float32."""
+    (ah, al), (bh, bl) = _split_tf32(a), _split_tf32(b)
+    f = lambda x, y: np.matmul(x.astype(np.float64), y.astype(np.float64))
+    return (f(al, bh) + f(ah, bl) + f(ah, bh)).astype(np.float32)
+
+
+def test_the_tf32_split_keeps_2_to_the_minus_21():
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.standard_normal(200_000) * 1e3,
+                        np.exp(-rng.uniform(0.0, 80.0, 200_000)),
+                        [1.0, -1.5, 1.0 + 2.0 ** -11]]).astype(np.float32)
+    hi, lo = _split_tf32(x)
+    assert not (hi.view(np.uint32) & np.uint32(0x1FFF)).any()
+    assert not (lo.view(np.uint32) & np.uint32(0x1FFF)).any()
+    assert _tf32(np.float32([1.0 + 2.0 ** -11]))[0] == 1.0 + 2.0 ** -10
+    rel = np.abs((hi.astype(np.float64) + lo) - x) / np.abs(x)
+    assert rel.max() <= 2.0 ** -21
+    # tf32 alone keeps 2^-11
+    assert (np.abs(hi.astype(np.float64) - x) / np.abs(x)).max() > 2.0 ** -13
+
+
+@pytest.mark.parametrize("b,h,s,d", [(4, 16, 64, 256), (2, 4, 1024, 128)])
+def test_3xtf32_keeps_qk_and_pv_within_the_f32_tolerance(b, h, s, d):
+    """Q.K^T (scaled) and P.V / l of 3xTF32 against float64 at the
+    smoke's f32 shape and a pretune-grid shape: within 2e-4, the f32
+    tolerance of the card tests; plain TF32's Q.K^T is not."""
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal((b * h, s, d)).astype(np.float32)
+               for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    kt = np.swapaxes(k, 1, 2)
+    s64 = np.matmul(q.astype(np.float64), kt.astype(np.float64)) * scale
+    np.testing.assert_allclose(_mm_3xtf32(q, kt) * np.float32(scale), s64,
+                               rtol=2e-4, atol=2e-4)
+    plain = np.matmul(_tf32(q).astype(np.float64),
+                      _tf32(kt).astype(np.float64)) * scale
+    assert np.abs(plain - s64).max() > 2e-4
+    p = np.exp(s64 - s64.max(-1, keepdims=True))
+    l = p.sum(-1, keepdims=True)
+    o64 = np.matmul(p, v.astype(np.float64)) / l
+    np.testing.assert_allclose(_mm_3xtf32(p.astype(np.float32), v) / l, o64,
+                               rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -22,8 +22,10 @@ from repro_torch.kernels import _cuda, api, ops
 from repro_torch.kernels.atax import BLAS2_TILES, atax_cuda, atax_plain
 from repro_torch.kernels.bicg import bicg_cuda, bicg_plain
 from repro_torch.kernels.flash_attention import (BLOCKED_TILES, FLASH_TILES,
-                                                 MMA, attention_plain,
+                                                 MMA, TC, TF32,
+                                                 attention_plain,
                                                  blocked_cuda, flash_cuda)
+from repro_torch.kernels.flash_attention import SIMT as ATTN_SIMT
 from repro_torch.kernels.jacobi3d import (JACOBI_TILES, jacobi3d_cuda,
                                           jacobi3d_plain)
 from repro_torch.kernels.matmul import (GEMM_TILES, GEMV, SIMT, WGMMA,
@@ -80,7 +82,7 @@ def test_tile_tables_match_the_library(cuda, kind, table):
     for i, fields in enumerate(table.values()):
         assert lib.repro_tile_info(kind, i, out) == 0
         slots = {0: (0, 1, 2, 3, 4, 6, 7, 8), 2: (0, 1, 3, 4),
-                 3: (0, 5, 1, 2), 4: (0, 1, 5, 6), 5: (0, 5), 6: (0, 1),
+                 3: (0, 5, 1, 2), 4: (0, 1, 5, 6), 5: (0, 5, 6), 6: (0, 1),
                  7: (0, 1), 8: (0, 1), 9: (0, 1, 2)}.get(kind,
                                                         (0, 1, 2, 3, 4))
         assert tuple(out[j] for j in slots) == tuple(fields), (kind, i)
@@ -176,8 +178,10 @@ def test_split_mlp_takes_the_new_rows_with_f32_passes(cuda, tile):
 
 RMS_WARP_ROWS = [t for t, f in RMS_TILES.items() if f[2] != VEC]
 RMS_VEC_ROWS = [t for t, f in RMS_TILES.items() if f[2] == VEC]
-FLASH_SIMT_ROWS = [t for t, f in FLASH_TILES.items() if f[3] != MMA]
+FLASH_SIMT_ROWS = [t for t, f in FLASH_TILES.items() if f[3] == ATTN_SIMT]
 FLASH_MMA_ROWS = [t for t, f in FLASH_TILES.items() if f[3] == MMA]
+FLASH_TF32_ROWS = [t for t, f in FLASH_TILES.items() if f[3] == TF32]
+BLOCKED_TC_ROWS = [t for t, f in BLOCKED_TILES.items() if f[2] == TC]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -262,6 +266,80 @@ def test_flash_mma_rows_refuse_what_they_cannot_take(cuda, tile):
         b = _rand((1, 2, 16, d), torch.bfloat16, cuda, 78)
         with pytest.raises(ValueError, match="takes bfloat16"):
             flash_cuda(b, b, b, True, tile=tile)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("tile", FLASH_TF32_ROWS)
+def test_flash_tf32_rows_against_plain(cuda, tile, d, causal):
+    """Each 3xTF32 row on a ragged sq (80 against every BQ and BKV),
+    float32, against the plain version at the f32 tolerance; two calls
+    give the same bits.  At d = 256 a 64-row KV tile needs two f32
+    stages past one tile of skv, which do not fit: a ValueError before
+    any launch."""
+    q, k, v = (_rand((2, 3, 80, d), torch.float32, cuda, s)
+               for s in (80, 81, 82))
+    if d == 256 and FLASH_TILES[tile][1] == 64:
+        with pytest.raises(ValueError, match="shared memory"):
+            flash_cuda(q, k, v, causal, tile=tile)
+        return
+    got = flash_cuda(q, k, v, causal, tile=tile)
+    again = flash_cuda(q, k, v, causal, tile=tile)
+    torch.cuda.synchronize()
+    _close(got, attention_plain(q, k, v, causal), torch.float32)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("tile", FLASH_TF32_ROWS)
+def test_flash_tf32_rows_refuse_what_they_cannot_take(cuda, tile):
+    """bf16 operands, d not a multiple of 8 or past 256: a ValueError
+    before any launch."""
+    b = _rand((1, 2, 16, 64), torch.bfloat16, cuda, 83)
+    with pytest.raises(ValueError, match="takes float32"):
+        flash_cuda(b, b, b, True, tile=tile)
+    for d in (36, 264):
+        f = _rand((1, 2, 16, d), torch.float32, cuda, 84)
+        with pytest.raises(ValueError, match="takes float32"):
+            flash_cuda(f, f, f, True, tile=tile)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("tile", BLOCKED_TC_ROWS)
+def test_blocked_tc_rows_against_plain(cuda, tile, d, causal, dtype):
+    """Each blocked tensor-core row on a ragged sq (48: past every BQ
+    but 64, and a K/V of three 16-row pairs), bf16 and float32 (3xTF32),
+    against the plain version; two calls give the same bits."""
+    q, k, v = (_rand((2, 3, 48, d), dtype, cuda, s) for s in (85, 86, 87))
+    got = blocked_cuda(q, k, v, causal, tile=tile)
+    again = blocked_cuda(q, k, v, causal, tile=tile)
+    torch.cuda.synchronize()
+    _close(got, attention_plain(q, k, v, causal), dtype)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("tile", BLOCKED_TC_ROWS)
+def test_blocked_tc_rows_refuse_what_they_cannot_take(cuda, tile):
+    """d not a whole MMA step of its type (72 in bf16, 36 in float32) or
+    past 256, and a K and V too long for shared memory (skv = 256 at d
+    = 256 in bf16, 128 in float32): a ValueError before any launch."""
+    for dtype, d in ((torch.bfloat16, 72), (torch.float32, 36),
+                     (torch.bfloat16, 272), (torch.float32, 264)):
+        x = _rand((1, 2, 16, d), dtype, cuda, 88)
+        with pytest.raises(ValueError, match="takes bfloat16"):
+            blocked_cuda(x, x, x, True, tile=tile)
+    for dtype, skv in ((torch.bfloat16, 256), (torch.float32, 128)):
+        q = _rand((1, 2, 16, 256), dtype, cuda, 89)
+        kv = _rand((1, 2, skv, 256), dtype, cuda, 90)
+        with pytest.raises(ValueError, match="shared memory"):
+            blocked_cuda(q, kv, kv, True, tile=tile)
+    # skv = 128 at d = 256 in bf16 fits every row
+    q = _rand((1, 2, 16, 256), torch.bfloat16, cuda, 91)
+    kv = _rand((1, 2, 128, 256), torch.bfloat16, cuda, 92)
+    got = blocked_cuda(q, kv, kv, False, tile=tile)
+    torch.cuda.synchronize()
+    _close(got, attention_plain(q, kv, kv, False), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
