@@ -13,12 +13,15 @@ Phases, each fatal on failure (exit code != 0, no result line):
              path gives it (the matmul at decode, M = 4, on its split-K
              GEMV pick and at prefill, M = 256, on its TMA + wgmma pick,
              and the split-K reduction; rms_norm on its row-in-register
-             pick; attention's tensor-core families on their dispatch
-             picks: flash bf16 (mma.sync) at batch 4, flash float32
-             (3xTF32) and blocked (whole-KV tensor-core rows, bf16) at
-             their serve shapes; the older families on the rows the
-             analysis ranks first among them: rms_norm on a row too long
-             for the vector rows, flash and blocked on their SIMT rows),
+             pick, and on a row too long for it (4 x 24576, gemma-7b's
+             d_ff) on its thread-block-cluster pick; attention's
+             tensor-core families on their dispatch picks: flash bf16
+             (mma.sync) at batch 4, flash float32 (3xTF32) and blocked
+             (whole-KV tensor-core rows, bf16) at their serve shapes; the
+             older families on the rows the analysis ranks first among
+             them: rms_norm's warp rows on the long row and on a ragged
+             one (4 x 24570, their own domain), flash and blocked on
+             their SIMT rows),
              held against its plain PyTorch version (float32 attention
              at 2e-4, the rest at 2e-2), and timed beside that version,
              its roofline bound and, where one PyTorch call computes the
@@ -27,11 +30,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
              time per launch (`torch.profiler`) of rms_norm, the
              attention kernels and their library calls; then
              every feasible (variant, tile) of the serving instances,
-             of float32 attention at the serve shape and of two
-             long-sequence instances, timed beside the H100 analysis'
-             prediction (rank correlation, the static pick's regret,
-             each instance labelled in or out of the sample the
-             analysis' fitted constant came from);
+             of rms_norm's long row, of float32 attention at the serve
+             shape and of two long-sequence instances, timed beside the
+             H100 analysis' prediction (rank correlation, the static
+             pick's regret, each attention instance labelled in or out
+             of the sample the analysis' fitted constant came from);
 3. check   — gemma-smoke in float32: prefill logits and 8 greedy tokens
              of the tuned CUDA path against the plain path on the CPU;
 4. serve   — the serving path: gemma-7b at full width and depth
@@ -49,10 +52,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
              in float32 and bfloat16, jacobi3d at 256^3 float32) and the
              decode down-projection GEMM, in static (asserted to launch
              nothing, then served from the database), hybrid and
-             empirical mode, and the quickstart; launch counters set to 0
-             before and read after;
-7. dispatch — each Table IV op through ``ops`` after ``freeze()``:
-             every dispatch frozen, no runtime tune, every kernel launched;
+             empirical mode (jacobi3d's plane rows also ranked on their
+             own), and the quickstart; launch counters set to 0 before
+             and read after;
+7. dispatch — each Table IV op, and rms_norm on the long row, through
+             ``ops`` after ``freeze()``: every dispatch frozen, no runtime
+             tune, every kernel launched (rms_norm's on its cluster
+             rows); launch counters set to 0 before and read after;
 8. extend  — the kernel API's extension path: stencil2d (found by
              discovery in ``kernels/``) through ``ops.stencil2d`` under the
              H100 at its pretune grid and 8192^2 f32/bf16, `KernelTuner` on
@@ -60,14 +66,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
              ``custom_kernel`` (saxpy2d, declared in its own file),
              ``annotated_tuning`` and ``autotune_kernel``, and the
              mega-space matmul factory (2048^3 bf16, timed beside its
-             bound and ``torch.matmul``); launch counters set to 0 before
-             and read after.  Then both extension kernels are held against
+             bound and ``torch.matmul``, and on device time beside
+             ``torch.matmul``'s); launch counters set to 0 before and read
+             after.  Then both extension kernels are held against
              their plain versions at 8192^2 f32/bf16 and timed, and the
              4.2M-point mega space is ranked under tpu-v5e (host work).
 
 Phase 2 also holds the Table IV kernels against their plain versions at
-the tuner's sizes (above the 50 MB L2).  Every row of phases 2 and 2b
-launches the tile dispatch picks (`lookup_or_tune` under the H100).  The
+the tuner's sizes (above the 50 MB L2), jacobi3d on its static pick (a
+TMA ring row) and on the plane row the analysis ranks first among its
+own.  Every row of phases 2 and 2b launches the tile dispatch picks
+(`lookup_or_tune` under the H100).  The
 last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the JSON
 ``{"kernels": [...]}`` of every ported kernel, each with its launches on
@@ -107,8 +116,12 @@ KERNELS = {
                    "src/repro/kernels/flash_attention.py:49"),
     "flash_simt": ("src/repro_torch/kernels/csrc/attention.cu",
                    "src/repro/kernels/flash_attention.py:49"),
+    "rms_cluster": ("src/repro_torch/kernels/csrc/rms_norm.cu",
+                    "src/repro/kernels/rms_norm.py:30"),
     "rms_simt": ("src/repro_torch/kernels/csrc/rms_norm.cu",
                  "src/repro/kernels/rms_norm.py:30"),
+    "rms_simt_ragged": ("src/repro_torch/kernels/csrc/rms_norm.cu",
+                        "src/repro/kernels/rms_norm.py:30"),
     "blocked_tc": ("src/repro_torch/kernels/csrc/attention.cu",
                    "src/repro/kernels/flash_attention.py:122"),
     "blocked_simt": ("src/repro_torch/kernels/csrc/attention.cu",
@@ -127,6 +140,8 @@ KERNELS = {
              "src/repro/kernels/bicg.py:29"),
     "jacobi3d": ("src/repro_torch/kernels/csrc/jacobi3d.cu",
                  "src/repro/kernels/jacobi3d.py:37"),
+    "jacobi_plane": ("src/repro_torch/kernels/csrc/jacobi3d.cu",
+                     "src/repro/kernels/jacobi3d.py:37"),
     "stencil2d": ("src/repro_torch/kernels/csrc/stencil2d.cu",
                   "src/repro/kernels/stencil2d.py:51"),
     "saxpy2d": ("src/repro_torch/examples/saxpy2d.cu",
@@ -134,14 +149,20 @@ KERNELS = {
 }
 SERVE_KERNELS = ("matmul", "matmul_prefill", "splitk_reduce", "rms_norm",
                  "flash", "flash_tf32", "flash_simt", "rms_simt",
-                 "blocked_tc", "blocked_simt", "fused", "stream", "split")
+                 "rms_simt_ragged", "blocked_tc", "blocked_simt", "fused",
+                 "stream", "split")
 # the launch counter of a kernel listed under another name: the prefill
 # matmul row is the wgmma family's GEMM kernel (matmul and the split
-# MLP's passes), the flash row its bf16 tensor-core family's kernel;
-# the other attention and rms_norm rows are one family each, counted by
-# their wrappers under the row's name
-COUNTER = {"matmul_prefill": "gemm_wgmma", "flash": "flash_mma"}
+# MLP's passes), the flash row its bf16 tensor-core family's kernel, the
+# rms_norm row its vector rows' kernel, the jacobi3d row its ring rows'
+# kernel; the other attention, rms_norm and jacobi3d rows are one
+# family each, counted by their wrappers under the row's name
+COUNTER = {"matmul_prefill": "gemm_wgmma", "flash": "flash_mma",
+           "rms_norm": "rms_vec", "rms_simt_ragged": "rms_simt",
+           "jacobi3d": "jacobi_ring"}
 TABLE4 = ("matvec", "atax", "bicg", "jacobi3d")
+# rms_norm's long row: gemma-7b's d_ff, past the vector rows' 16384
+RMS_LONG = dict(m=4, d=24576, dtype="bfloat16")
 EXTEND = ("stencil2d", "saxpy2d")
 
 # The Table IV kernels' sizes on the card: every operand above the 50 MB
@@ -201,15 +222,19 @@ def bound(nbytes: float, flops: float, dtype: str):
         ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_us(fn, calls: int = 100, tries: int = 3) -> float:
+def device_us(fn, calls: int = 100, tries: int = 4) -> float:
     """Device time per call of ``fn()`` in microseconds: the self device
     time `torch.profiler` records over ``calls`` back-to-back calls (every
     kernel the call launches), over ``calls``.  A profile whose kernel
     count is not a whole number a call has lost records and would read
-    short: it is taken again, at most ``tries`` times, then fatal."""
+    short: it is taken again, at most ``tries`` times.  If none was
+    whole, the fullest profile that kept nine tenths of its k launches a
+    call is read per recorded launch (its time x k / its launches);
+    else fatal."""
     import torch
     fn()
     torch.cuda.synchronize()
+    fullest = (0, 0.0)
     for _ in range(tries):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -220,10 +245,18 @@ def device_us(fn, calls: int = 100, tries: int = 3) -> float:
                          getattr(ev, "self_cuda_time_total", 0.0)), ev.count)
                 for ev in prof.key_averages()]
         kernels = sum(n for t, n in rows if t > 0)
+        total = sum(t for t, _ in rows)
         if kernels and kernels % calls == 0:
-            return sum(t for t, _ in rows) / calls
+            return total / calls
         print(f"[smoke] the profiler recorded {kernels} kernels over "
               f"{calls} calls: profiling again", flush=True)
+        fullest = max(fullest, (kernels, total))
+    kernels, total = fullest
+    k = round(kernels / calls)
+    if k >= 1 and kernels >= 0.9 * k * calls:
+        print(f"[smoke] read per recorded launch: {kernels} kernels of "
+              f"{k * calls}", flush=True)
+        return total * k / kernels
     fail(f"the profiler recorded {kernels} kernels over {calls} calls, "
          f"{tries} times: device time not measured")
 
@@ -460,22 +493,39 @@ def phase_kernels(dev):
                2.0 * 2 * m * d + 4.0 * d, 4.0 * m * d,
                f"({m}x{d}) bf16 tile {tile}", device=True)
 
-    # the warp-per-row family on a row too long for the vector rows:
-    # (4, 24576) bf16, gemma-7b's d_ff
-    m, dl = 4, f
-    x = randn(m, dl)
-    g = torch.randn(dl, generator=gen, device=dev)
-    tile = _dispatch_tile("rms_norm", None, dict(m=m, d=dl, dtype="bfloat16"))
-    if rn.RMS_TILES[tile][2] != rn.SIMT:
-        fail(f"rms_norm ({m}x{dl}) bf16: dispatch picked {tile}, not a "
-             f"warp-per-row row")
-    record("rms_simt", rn.rms_norm_cuda(x, g, tile=tile),
-           rn.rms_norm_plain(x, g),
-           lambda: rn.rms_norm_cuda(x, g, tile=tile),
-           lambda: rn.rms_norm_plain(x, g),
-           lambda: F.rms_norm(x, (dl,), g.to(bf), 1e-6),
-           2.0 * 2 * m * dl + 4.0 * dl, 4.0 * m * dl,
-           f"({m}x{dl}) bf16 tile {tile}", device=True)
+    # a row too long for the vector rows, (4, 24576) bf16 (gemma-7b's
+    # d_ff): dispatch's pick, a cluster row, held bit for bit against a
+    # second call; then the warp-per-row rows on the same row (the
+    # analysis' first among them) and on a ragged row, (4, 24570), where
+    # dispatch picks them
+    m, dl = RMS_LONG["m"], RMS_LONG["d"]
+    for name, d_row, family in (("rms_cluster", dl, rn.CLUSTER),
+                                ("rms_simt", dl, rn.SIMT),
+                                ("rms_simt_ragged", dl - 6, rn.SIMT)):
+        x = randn(m, d_row)
+        g = torch.randn(d_row, generator=gen, device=dev)
+        sig = dict(m=m, d=d_row, dtype="bfloat16")
+        tile = (_dispatch_tile("rms_norm", None, sig) if name != "rms_simt"
+                else _family_tile("rms_norm", None, sig,
+                                  lambda t: rn.RMS_TILES[t][2] == rn.SIMT))
+        if rn.RMS_TILES[tile][2] != family:
+            fail(f"rms_norm ({m}x{d_row}) bf16: {tile} is not of the "
+                 f"family the {name} row holds")
+        got = rn.rms_norm_cuda(x, g, tile=tile)
+        if name == "rms_cluster":
+            again = rn.rms_norm_cuda(x, g, tile=tile)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"rms_norm tile {tile}: two calls differ in their "
+                     f"bits")
+        record(name, got, rn.rms_norm_plain(x, g),
+               lambda: rn.rms_norm_cuda(x, g, tile=tile),
+               lambda: rn.rms_norm_plain(x, g),
+               lambda: F.rms_norm(x, (d_row,), g.to(bf), 1e-6),
+               2.0 * 2 * m * d_row + 4.0 * d_row, 4.0 * m * d_row,
+               f"({m}x{d_row}) bf16 tile {tile}"
+               + (" bitwise repeat ok" if name == "rms_cluster" else ""),
+               device=True)
 
     # prefill attention at the serve shapes: flash's bf16 tensor-core
     # rows at batch 4, the blocked tensor-core rows at batch 1, each on
@@ -593,10 +643,11 @@ def phase_table4(dev):
     seeded inputs (`make_inputs`), atax and BiCG run twice and compared
     bit for bit, then timed beside the plain version, the bound and the
     library call.  Each row launches the tile that the tuning path picks
-    (`lookup_or_tune` under the H100).  Returns the float32 rows."""
+    (`lookup_or_tune` under the H100), jacobi3d's a ring row; jacobi3d
+    also on the plane row the analysis ranks first among them.  Returns
+    the float32 rows."""
     import torch
     from repro_torch import tuning_cache as tc
-    from repro_torch.core.hw import dtype_bytes
     from repro_torch.kernels import api
     from repro_torch.kernels import atax as ax
     from repro_torch.kernels import bicg as bc
@@ -621,64 +672,86 @@ def phase_table4(dev):
             tile = tc.lookup_or_tune(kid, spec="h100",
                                      db=tc.TuningDatabase(),
                                      **sig)[api.TILE_AXIS]
-            fn, plain = launch[kid]
-            got, want = fn(*args, tile=tile), plain(*args)
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            tol = TABLE4_TOL[kid] if dtype == "float32" else 2e-2
-            err = max((g.float() - w.float()).abs().max().item()
-                      for g, w in zip(got, want))
-            for g, w in zip(got, want):
-                try:
-                    torch.testing.assert_close(g.float(), w.float(),
-                                               rtol=tol, atol=tol)
-                except AssertionError as e:
-                    fail(f"{kid} {dtype} tile {tile} disagrees with its "
-                         f"plain version: {str(e).splitlines()[0:4]}")
-            if kid in ("atax", "bicg"):
-                again = fn(*args, tile=tile)
-                again = again if isinstance(again, tuple) else (again,)
-                torch.cuda.synchronize()
-                if not all(torch.equal(g, h) for g, h in zip(got, again)):
-                    fail(f"{kid} {dtype}: two runs differ in their bits")
-            eb = dtype_bytes(dtype)
+            if kid == "jacobi3d" and jc.JACOBI_TILES[tile][3] != jc.RING:
+                fail(f"jacobi3d {sig}: the static pick {tile} is not a "
+                     f"ring row")
+            results.update(_table4_row(kid, sig, dtype, tile, args,
+                                       launch[kid], library.get(kid),
+                                       composite.get(kid)))
             if kid == "jacobi3d":
-                pts = sig["z"] * sig["y"] * sig["x"]
-                nbytes, flops = 2.0 * pts * eb, 8.0 * pts
-            else:
-                m, n = sig["m"], sig["n"]
-                vec = {"matvec": n + m, "atax": 2 * n, "bicg": 2 * (n + m)}
-                nbytes = (float(m) * n + vec[kid]) * eb
-                flops = (2.0 if kid == "matvec" else 4.0) * m * n
-            b_ms, b_by = bound(nbytes, flops, dtype)
-            lib = library.get(kid)
-            row = dict(max_abs_err=err,
-                       ms=time_ms(lambda: fn(*args, tile=tile)),
-                       plain_ms=time_ms(lambda: plain(*args)),
-                       bound_ms=b_ms, bound_by=b_by,
-                       library_ms=(time_ms(lambda: lib(*args))
-                                   if lib is not None else None),
-                       shape=f"{sig} tile {tile}")
-            extra = ""
-            if kid in composite:
-                comp = composite[kid]
-                extra = (f" | torch composite (2 matmuls) "
-                         f"{time_ms(lambda: comp(*args)):.4f} ms")
-            print(f"[kernels] {kid} {dtype} "
-                  f"{'x'.join(str(v) for v in TABLE4_SHAPES[kid].values())} "
-                  f"tile {tile}: max|err| {err:.3g} (tol {tol:g} abs + rel)"
-                  f"{' bitwise repeat ok' if kid in ('atax', 'bicg') else ''}"
-                  f" | "
-                  f"kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} "
-                  f"ms | bound {b_ms:.4f} ms ({b_by}) | library "
-                  + (f"{row['library_ms']:.4f} ms" if lib else "none")
-                  + extra, flush=True)
-            if dtype == "float32":
-                results[kid] = row
-            del args, got, want
+                plane = _family_tile(
+                    kid, None, sig,
+                    lambda t: jc.JACOBI_TILES[t][3] == jc.PLANE)
+                results["jacobi_plane"] = _table4_row(
+                    kid, sig, dtype, plane, args, launch[kid], None,
+                    None)[kid]
+            del args
     torch.cuda.empty_cache()
     return results
+
+
+def _table4_row(kid, sig, dtype, tile, args, launch, lib, comp):
+    """One Table IV kernel at ``sig`` on ``tile``: held against its
+    plain version (atax and BiCG also bit for bit against a second
+    run), timed beside it, the bound and ``lib``; {kid: row} for
+    float32, else {}."""
+    import torch
+    from repro_torch.core.hw import dtype_bytes
+    fn, plain = launch
+    got, want = fn(*args, tile=tile), plain(*args)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    tol = TABLE4_TOL[kid] if dtype == "float32" else 2e-2
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    for g, w in zip(got, want):
+        try:
+            torch.testing.assert_close(g.float(), w.float(),
+                                       rtol=tol, atol=tol)
+        except AssertionError as e:
+            fail(f"{kid} {dtype} tile {tile} disagrees with its "
+                 f"plain version: {str(e).splitlines()[0:4]}")
+    if kid in ("atax", "bicg"):
+        again = fn(*args, tile=tile)
+        again = again if isinstance(again, tuple) else (again,)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, h) for g, h in zip(got, again)):
+            fail(f"{kid} {dtype}: two runs differ in their bits")
+    eb = dtype_bytes(dtype)
+    if kid == "jacobi3d":
+        pts = sig["z"] * sig["y"] * sig["x"]
+        nbytes, flops = 2.0 * pts * eb, 8.0 * pts
+    else:
+        m, n = sig["m"], sig["n"]
+        vec = {"matvec": n + m, "atax": 2 * n, "bicg": 2 * (n + m)}
+        nbytes = (float(m) * n + vec[kid]) * eb
+        flops = (2.0 if kid == "matvec" else 4.0) * m * n
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    row = dict(max_abs_err=err,
+               ms=time_ms(lambda: fn(*args, tile=tile)),
+               plain_ms=time_ms(lambda: plain(*args)),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=(time_ms(lambda: lib(*args))
+                           if lib is not None else None),
+               shape=f"{sig} tile {tile}")
+    extra = ""
+    if comp is not None:
+        extra = (f" | torch composite (2 matmuls) "
+                 f"{time_ms(lambda: comp(*args)):.4f} ms")
+    if kid == "jacobi3d":
+        row["device_us"] = device_us(lambda: fn(*args, tile=tile), calls=50)
+        extra = f" | device {row['device_us']:.2f} us per launch"
+    print(f"[kernels] {kid} {dtype} "
+          f"{'x'.join(str(v) for v in TABLE4_SHAPES[kid].values())} "
+          f"tile {tile}: max|err| {err:.3g} (tol {tol:g} abs + rel)"
+          f"{' bitwise repeat ok' if kid in ('atax', 'bicg') else ''}"
+          f" | "
+          f"kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} "
+          f"ms | bound {b_ms:.4f} ms ({b_by}) | library "
+          + (f"{row['library_ms']:.4f} ms" if lib else "none")
+          + extra, flush=True)
+    return {kid: row} if dtype == "float32" else {}
 
 
 # ---------------------------------------------------------------------------
@@ -736,6 +809,11 @@ def phase_ranking(dev):
                       (randn(m, f), randn(f, d, scale=f ** -0.5))))
         cases.append(("rms_norm", dict(m=m, d=d, dtype="bfloat16"),
                       (randn(m, d), torch.ones(d, device=dev))))
+        if m == 4:
+            # the long row: the warp rows against the cluster rows
+            cases.append(("rms_norm", dict(RMS_LONG), (
+                randn(RMS_LONG["m"], RMS_LONG["d"]),
+                torch.ones(RMS_LONG["d"], device=dev))))
         cases.append(("mlp_matmul", dict(m=m, d=d, f=f, act="gelu",
                                          dtype="bfloat16"),
                       (randn(m, d), randn(d, f, scale=d ** -0.5),
@@ -973,11 +1051,12 @@ def phase_profile(dev, batch: int = 4, prompt_len: int = 64,
     torch.cuda.empty_cache()
 
 
-# the kernels of B1 (GEMV, wgmma, split-K reduce), B2 (warp-per-row and
-# vector rms_norm) and B3 (SIMT, bf16 and 3xTF32 tensor-core flash; SIMT
-# and tensor-core blocked) by the names `torch.profiler` gives them
+# the kernels of B1 (GEMV, wgmma, split-K reduce), B2 (warp-per-row,
+# vector and cluster rms_norm) and B3 (SIMT, bf16 and 3xTF32
+# tensor-core flash; SIMT and tensor-core blocked) by the names
+# `torch.profiler` gives them
 PROFILED = {"B1": ("gemv_kernel", "wgmma_kernel", "splitk_reduce_kernel"),
-            "B2": ("rms_kernel", "rms_vec_kernel"),
+            "B2": ("rms_kernel", "rms_vec_kernel", "rms_cluster_kernel"),
             "B3": ("flash_kernel", "flash_mma_kernel", "flash_tf32_kernel",
                    "blocked_kernel", "blocked_tc_kernel")}
 
@@ -1063,7 +1142,7 @@ def tune_case(tag: str, kid: str, sig: dict) -> dict:
     print(f"[{tag}]   pred/meas ms: " + "; ".join(
         f"{k} {pred[k] * 1e3:.4f}/{meas[k] * 1e3:.4f}" for k in meas))
     return dict(kernel=kid, sig=sig, space=st.space_size, pick=pick,
-                pick_ms=meas[pick] * 1e3, best=best,
+                pred=pred, meas=meas, pick_ms=meas[pick] * 1e3, best=best,
                 best_ms=em.best_measured_s * 1e3, regret=regret,
                 rho=em.spearman_static_vs_measured,
                 hybrid_pick=hy.best_params["tile"],
@@ -1076,14 +1155,33 @@ TUNER_CASES = [(k, dict(TABLE4_SHAPES[k], dtype=dt)) for k in TABLE4
     + [("matmul", dict(m=4, n=3072, k=24576, dtype="bfloat16"))]
 
 
+def _rank_own(what: str, r: dict, keep) -> None:
+    """Spearman, static pick, measured best and regret of a `tune_case`
+    row's tiles for which ``keep(tile)`` is true, ranked on their own."""
+    from repro_torch.core.predict import spearman
+    own = [t for t in r["meas"] if keep(t)]
+    pick = min(own, key=lambda t: r["pred"][t])
+    best = min(own, key=lambda t: r["meas"][t])
+    rho = spearman([r["pred"][t] for t in own], [r["meas"][t] for t in own])
+    print(f"[tuner]   {what}: {len(own)} rows, spearman {rho:.3f}; static "
+          f"pick {pick} {r['meas'][pick] * 1e3:.4f} ms, measured best "
+          f"{best} {r['meas'][best] * 1e3:.4f} ms, regret "
+          f"{r['meas'][pick] / r['meas'][best]:.3f}x", flush=True)
+
+
 def phase_tuner():
-    """`tune_case` on each TUNER_CASES instance, then the quickstart in
-    process."""
+    """`tune_case` on each TUNER_CASES instance (jacobi3d's plane rows
+    also ranked on their own), then the quickstart in process."""
     from repro_torch import kernels
     from repro_torch.examples import quickstart
+    from repro_torch.kernels import jacobi3d as jc
 
     kernels.reset_launch_counts()           # the tuning path starts here
     rows = [tune_case("tuner", kid, sig) for kid, sig in TUNER_CASES]
+    for r in rows:
+        if r["kernel"] == "jacobi3d":
+            _rank_own("jacobi3d plane rows alone", r, lambda t: (
+                jc.JACOBI_TILES[t][3] == jc.PLANE))
     print("[tuner] quickstart (atax 1024 x 512 float32, in L2):", flush=True)
     quickstart.main([])
     launches = kernels.launch_counts()       # ... and ends here
@@ -1097,6 +1195,11 @@ def phase_tuner():
 
 
 def phase_dispatch(dev):
+    """Each Table IV op and rms_norm on its long row through ``ops``
+    after ``freeze()``, with every launch counter set to 0 before and
+    read after: fatal unless every dispatch is frozen, none tunes at run
+    time, each op launches its kernel and rms_norm its cluster rows.
+    Returns the launch counts."""
     import torch
     from repro_torch import kernels
     from repro_torch import tuning_cache as tc
@@ -1105,6 +1208,7 @@ def phase_dispatch(dev):
     from repro_torch.kernels import bicg as bc
     from repro_torch.kernels import jacobi3d as jc
     from repro_torch.kernels import matvec as mv
+    from repro_torch.kernels import rms_norm as rn
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -1112,10 +1216,14 @@ def phase_dispatch(dev):
     x = torch.randn((4096, 1), generator=gen, device=dev)
     r = torch.randn((4096, 1), generator=gen, device=dev)
     u = torch.randn((128, 128, 128), generator=gen, device=dev)
+    xl = torch.randn((RMS_LONG["m"], RMS_LONG["d"]), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    gl = torch.randn(RMS_LONG["d"], generator=gen, device=dev)
     calls = {"matvec": ((a, x), mv.matvec_plain, 2e-4),
              "atax": ((a, x), ax.atax_plain, 1e-3),
              "bicg": ((a, x, r), bc.bicg_plain, 1e-3),
-             "jacobi3d": ((u,), jc.jacobi3d_plain, 1e-5)}
+             "jacobi3d": ((u,), jc.jacobi3d_plain, 1e-5),
+             "rms_norm": ((xl, gl), rn.rms_norm_plain, 2e-2)}
     tc.thaw()
     for kid, (args, _, _) in calls.items():
         tc.lookup_or_tune(kid, **api.get_spec(kid).extract_signature(*args))
@@ -1132,16 +1240,19 @@ def phase_dispatch(dev):
             torch.testing.assert_close(g, w, rtol=tol, atol=tol)
     st = api.dispatch_stats()
     launches = kernels.launch_counts()
-    print(f"[dispatch] Table IV ops after freeze(): {st}, runtime tunes "
+    shown = TABLE4 + ("jacobi_plane", "jacobi_ring", "rms_cluster")
+    print(f"[dispatch] Table IV ops and rms_norm {RMS_LONG} after "
+          f"freeze(): {st}, runtime tunes "
           f"{tc.get_default_db().stats.tunes - tunes}, launches "
-          f"{ {k: launches[k] for k in TABLE4} }")
+          f"{ {k: launches[k] for k in shown} }")
     if st["frozen"] != st["total"] or st["total"] != len(calls):
         fail(f"dispatch not all frozen: {st}")
     if tc.get_default_db().stats.tunes != tunes:
         fail("a frozen dispatch tuned at run time")
-    if any(launches[k] == 0 for k in TABLE4):
+    if any(launches[k] == 0 for k in TABLE4 + ("rms_cluster",)):
         fail(f"an op did not launch its kernel: {launches}")
     tc.thaw()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1259,14 +1370,17 @@ def phase_extend(dev, card: str):
         err = (got.float() - want.float()).abs().max().item()
         with use_target("h100"):
             ms = time_ms(lambda: ops.mega_matmul(a, b))
+            dev_us = device_us(lambda: ops.mega_matmul(a, b), calls=50)
         lib_ms = time_ms(lambda: torch.matmul(a, b))
+        lib_us = device_us(lambda: torch.matmul(a, b), calls=50)
         b_ms, b_by = bound(2.0 * 3 * 2048 ** 2, 2.0 * 2048 ** 3, "bfloat16")
         print(f"[extend] mega_matmul 2048^3 bf16 under h100: space = the "
               f"GEMM tile table, pick {chosen}, launched through "
               f"ops.mega_matmul, max|err| {err:.3g} (tol 2e-2 abs + rel) | "
-              f"kernel (frozen dispatch + launch) {ms:.4f} ms | bound "
-              f"{b_ms:.4f} ms ({b_by}) | torch.matmul {lib_ms:.4f} ms",
-              flush=True)
+              f"kernel (dispatch + launch) {ms:.4f} ms, device "
+              f"{dev_us:.2f} us per call | bound {b_ms:.4f} ms ({b_by}) | "
+              f"torch.matmul {lib_ms:.4f} ms, device {lib_us:.2f} us per "
+              f"call ({dev_us / lib_us:.2f}x)", flush=True)
     finally:
         api.unregister("mega_matmul")
     launches = kernels.launch_counts()       # ... and ends here
@@ -1411,7 +1525,7 @@ def main() -> None:
     reports, launches = phase_serve()
     phase_profile(dev)
     _, tuner_launches = phase_tuner()
-    phase_dispatch(dev)
+    dispatch_launches = phase_dispatch(dev)
     ext_launches = phase_extend(dev, card)
     rows.update(phase_extend_kernels(dev))
 
@@ -1435,8 +1549,11 @@ def main() -> None:
                       ("mlp_matmul", ("fused", "stream", "split"))):
         if not any(launches[n] for n in names):
             fail(f"{op}: no CUDA kernel launched on the main path")
+    rms = {k: launches[k] for k in ("rms_simt", "rms_vec", "rms_cluster")}
+    print(f"[smoke] rms_norm on the main path by family: {rms}")
 
-    missing = [k for k in TABLE4 if tuner_launches.get(k, 0) == 0]
+    missing = [k for k in TABLE4 + ("jacobi_plane", "jacobi_ring")
+               if tuner_launches.get(k, 0) == 0]
     if missing:
         fail(f"Table IV kernels never launched on the tuning path: "
              f"{missing}")
@@ -1447,7 +1564,9 @@ def main() -> None:
 
     # each kernel's launches on the path that launches it
     paths = {n: ("serve", launches) for n in SERVE_KERNELS}
-    paths.update({n: ("tuner", tuner_launches) for n in TABLE4})
+    paths.update({n: ("tuner", tuner_launches)
+                  for n in TABLE4 + ("jacobi_plane",)})
+    paths["rms_cluster"] = ("dispatch", dispatch_launches)
     paths.update({n: ("extend", ext_launches) for n in EXTEND})
 
     def entry(name):

@@ -98,6 +98,41 @@ __device__ __forceinline__ void load16<bf16>(const bf16* p, float* out) {
   }
 }
 
+// One 16-byte vector of T widened to f32, and back (round to nearest).
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& v, float* out);
+template <>
+__device__ __forceinline__ void unpack16<float>(const uint4& v, float* out) {
+  out[0] = __uint_as_float(v.x); out[1] = __uint_as_float(v.y);
+  out[2] = __uint_as_float(v.z); out[3] = __uint_as_float(v.w);
+}
+template <>
+__device__ __forceinline__ void unpack16<bf16>(const uint4& v, float* out) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+template <typename T>
+__device__ __forceinline__ uint4 pack16(const float* in);
+template <>
+__device__ __forceinline__ uint4 pack16<float>(const float* in) {
+  return make_uint4(__float_as_uint(in[0]), __float_as_uint(in[1]),
+                    __float_as_uint(in[2]), __float_as_uint(in[3]));
+}
+template <>
+__device__ __forceinline__ uint4 pack16<bf16>(const float* in) {
+  uint4 v;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
+  return v;
+}
+
 // Sum over the 32 lanes of a warp (fixed butterfly order).
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

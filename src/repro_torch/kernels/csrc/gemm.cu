@@ -293,25 +293,6 @@ stream_kernel(const T* __restrict__ X, const T* __restrict__ G,
 // Decode family: split-K GEMV
 // ---------------------------------------------------------------------------
 
-// The VecWidth<T> values of a 16-byte word, widened to f32.
-template <typename T>
-__device__ __forceinline__ void unpack16(const uint4& v, float* out);
-template <>
-__device__ __forceinline__ void unpack16<float>(const uint4& v, float* out) {
-  out[0] = __uint_as_float(v.x); out[1] = __uint_as_float(v.y);
-  out[2] = __uint_as_float(v.z); out[3] = __uint_as_float(v.w);
-}
-template <>
-__device__ __forceinline__ void unpack16<bf16>(const uint4& v, float* out) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
 // One lane's VecWidth<T> columns of one B row, widened to f32: a 16-byte
 // load where ``vec``, else masked scalar loads.
 template <typename T>
@@ -589,34 +570,6 @@ static int launch_gemv(const void* A, const void* B, void* C, void* ws,
       (const T*)A, (const T*)B, (float*)ws, M, N, K, vec_b, vec_a);
   const int e = (int)cudaGetLastError();
   return e ? e : launch_reduce<OutT>(ws, C, M, N, split, s);
-}
-
-// cuTensorMapEncodeTiled from the driver, fetched through the runtime
-// (the library links only libcudart).
-typedef CUresult (*EncodeTiledFn)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = (EncodeTiledFn)p;
-    else
-      cudaGetLastError();
-  }
-  return fn;
 }
 
 // A bf16 row-major (outer x inner) matrix as 128-byte-swizzled boxes of

@@ -1,13 +1,43 @@
 // Device helpers for the tensor-core tiles: the TMA + wgmma GEMM tiles
 // of gemm.cu (tensor-map loads, mbarriers, shared-memory matrix
-// descriptors, the bf16 warpgroup MMAs) and the warp-level MMA tiles of
-// attention.cu (cp.async, ldmatrix, mma.sync m16n8k16 bf16 and m16n8k8
-// tf32, the hi + lo splits).  PTX for sm_90a.
+// descriptors, the bf16 warpgroup MMAs), the TMA ring of jacobi3d.cu and
+// the warp-level MMA tiles of attention.cu (cp.async, ldmatrix, mma.sync
+// m16n8k16 bf16 and m16n8k8 tf32, the hi + lo splits).  PTX for sm_90a;
+// the host side's tensor-map encoder.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+// cuTensorMapEncodeTiled from libcuda, fetched through the runtime
+// (the library links only libcudart).
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+static inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiledFn)p;
+    else
+      cudaGetLastError();
+  }
+  return fn;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -54,6 +84,18 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%3, %4}], [%2];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
       "r"(c1) : "memory");
+}
+
+// 3-D TMA load of one box at (c0 innermost, c1, c2), signed: elements
+// outside the tensor arrive as zeros.  Completes its bytes on ``bar``.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1), "r"(c2) : "memory");
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand:

@@ -7,10 +7,13 @@ input rows through it.
 
 The declaration keeps the reference's TPU space (``bm`` rows per grid
 step), analysis and pretune grid; its H100 space is the compiled
-instantiations of the kernel (`RMS_TILES`), in two families priced
-together by `rms_tiles_cost`: warp-per-row rows (any D) and
-row-in-register rows (one block per row, 16-byte vectors; D a multiple
-of a vector and at most THREADS x VMAX vectors, else infeasible).
+instantiations of the kernel (`RMS_TILES`), in three families priced
+together by `rms_tiles_cost`: warp-per-row rows (any D), row-in-register
+rows (one block per row, 16-byte vectors; D a multiple of a vector and
+at most THREADS x VMAX vectors, else infeasible) and cluster rows (a
+row over the C blocks of a thread-block cluster, each holding a slice
+in registers; D a multiple of a vector and at most C x THREADS x VMAX
+vectors, else infeasible).
 """
 from __future__ import annotations
 
@@ -26,39 +29,48 @@ from repro_torch.kernels.common import (cdiv, dtype_name, family_costs,
                                         require_shape)
 
 __all__ = ["rms_norm", "rms_norm_cuda", "rms_norm_plain", "RMS_TILES",
-           "SIMT", "VEC", "vec_takes", "rms_tiles_cost", "LAUNCHES"]
+           "SIMT", "VEC", "CLUSTER", "vec_takes", "cluster_takes",
+           "rms_tiles_cost", "LAUNCHES"]
 
 # Launches by kernel: "rms_norm" counts calls of `rms_norm_cuda` (one per
-# call, whatever the tile), "rms_simt" / "rms_vec" the kernel of each
-# family that it launched.
-LAUNCHES = {"rms_norm": 0, "rms_simt": 0, "rms_vec": 0}
-_FAMILY_COUNTER = ("rms_simt", "rms_vec")
+# call, whatever the tile), "rms_simt" / "rms_vec" / "rms_cluster" the
+# kernel of each family that it launched.
+LAUNCHES = {"rms_norm": 0, "rms_simt": 0, "rms_vec": 0, "rms_cluster": 0}
+_FAMILY_COUNTER = ("rms_simt", "rms_vec", "rms_cluster")
 
 # tile families (csrc/rms_norm.cu RmsFamily), and the 16-byte vectors of
-# x a thread of the vector rows holds
-SIMT, VEC = 0, 1
+# x a thread of the vector and cluster rows holds
+SIMT, VEC, CLUSTER = 0, 1, 2
 VMAX = 8
 
-# name -> (rows per block, threads, family, VMAX); order = csrc
-# RMS_TILES, then RMS_VEC_TILES.  Warp-per-row rows run 32 threads a
-# row; vector rows one block of THREADS threads a row, widest first
-# (where the analysis ties them, the first wins).
+# name -> (rows per block, threads, family, VMAX, blocks a row); order =
+# csrc RMS_TILES, RMS_VEC_TILES, then RMS_CLUSTER_TILES.  Warp-per-row
+# rows run 32 threads a row; vector rows one block of THREADS threads a
+# row, widest first; cluster rows C blocks of THREADS threads a row, the
+# most blocks first (where the analysis ties rows, the first wins).
 RMS_TILES: Dict[str, Tuple[int, ...]] = {
-    "r1": (1, 32, SIMT, 0), "r2": (2, 64, SIMT, 0),
-    "r4": (4, 128, SIMT, 0), "r8": (8, 256, SIMT, 0),
-    "r16": (16, 512, SIMT, 0),
-    "vec_t256": (1, 256, VEC, VMAX), "vec_t128": (1, 128, VEC, VMAX),
-    "vec_t64": (1, 64, VEC, VMAX),
+    "r1": (1, 32, SIMT, 0, 1), "r2": (2, 64, SIMT, 0, 1),
+    "r4": (4, 128, SIMT, 0, 1), "r8": (8, 256, SIMT, 0, 1),
+    "r16": (16, 512, SIMT, 0, 1),
+    "vec_t256": (1, 256, VEC, VMAX, 1), "vec_t128": (1, 128, VEC, VMAX, 1),
+    "vec_t64": (1, 64, VEC, VMAX, 1),
+    "cl8_t128": (1, 128, CLUSTER, VMAX, 8),
+    "cl8_t256": (1, 256, CLUSTER, VMAX, 8),
+    "cl4_t256": (1, 256, CLUSTER, VMAX, 4),
+    "cl4_t128": (1, 128, CLUSTER, VMAX, 4),
+    "cl2_t256": (1, 256, CLUSTER, VMAX, 2),
 }
 
 # a tile's index in the C table (the launch's ``tile`` argument)
 _TILE_INDEX = {t: i for i, t in enumerate(RMS_TILES)}
-# declared registers per thread: the warp-per-row kernel's, and the
-# vector kernel's by element size (its compiled counts for sm_90a: a
-# held bf16 vector widens to eight floats, an f32 one to four); the
-# smoke prints the compiled counts beside them
+# declared registers per thread: the warp-per-row kernel's, the vector
+# kernel's by element size and the cluster kernel's by (element size,
+# threads) (their compiled counts for sm_90a: a held bf16 vector widens
+# to eight floats, an f32 one to four); the smoke prints the compiled
+# counts beside them
 _SIMT_REGS = 24
 _VEC_REGS = {2: 80, 4: 48}
+_CLUSTER_REGS = {(2, 128): 80, (2, 256): 80, (4, 128): 56, (4, 256): 53}
 
 
 def _rms_analysis(p, *, m: int, d: int, dtype: str = "float32"):
@@ -77,11 +89,19 @@ def _rms_analysis(p, *, m: int, d: int, dtype: str = "float32"):
     )
 
 
+def cluster_takes(dtype: str, d: int, threads, c) -> np.ndarray:
+    """Whether the rows of ``c`` blocks of ``threads`` threads a row
+    (the cluster rows; the vector rows are c = 1) take rows of ``d``
+    elements: whole 16-byte vectors, at most VMAX a thread."""
+    v = 16 // dtype_bytes(dtype)
+    return (d % v == 0) & (d <= np.asarray(c) * np.asarray(threads)
+                           * VMAX * v)
+
+
 def vec_takes(dtype: str, d: int, threads) -> np.ndarray:
     """Whether the vector rows of ``threads`` threads take rows of ``d``
     elements: whole 16-byte vectors, at most VMAX a thread."""
-    v = 16 // dtype_bytes(dtype)
-    return (d % v == 0) & (d <= np.asarray(threads) * VMAX * v)
+    return cluster_takes(dtype, d, threads, 1)
 
 
 def _simt_cost(t, *, m: int, d: int, eb: int):
@@ -112,27 +132,52 @@ def _vec_cost(t, *, m: int, d: int, eb: int):
                 inflight_bytes=np.full(len(t), float(d * eb)))
 
 
+def _cluster_cost(t, *, m: int, d: int, eb: int):
+    """C blocks per row, each holding a slice of ceil(vectors / C)
+    vectors: x read and y written once, w once from device memory; the
+    slice's vectors are in flight at once, so a block states D x eb / C
+    bytes in flight (Little's law over the card, as the vector rows);
+    each block's warps meet in shared memory, and each block reads the C
+    slice sums (one per warp, a broadcast) through distributed shared
+    memory."""
+    nt, c = t[:, 1], t[:, 4]
+    nv = max(1, d * eb // 16)
+    warps = nt // 32
+    return dict(blocks=m * c, threads=nt,
+                busy_threads=np.minimum(nt, -(-nv // c)),
+                regs=np.array([_CLUSTER_REGS[eb, int(n)] for n in nt],
+                              dtype=np.int64), smem=4 * warps + 4,
+                flops=4.0 * m * d, trans=m * c.astype(np.float64),
+                hbm_bytes=2.0 * m * d * eb + d * 4.0,
+                smem_bytes=m * c * (8.0 * warps + 8.0 + 4.0 * c * warps),
+                inflight_bytes=float(d * eb) / c)
+
+
 def rms_tiles_cost(t, *, m: int, d: int,
                    dtype: str) -> Dict[str, np.ndarray]:
-    """`hopper_info_batch` arguments of RMS_TILES rows ``t`` (an (N, 4)
+    """`hopper_info_batch` arguments of RMS_TILES rows ``t`` (an (N, 5)
     array of the table's fields) for an (m, d) ``dtype`` input, each row
     priced by its family; vector rows are infeasible unless `vec_takes`
-    the row.  Warp-per-row rows state no bytes in flight, so their
-    latency hiding is counted in warps."""
+    the row, cluster rows unless `cluster_takes` it (both read the
+    blocks-a-row field: 1 for a vector row).  Warp-per-row rows
+    state no bytes in flight, so their latency hiding is counted in
+    warps."""
     eb = dtype_bytes(dtype)
     fam = t[:, 2]
     out = family_costs(
         fam, {SIMT: lambda sel: _simt_cost(t[sel], m=m, d=d, eb=eb),
-              VEC: lambda sel: _vec_cost(t[sel], m=m, d=d, eb=eb)},
+              VEC: lambda sel: _vec_cost(t[sel], m=m, d=d, eb=eb),
+              CLUSTER: lambda sel: _cluster_cost(t[sel], m=m, d=d, eb=eb)},
         keys=("blocks", "threads", "busy_threads", "regs", "smem", "flops",
               "trans", "hbm_bytes", "smem_bytes", "inflight_bytes"))
-    out["feasible"] &= (fam != VEC) | vec_takes(dtype, d, t[:, 1])
+    out["feasible"] &= (fam == SIMT) | cluster_takes(dtype, d, t[:, 1],
+                                                     t[:, 4])
     return out
 
 
 def _rms_hopper(cols, *, m: int, d: int, dtype: str = "float32"):
     t = np.array([RMS_TILES[str(x)] for x in cols[TILE_AXIS]],
-                 dtype=np.int64).reshape(-1, 4)
+                 dtype=np.int64).reshape(-1, 5)
     return rms_tiles_cost(t, m=m, d=d, dtype=dtype)
 
 
@@ -147,8 +192,9 @@ def rms_norm_plain(x, w, eps: float = 1e-6):
 def rms_norm_cuda(x, w, eps: float = 1e-6, *, tile: str):
     """Launch the CUDA RMSNorm instantiation ``tile`` on CUDA tensors
     (x (M, D) float32/bfloat16, w (D,) any float type, widened).  A
-    vector row refuses with ValueError a row it cannot hold (`vec_takes`)
-    or an operand off a 16-byte boundary."""
+    vector or cluster row refuses with ValueError a row it cannot hold
+    (`vec_takes`, `cluster_takes`) or an operand off a 16-byte
+    boundary."""
     import torch
     _cuda.require_operands("rms_norm", x)
     if x.dim() != 2:
@@ -162,13 +208,13 @@ def rms_norm_cuda(x, w, eps: float = 1e-6, *, tile: str):
                and w.is_contiguous()) else \
         w.to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty_like(x)
-    _, threads, family, _ = RMS_TILES[tile]
-    if family == VEC:
+    _, threads, family, _, blocks = RMS_TILES[tile]
+    if family != SIMT:
         v = 16 // x.element_size()
-        if d % v or d > threads * VMAX * v:
+        if d % v or d > blocks * threads * VMAX * v:
             raise ValueError(
                 f"rms_norm: tile {tile} takes rows of whole 16-byte vectors"
-                f", at most {threads * VMAX} of them, got D={d} "
+                f", at most {blocks * threads * VMAX} of them, got D={d} "
                 f"{dtype_name(x)}")
         if x.data_ptr() % 16 or wf.data_ptr() % 16:
             raise ValueError(f"rms_norm: tile {tile} needs 16-byte-aligned "

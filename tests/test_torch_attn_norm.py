@@ -123,13 +123,21 @@ def test_tables_mirror_the_c_x_macros():
 
     warp = _macro_rows("rms_norm.cu", "RMS_TILES")
     vec = _macro_rows("rms_norm.cu", "RMS_VEC_TILES")
-    assert [r[0] for r in warp + vec] == list(range(len(rn.RMS_TILES)))
-    want = [(r, 32 * r, rn.SIMT, 0) for _, r in warp] + \
-        [(1, nt, rn.VEC, rn.VMAX) for _, nt in vec]
+    cluster = _macro_rows("rms_norm.cu", "RMS_CLUSTER_TILES")
+    assert [r[0] for r in warp + vec + cluster] == list(
+        range(len(rn.RMS_TILES)))
+    want = [(r, 32 * r, rn.SIMT, 0, 1) for _, r in warp] + \
+        [(1, nt, rn.VEC, rn.VMAX, 1) for _, nt in vec] + \
+        [(1, nt, rn.CLUSTER, rn.VMAX, c) for _, c, nt in cluster]
     assert list(rn.RMS_TILES.values()) == want
+    # within the portable cluster size; the most blocks a row first
+    assert all(c in (2, 4, 8) for _, c, _ in cluster)
+    assert [c for _, c, _ in cluster] == sorted(
+        (c for _, c, _ in cluster), reverse=True)
     src = (_cuda.CSRC / "rms_norm.cu").read_text()
     assert f"RMS_VMAX = {rn.VMAX};" in src
-    assert "RMS_SIMT = 0, RMS_VEC = 1" in src and (rn.SIMT, rn.VEC) == (0, 1)
+    assert "RMS_SIMT = 0, RMS_VEC = 1, RMS_CLUSTER = 2" in src
+    assert (rn.SIMT, rn.VEC, rn.CLUSTER) == (0, 1, 2)
 
 
 def test_wrappers_take_the_tile_index_from_a_dict_and_count_families():
@@ -209,7 +217,9 @@ def test_every_flash_row_is_priced_finite_exactly_where_it_launches(
 
 
 RMS_SHAPES = [(4, 3072), (256, 3072), (37, 300), (4, 4096), (1, 64),
-              (3, 4100), (2, 16384), (2, 32768), (5, 2052)]
+              (3, 4100), (2, 16384), (2, 32768), (5, 2052), (4, 24576),
+              (4, 24570), (3, 16400), (4, 16392), (2, 65536),
+              (1, 131072), (1, 131080)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -219,11 +229,13 @@ def test_every_rms_row_is_priced_finite_exactly_where_it_launches(dtype, m,
     pts, t = _times("rms_norm", dict(m=m, d=d, dtype=dtype))
     v_elems = 16 // (4 if dtype == "float32" else 2)
     for p, v in zip(pts, t):
-        _, threads, family, vmax = rn.RMS_TILES[p["tile"]]
-        takes = family == rn.SIMT or (d % v_elems == 0
-                                      and d <= threads * vmax * v_elems)
+        _, threads, family, vmax, blocks = rn.RMS_TILES[p["tile"]]
+        takes = family == rn.SIMT or (
+            d % v_elems == 0 and d <= blocks * threads * vmax * v_elems)
         assert bool(rn.vec_takes(dtype, d, threads)) == (
             d % v_elems == 0 and d <= threads * rn.VMAX * v_elems)
+        if family == rn.CLUSTER:
+            assert bool(rn.cluster_takes(dtype, d, threads, blocks)) == takes
         assert np.isfinite(v) == takes, (p, v)
 
 
@@ -262,6 +274,56 @@ def test_h100_picks_the_new_families_at_the_serve_instances():
     assert mma and np.isinf(mma).all()
     p = pick("rms_norm", m=37, d=300, dtype="bfloat16")
     assert rn.RMS_TILES[p["tile"]][2] == rn.SIMT
+
+
+@pytest.mark.parametrize("dtype,v", [("float32", 4), ("bfloat16", 8)])
+@pytest.mark.parametrize("d", [3072, 16384, 16392, 24576, 24570, 65536,
+                               65544, 131072, 300])
+@pytest.mark.parametrize("threads,c", [(128, 8), (256, 8), (256, 4),
+                                       (128, 4), (256, 2)])
+def test_cluster_rows_take_whole_vectors_up_to_c_blocks_of_registers(
+        dtype, v, d, threads, c):
+    assert bool(rn.cluster_takes(dtype, d, threads, c)) == (
+        d % v == 0 and d <= c * threads * rn.VMAX * v)
+
+
+def test_cluster_rows_state_their_shared_memory_and_work():
+    """Per block: the warps' partial sums and the slice's sum (4 bytes
+    each) in shared memory; per row C blocks, each busy over its slice
+    of whole vectors; x read and written once, w once."""
+    r = np.array(list(rn.RMS_TILES.values()), dtype=np.int64)
+    cluster = r[:, 2] == rn.CLUSTER
+    for dtype, eb in (("bfloat16", 2), ("float32", 4)):
+        c = rn.rms_tiles_cost(r, m=4, d=24576, dtype=dtype)
+        nt, blocks = r[cluster, 1], r[cluster, 4]
+        np.testing.assert_array_equal(c["smem"][cluster], 4 * (nt // 32) + 4)
+        np.testing.assert_array_equal(
+            c["busy_threads"][cluster],
+            np.minimum(nt, -(-(24576 * eb // 16) // blocks)))
+        np.testing.assert_array_equal(c["hbm_bytes"][cluster],
+                                      2.0 * 4 * 24576 * eb + 24576 * 4)
+        assert (c["trans"][cluster] == 4 * blocks).all()
+        np.testing.assert_array_equal(
+            c["regs"][cluster], [rn._CLUSTER_REGS[eb, int(n)] for n in nt])
+
+
+@pytest.mark.parametrize("m,d,dtype,family", [
+    (4, 24576, "bfloat16", rn.CLUSTER),   # gemma-7b's d_ff, the long row
+    (4, 16392, "bfloat16", rn.CLUSTER),   # one vector past the vec rows
+    (4, 16384, "bfloat16", rn.VEC),       # the vec rows' limit
+    (4, 8200, "float32", rn.CLUSTER),
+    (37, 300, "bfloat16", rn.SIMT),       # ragged: the warp rows' domain
+    (4, 24570, "bfloat16", rn.SIMT),
+    (4, 3072, "bfloat16", rn.VEC),        # the serve instances
+    (256, 3072, "bfloat16", rn.VEC),
+    (1, 3072, "bfloat16", rn.VEC),
+    (64, 3072, "bfloat16", rn.VEC)])
+def test_h100_picks_cluster_rows_for_long_rows_only(m, d, dtype, family):
+    p = tc.lookup_or_tune("rms_norm", spec="h100", db=tc.TuningDatabase(),
+                          m=m, d=d, dtype=dtype)
+    assert rn.RMS_TILES[p["tile"]][2] == family, p
+    if family == rn.VEC and d == 3072:
+        assert p["tile"] == "vec_t256"
 
 
 def test_new_rows_state_their_work_on_the_right_units():
@@ -317,9 +379,14 @@ def test_new_rows_state_their_work_on_the_right_units():
     r = np.array(list(rn.RMS_TILES.values()), dtype=np.int64)
     c = rn.rms_tiles_cost(r, m=4, d=3072, dtype="bfloat16")
     vec = r[:, 2] == rn.VEC
+    cluster = r[:, 2] == rn.CLUSTER
     assert (c["inflight_bytes"][vec] == 3072 * 2).all()
-    assert (c["inflight_bytes"][~vec] == 0).all()
+    assert (c["inflight_bytes"][r[:, 2] == rn.SIMT] == 0).all()
     assert (c["blocks"][vec] == 4).all()
+    # a cluster row: C blocks a row, each a slice's bytes in flight
+    np.testing.assert_array_equal(c["inflight_bytes"][cluster],
+                                  3072 * 2 / r[cluster, 4])
+    np.testing.assert_array_equal(c["blocks"][cluster], 4 * r[cluster, 4])
 
 
 def test_a_stated_warp_chain_floors_the_row_and_nothing_else():
@@ -734,3 +801,27 @@ def test_rms_norm_plain_agrees_with_the_pallas_kernel(dtype, m, d):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,d", [(3, 16400), (2, 24576)])
+def test_rms_norm_long_rows_agree_with_the_pallas_kernel(dtype, m, d):
+    """Rows past the vector rows' limit, which the cluster rows take on
+    the card: the plain version and the dispatching wrapper (CPU
+    tensors) against the Pallas kernel in interpret mode, at
+    tests/test_torch_kernels.py's tolerances."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    w = rng.standard_normal((d,)).astype(np.float32)
+    jd, td = JT[dtype]
+    want = np.asarray(rms_norm_pallas(jnp.asarray(x, jd), jnp.asarray(w, jd),
+                                      1e-6, bm=m, interpret=True)
+                      .astype(jnp.float32))
+    tol = 2e-2 if dtype == "bfloat16" else 2e-4
+    tx, tw = torch.from_numpy(x).to(td), torch.from_numpy(w).to(td)
+    p = tc.lookup_or_tune("rms_norm", spec="h100", db=tc.TuningDatabase(),
+                          m=m, d=d, dtype=dtype)
+    assert rn.RMS_TILES[p["tile"]][2] == rn.CLUSTER
+    for got in (rn.rms_norm_plain(tx, tw, 1e-6), rn.rms_norm(tx, tw, 1e-6)):
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                                   atol=tol)

@@ -26,8 +26,8 @@ from repro_torch.kernels.flash_attention import (BLOCKED_TILES, FLASH_TILES,
                                                  attention_plain,
                                                  blocked_cuda, flash_cuda)
 from repro_torch.kernels.flash_attention import SIMT as ATTN_SIMT
-from repro_torch.kernels.jacobi3d import (JACOBI_TILES, jacobi3d_cuda,
-                                          jacobi3d_plain)
+from repro_torch.kernels.jacobi3d import (JACOBI_TILES, RING, jacobi3d_cuda,
+                                          jacobi3d_plain, ring_takes)
 from repro_torch.kernels.matmul import (GEMM_TILES, GEMV, SIMT, WGMMA,
                                         matmul_cuda, matmul_plain,
                                         wgmma_takes)
@@ -35,8 +35,10 @@ from repro_torch.kernels.matvec import MATVEC_TILES, matvec_cuda, matvec_plain
 from repro_torch.kernels.mlp_matmul import (GATED_TILES, STREAM_TILES,
                                             fused_cuda, mlp_plain,
                                             split_cuda, stream_cuda)
-from repro_torch.kernels.rms_norm import (RMS_TILES, VEC, rms_norm_cuda,
+from repro_torch.kernels.rms_norm import (CLUSTER, RMS_TILES, VEC,
+                                          cluster_takes, rms_norm_cuda,
                                           rms_norm_plain, vec_takes)
+from repro_torch.kernels.rms_norm import SIMT as RMS_SIMT
 from repro_torch.kernels.stencil2d import (STENCIL_TILES, stencil2d_cuda,
                                            stencil2d_plain)
 
@@ -82,9 +84,9 @@ def test_tile_tables_match_the_library(cuda, kind, table):
     for i, fields in enumerate(table.values()):
         assert lib.repro_tile_info(kind, i, out) == 0
         slots = {0: (0, 1, 2, 3, 4, 6, 7, 8), 2: (0, 1, 3, 4),
-                 3: (0, 5, 1, 2), 4: (0, 1, 5, 6), 5: (0, 5, 6), 6: (0, 1),
-                 7: (0, 1), 8: (0, 1), 9: (0, 1, 2)}.get(kind,
-                                                        (0, 1, 2, 3, 4))
+                 3: (0, 5, 1, 2, 3), 4: (0, 1, 5, 6), 5: (0, 5, 6),
+                 6: (0, 1), 7: (0, 1), 8: (0, 1)}.get(kind,
+                                                      (0, 1, 2, 3, 4))
         assert tuple(out[j] for j in slots) == tuple(fields), (kind, i)
     threads = {SIMT: None, GEMV: 256, WGMMA: 384}
     if kind == 0:
@@ -176,8 +178,9 @@ def test_split_mlp_takes_the_new_rows_with_f32_passes(cuda, tile):
     _close(got, mlp_plain(x, wg, wu, "gelu"), torch.bfloat16)
 
 
-RMS_WARP_ROWS = [t for t, f in RMS_TILES.items() if f[2] != VEC]
+RMS_WARP_ROWS = [t for t, f in RMS_TILES.items() if f[2] == RMS_SIMT]
 RMS_VEC_ROWS = [t for t, f in RMS_TILES.items() if f[2] == VEC]
+RMS_CLUSTER_ROWS = [t for t, f in RMS_TILES.items() if f[2] == CLUSTER]
 FLASH_SIMT_ROWS = [t for t, f in FLASH_TILES.items() if f[3] == ATTN_SIMT]
 FLASH_MMA_ROWS = [t for t, f in FLASH_TILES.items() if f[3] == MMA]
 FLASH_TF32_ROWS = [t for t, f in FLASH_TILES.items() if f[3] == TF32]
@@ -225,6 +228,47 @@ def test_rms_vec_rows_refuse_ragged_rows(cuda, dtype, d, tile):
     launch."""
     x = _rand((37, d), dtype, cuda, 72)
     w = _rand((d,), torch.float32, cuda, 73)
+    with pytest.raises(ValueError, match="16-byte vectors"):
+        rms_norm_cuda(x, w, 1e-6, tile=tile)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tile", RMS_CLUSTER_ROWS)
+@pytest.mark.parametrize("d", [3072, 8192, 8200, 16384, 16392, 24576,
+                               32768])
+@pytest.mark.parametrize("m", [1, 4, 37])
+def test_rms_cluster_rows_against_plain(cuda, dtype, tile, d, m):
+    """Each cluster row against the plain version where it holds the row
+    (ValueError before any launch where it does not): at and just past
+    the vector rows' limit (8192 f32, 16384 bf16), gemma-7b's d_ff; two
+    calls give the same bits (the slices' sums meet in rank order)."""
+    x = _rand((m, d), dtype, cuda, 74)
+    w = _rand((d,), torch.float32, cuda, 75)
+    _, threads, _, _, c = RMS_TILES[tile]
+    if not cluster_takes(str(dtype).rpartition(".")[2], d, threads, c):
+        with pytest.raises(ValueError, match="16-byte vectors"):
+            rms_norm_cuda(x, w, 1e-6, tile=tile)
+        return
+    got = rms_norm_cuda(x, w, 1e-6, tile=tile)
+    again = rms_norm_cuda(x, w, 1e-6, tile=tile)
+    torch.cuda.synchronize()
+    _close(got, rms_norm_plain(x, w, 1e-6), dtype)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 24570),
+                                     (torch.bfloat16, 300),
+                                     (torch.float32, 301),
+                                     (torch.bfloat16, 131080),
+                                     (torch.float32, 65540)])
+@pytest.mark.parametrize("tile", RMS_CLUSTER_ROWS)
+def test_rms_cluster_rows_refuse_ragged_and_too_long_rows(cuda, dtype, d,
+                                                          tile):
+    """Rows that are not whole 16-byte vectors, or longer than C blocks
+    of registers hold (131080 bf16 and 65540 f32 are past every cluster
+    row): a ValueError before any launch."""
+    x = _rand((4, d), dtype, cuda, 76)
+    w = _rand((d,), torch.float32, cuda, 77)
     with pytest.raises(ValueError, match="16-byte vectors"):
         rms_norm_cuda(x, w, 1e-6, tile=tile)
 
@@ -416,12 +460,63 @@ def test_bicg_kernel(cuda, dtype, tile, m, n):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("tile", list(JACOBI_TILES))
-@pytest.mark.parametrize("shape", [(5, 37, 70), (40, 9, 33), (1, 4, 4)])
+@pytest.mark.parametrize("shape", [(5, 37, 70), (40, 9, 33), (1, 4, 4),
+                                   (5, 37, 72), (40, 9, 40)])
 def test_jacobi3d_kernel(cuda, dtype, tile, shape):
+    """Every row of both families; a ring row refuses an X that is not a
+    whole number of 16-byte vectors with ValueError before any launch."""
     u = _rand(shape, dtype, cuda, 47)
+    if JACOBI_TILES[tile][3] == RING and not ring_takes(
+            str(dtype).rpartition(".")[2], shape[2]):
+        with pytest.raises(ValueError, match="16-byte rows"):
+            jacobi3d_cuda(u, tile=tile)
+        return
     got = jacobi3d_cuda(u, tile=tile)
     torch.cuda.synchronize()
     _close(got, jacobi3d_plain(u), dtype, f32=1e-5)
+
+
+JACOBI_RING_ROWS = [t for t, f in JACOBI_TILES.items() if f[3] == RING]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tile", JACOBI_RING_ROWS)
+@pytest.mark.parametrize("shape", [(3, 4, 8), (37, 20, 40), (1, 12, 16),
+                                   (70, 9, 136), (33, 17, 264),
+                                   (64, 64, 64)])
+def test_jacobi_ring_rows_against_plain(cuda, dtype, tile, shape):
+    """Z not a multiple of ZB, Y not of BY, X not of BX, one plane, a
+    3x4x8 volume: float32 gives the plain version's bits (0.5 u is
+    exact, the neighbours add in the oracle's order), bfloat16 agrees
+    within its tolerance; two calls give the same bits."""
+    u = _rand(shape, dtype, cuda, 78)
+    if not ring_takes(str(dtype).rpartition(".")[2], shape[2]):
+        with pytest.raises(ValueError, match="16-byte rows"):
+            jacobi3d_cuda(u, tile=tile)
+        return
+    got = jacobi3d_cuda(u, tile=tile)
+    again = jacobi3d_cuda(u, tile=tile)
+    torch.cuda.synchronize()
+    want = jacobi3d_plain(u)
+    _close(got, want, dtype, f32=1e-5)
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype,x", [(torch.float32, 70),
+                                     (torch.float32, 33),
+                                     (torch.bfloat16, 36),
+                                     (torch.bfloat16, 70)])
+@pytest.mark.parametrize("tile", JACOBI_RING_ROWS)
+def test_jacobi_ring_rows_refuse_ragged_x(cuda, dtype, x, tile):
+    u = _rand((6, 10, x), dtype, cuda, 79)
+    with pytest.raises(ValueError, match="16-byte rows"):
+        jacobi3d_cuda(u, tile=tile)
+    misaligned = _rand((6 * 10 * 64 + 1,), dtype, cuda, 79)[1:].view(
+        6, 10, 64)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        jacobi3d_cuda(misaligned, tile=tile)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

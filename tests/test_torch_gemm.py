@@ -137,7 +137,9 @@ def test_the_split_variant_and_mega_rank_the_same_rows():
 # kernel's Table IV / extension instances, captured before the
 # tensor-core term.  The rms_norm and flash_attention serving instances
 # moved to tests/test_torch_attn_norm.py, whose tile tables gained
-# tensor-core and vector rows that change those picks by design.
+# tensor-core and vector rows that change those picks by design; the
+# jacobi3d table gained TMA ring rows, which take 256^3 by design (the
+# plane rows' own ranking is tests/test_torch_jacobi.py's).
 PICKS_BEFORE = [
     ("matvec", dict(m=8192, n=8192, dtype="float32"), None, "r2w1"),
     ("matvec", dict(m=8192, n=8192, dtype="bfloat16"), None, "r1w1"),
@@ -147,7 +149,7 @@ PICKS_BEFORE = [
     ("bicg", dict(m=8192, n=8192, dtype="bfloat16"), None, "t512r2"),
     ("atax", dict(m=1024, n=512, dtype="float32"), None, "t128r1"),
     ("jacobi3d", dict(z=256, y=256, x=256, dtype="float32"), None,
-     "x32y8z64"),
+     "ring_x128y8z32s6"),
     ("stencil2d", dict(y=512, x=512, dtype="float32"), None, "x32y32r4"),
     ("stencil2d", dict(y=1024, x=1024, dtype="float32"), None, "x512y1r8"),
     ("stencil2d", dict(y=2048, x=2048, dtype="float32"), None, "x64y2r32"),
