@@ -21,7 +21,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
              older families on the rows the analysis ranks first among
              them: rms_norm's warp rows on the long row and on a ragged
              one (4 x 24570, their own domain), flash and blocked on
-             their SIMT rows),
+             their SIMT rows; the gated MLP's wgmma rows at prefill,
+             M = 256, and at decode, its whole-D GEMV rows at M = 4 and
+             1 with a bitwise repeat, its SIMT rows and split, each
+             beside the four-call torch composite),
              held against its plain PyTorch version (float32 attention
              at 2e-4, the rest at 2e-2), and timed beside that version,
              its roofline bound and, where one PyTorch call computes the
@@ -29,7 +32,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
              matmul, rms_norm and the attention wrappers and the device
              time per launch (`torch.profiler`) of rms_norm, the
              attention kernels and their library calls; then
-             every feasible (variant, tile) of the serving instances,
+             every feasible (variant, tile) of the serving instances
+             (the gated MLP at all four: M = 256, 4, 64, 1),
              of rms_norm's long row, of float32 attention at the serve
              shape and of two long-sequence instances, timed beside the
              H100 analysis' prediction (rank correlation, the static
@@ -45,7 +49,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
              set to 0 before and read after;
 5. profile — `torch.profiler` over a few decode steps of the first
              request's shape: device time by kernel, idle share, and
-             the device time per launch of the B1, B2 and B3 kernels
+             the device time per launch of the B1, B2, B3 and B5 kernels
              (decode steps, then one prefill for attention);
 6. tuner   — the tuning path, the paper's own experiment: `KernelTuner`
              over the Table IV kernels (matvec, atax, BiCG at 8192 x 8192
@@ -88,6 +92,7 @@ import concurrent.futures
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -128,8 +133,12 @@ KERNELS = {
                      "src/repro/kernels/flash_attention.py:122"),
     "fused": ("src/repro_torch/kernels/csrc/gemm.cu",
               "src/repro/kernels/mlp_matmul.py:54"),
+    "fused_simt": ("src/repro_torch/kernels/csrc/gemm.cu",
+                   "src/repro/kernels/mlp_matmul.py:54"),
     "stream": ("src/repro_torch/kernels/csrc/gemm.cu",
                "src/repro/kernels/mlp_matmul.py:132"),
+    "stream_simt": ("src/repro_torch/kernels/csrc/gemm.cu",
+                    "src/repro/kernels/mlp_matmul.py:132"),
     "split": ("src/repro_torch/kernels/csrc/gemm.cu",
               "src/repro/kernels/mlp_matmul.py:192"),
     "matvec": ("src/repro_torch/kernels/csrc/blas2.cu",
@@ -150,16 +159,20 @@ KERNELS = {
 SERVE_KERNELS = ("matmul", "matmul_prefill", "splitk_reduce", "rms_norm",
                  "flash", "flash_tf32", "flash_simt", "rms_simt",
                  "rms_simt_ragged", "blocked_tc", "blocked_simt", "fused",
-                 "stream", "split")
+                 "fused_simt", "stream", "stream_simt", "split")
 # the launch counter of a kernel listed under another name: the prefill
 # matmul row is the wgmma family's GEMM kernel (matmul and the split
 # MLP's passes), the flash row its bf16 tensor-core family's kernel, the
 # rms_norm row its vector rows' kernel, the jacobi3d row its ring rows'
-# kernel; the other attention, rms_norm and jacobi3d rows are one
+# kernel, the fused and stream rows their Hopper families' kernels
+# (gated wgmma, whole-D gated GEMV) and the *_simt rows their SIMT
+# kernels; the other attention, rms_norm and jacobi3d rows are one
 # family each, counted by their wrappers under the row's name
 COUNTER = {"matmul_prefill": "gemm_wgmma", "flash": "flash_mma",
            "rms_norm": "rms_vec", "rms_simt_ragged": "rms_simt",
-           "jacobi3d": "jacobi_ring"}
+           "jacobi3d": "jacobi_ring", "fused": "gated_wgmma",
+           "fused_simt": "gated_simt", "stream": "stream_gemv",
+           "stream_simt": "stream_simt"}
 TABLE4 = ("matvec", "atax", "bicg", "jacobi3d")
 # rms_norm's long row: gemma-7b's d_ff, past the vector rows' 16384
 RMS_LONG = dict(m=4, d=24576, dtype="bfloat16")
@@ -287,6 +300,7 @@ def phase_build():
     from repro_torch.kernels import _cuda, api, stencil2d
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import mlp_matmul as mlp
     t0 = time.perf_counter()
     # the library and the two extensions, each nvcc started at once
     with concurrent.futures.ThreadPoolExecutor(3) as ex:
@@ -332,6 +346,8 @@ def phase_build():
             for dt in (0, 1):
                 if (dt == 0 and (
                         (kind == 0 and mm.GEMM_TILES[tile][5] == mm.WGMMA)
+                        or (kind == 1
+                            and mlp.GATED_TILES[tile][5] == mm.WGMMA)
                         or (kind == 4 and fa.FLASH_TILES[tile][3] == fa.MMA))
                         or dt == 1 and kind == 4
                         and fa.FLASH_TILES[tile][3] == fa.TF32):
@@ -417,6 +433,7 @@ def phase_kernels(dev):
     library_ms, shape}}."""
     import torch
     import torch.nn.functional as F
+    from repro_torch import tuning_cache as tc
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import mlp_matmul as mlp
@@ -434,7 +451,8 @@ def phase_kernels(dev):
     results = {}
 
     def record(name, got, want, fn, plain, lib_fn, nbytes, flops,
-               shape, peak="bfloat16", device=False, tol=2e-2):
+               shape, peak="bfloat16", device=False, tol=2e-2,
+               composite=None):
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         ref = want.float().abs().max().item()
@@ -460,12 +478,25 @@ def phase_kernels(dev):
               flush=True)
         if device:
             row["device_us"] = device_us(fn)
-            row["library_device_us"] = device_us(lib_fn)
+            if lib_fn is not None:
+                row["library_device_us"] = device_us(lib_fn)
             row["host_us"] = host_us(fn)
             print(f"[kernels]   {name}: device {row['device_us']:.2f} us "
-                  f"per launch (library {row['library_device_us']:.2f} us "
-                  f"per call), host {row['host_us']:.1f} us per wrapper "
-                  f"call (enqueue only)", flush=True)
+                  f"per launch"
+                  + (f" (library {row['library_device_us']:.2f} us per "
+                     f"call)" if lib_fn is not None else "")
+                  + f", host {row['host_us']:.1f} us per wrapper call "
+                  f"(enqueue only)", flush=True)
+        if composite is not None:
+            # several PyTorch calls computing the same function: a
+            # yardstick beside the kernel, not a library call
+            what, comp = composite
+            row["composite_ms"] = time_ms(comp)
+            row["composite_device_us"] = device_us(comp)
+            print(f"[kernels]   {name}: torch composite ({what}) "
+                  f"{row['composite_ms']:.4f} ms, device "
+                  f"{row['composite_device_us']:.2f} us per call",
+                  flush=True)
 
     # decode-step matmul (down-projection): (4, 24576) . (24576, 3072)
     a, w = randn(4, f), randn(f, d, scale=f ** -0.5)
@@ -566,23 +597,64 @@ def phase_kernels(dev):
                f"({b}x{h}x{s}x{hd}) causal {dt} tile {tile}", peak=dt,
                device=True, tol=2e-4 if dt == "float32" else 2e-2)
 
-    # decode-step gated MLP front half: (4, 3072) . (3072, 24576) x2
-    x = randn(4, d)
+    # the gated MLP's front half, gelu, bf16: (M, 3072).(3072, 24576) x2
+    # at serving's decode (M = 4, 1) and prefill (M = 256).  The Hopper
+    # rows on the dispatch pick at their serving shapes (wgmma gated
+    # tiles at prefill and held at decode too, the whole-D GEMV at both
+    # decodes, its bits checked against a second call); the SIMT rows
+    # and split on the row the analysis ranks first among them; each
+    # beside the four-call torch composite at its shape
     wg, wu = randn(d, f, scale=d ** -0.5), randn(d, f, scale=d ** -0.5)
-    want = mlp.mlp_plain(x, wg, wu, "gelu")
-    sig = dict(m=4, d=d, f=f, act="gelu", dtype="bfloat16")
-    for name, fn in (("fused", mlp.fused_cuda), ("stream", mlp.stream_cuda),
-                     ("split", mlp.split_cuda)):
-        tile = _dispatch_tile("mlp_matmul", name, sig)
-        record(name, fn(x, wg, wu, "gelu", tile=tile), want,
+    family = {"fused": lambda t: mlp.GATED_TILES[t][5],
+              "stream": lambda t: mlp.STREAM_TILES[t][5],
+              "split": lambda t: None}
+    launch = {"fused": mlp.fused_cuda, "stream": mlp.stream_cuda,
+              "split": mlp.split_cuda}
+    xs = {m: randn(m, d) for m in (256, 4, 1)}
+    for name, vid, fam_want, m, picked in (
+            ("fused", "fused", mm.WGMMA, 256, True),
+            ("fused_decode", "fused", mm.WGMMA, 4, False),
+            ("fused_simt", "fused", mm.SIMT, 4, False),
+            ("fused_simt_prefill", "fused", mm.SIMT, 256, False),
+            ("stream", "stream", mm.GEMV, 4, True),
+            ("stream_m1", "stream", mm.GEMV, 1, True),
+            ("stream_simt", "stream", mm.SIMT, 4, False),
+            ("split", "split", None, 4, False),
+            ("split_prefill", "split", None, 256, False)):
+        x = xs[m]
+        sig = dict(m=m, d=d, f=f, act="gelu", dtype="bfloat16")
+        if picked:
+            tile = _dispatch_tile("mlp_matmul", vid, sig)
+            chosen = tc.lookup_or_tune("mlp_matmul", spec="h100",
+                                       db=tc.TuningDatabase(), **sig)
+            if (chosen["variant"], chosen["tile"]) != (vid, tile):
+                fail(f"mlp_matmul {sig}: dispatch picks {chosen}, not "
+                     f"the {vid} row this line holds")
+        else:
+            tile = _family_tile("mlp_matmul", vid, sig,
+                                lambda t: family[vid](t) == fam_want)
+        if family[vid](tile) != fam_want:
+            fail(f"mlp_matmul {sig}: {vid}/{tile} is not of the family "
+                 f"the {name} row holds")
+        fn = launch[vid]
+        got = fn(x, wg, wu, "gelu", tile=tile)
+        repeat = ""
+        if vid == "stream" and fam_want == mm.GEMV:
+            again = fn(x, wg, wu, "gelu", tile=tile)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"mlp_matmul_stream tile {tile}: two calls differ in "
+                     f"their bits")
+            repeat = " bitwise repeat ok"
+        record(name, got, mlp.mlp_plain(x, wg, wu, "gelu"),
                lambda: fn(x, wg, wu, "gelu", tile=tile),
                lambda: mlp.mlp_plain(x, wg, wu, "gelu"), None,
-               2.0 * (4 * d + 2 * d * f + 4 * f), 2.0 * 2 * 4 * d * f,
-               f"(4x{d}).({d}x{f}) x2 gelu bf16 tile {tile}")
-    composite = time_ms(lambda: F.gelu(x @ wg, approximate="tanh")
-                        * (x @ wu))
-    print(f"[kernels] torch composite for the gated MLP (two matmuls + "
-          f"gelu + product, 4 calls): {composite:.4f} ms")
+               2.0 * (m * d + 2 * d * f + m * f), 2.0 * 2 * m * d * f,
+               f"({m}x{d}).({d}x{f}) x2 gelu bf16 tile {vid}/{tile}"
+               + repeat, device=True,
+               composite=("two matmuls + gelu + product, 4 calls",
+                          lambda: F.gelu(x @ wg, approximate="tanh")
+                          * (x @ wu)))
     # prefill matmul (down-projection of 4 x 64 tokens):
     # (256, 24576) . (24576, 3072)
     a = randn(256, f)
@@ -621,19 +693,6 @@ def phase_kernels(dev):
         us = host_us(lambda: mm.matmul_cuda(a, w, tile=tile))
         print(f"[kernels] matmul host time per call, M={m} tile {tile}: "
               f"{us:.1f} us (enqueue only, no sync)")
-    x = randn(256, d)
-    tile = _dispatch_tile("mlp_matmul", "fused",
-                          dict(m=256, d=d, f=f, act="gelu", dtype="bfloat16"))
-    got = mlp.fused_cuda(x, wg, wu, "gelu", tile=tile)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(),
-                               mlp.mlp_plain(x, wg, wu, "gelu").float(),
-                               rtol=2e-2, atol=2e-2)
-    ms = time_ms(lambda: mlp.fused_cuda(x, wg, wu, "gelu", tile=tile))
-    b_ms = bound(2.0 * (256 * d + 2 * d * f + 256 * f), 4.0 * 256 * d * f,
-                 "bfloat16")[0]
-    print(f"[kernels] fused prefill (256x{d}).({d}x{f}) x2 tile {tile}: "
-          f"{ms:.4f} ms, bound {b_ms:.4f} ms")
     return results
 
 
@@ -814,10 +873,13 @@ def phase_ranking(dev):
             cases.append(("rms_norm", dict(RMS_LONG), (
                 randn(RMS_LONG["m"], RMS_LONG["d"]),
                 torch.ones(RMS_LONG["d"], device=dev))))
+    # the gated MLP at serving's four instances: decode at batch 4 and
+    # 1, prefill of 4 x 64 and 1 x 64 tokens, on one pair of weights
+    wg, wu = randn(d, f, scale=d ** -0.5), randn(d, f, scale=d ** -0.5)
+    for m in (256, 4, 64, 1):
         cases.append(("mlp_matmul", dict(m=m, d=d, f=f, act="gelu",
                                          dtype="bfloat16"),
-                      (randn(m, d), randn(d, f, scale=d ** -0.5),
-                       randn(d, f, scale=d ** -0.5))))
+                      (randn(m, d), wg, wu)))
     # the serve's two prefill instances (the tensor-core rows' chain
     # constant, HopperSpec.mma_warp_flops, was fitted at the first and
     # the second shares its d and sq: in sample), float32 at the serve
@@ -1052,13 +1114,16 @@ def phase_profile(dev, batch: int = 4, prompt_len: int = 64,
 
 
 # the kernels of B1 (GEMV, wgmma, split-K reduce), B2 (warp-per-row,
-# vector and cluster rms_norm) and B3 (SIMT, bf16 and 3xTF32
-# tensor-core flash; SIMT and tensor-core blocked) by the names
-# `torch.profiler` gives them
+# vector and cluster rms_norm), B3 (SIMT, bf16 and 3xTF32 tensor-core
+# flash; SIMT and tensor-core blocked) and B5 (SIMT and wgmma gated
+# tiles, SIMT and GEMV stream rows) by the names `torch.profiler` gives
+# them
 PROFILED = {"B1": ("gemv_kernel", "wgmma_kernel", "splitk_reduce_kernel"),
             "B2": ("rms_kernel", "rms_vec_kernel", "rms_cluster_kernel"),
             "B3": ("flash_kernel", "flash_mma_kernel", "flash_tf32_kernel",
-                   "blocked_kernel", "blocked_tc_kernel")}
+                   "blocked_kernel", "blocked_tc_kernel"),
+            "B5": ("gated_kernel", "gated_wgmma_kernel", "stream_kernel",
+                   "stream_gemv_kernel")}
 
 
 def _device_rows(prof):
@@ -1077,7 +1142,8 @@ def _per_launch(what: str, rows, steps: int) -> None:
     """The port's kernels' device time per launch in a profile."""
     for ms, key, n in rows:
         for tag, names in PROFILED.items():
-            if any(k + "<" in key for k in names):
+            # whole names: gemv_kernel is not stream_gemv_kernel
+            if any(re.search(rf"(?<!\w){k}<", key) for k in names):
                 print(f"[profile]   {what} {tag} {key[:60]}: x{n // steps} "
                       f"per step, {1e3 * ms / n:.2f} us device time per "
                       f"launch")
@@ -1529,11 +1595,18 @@ def main() -> None:
     ext_launches = phase_extend(dev, card)
     rows.update(phase_extend_kernels(dev))
 
+    from repro_torch.kernels import mlp_matmul as mlp
+    counter = {"fused": (mlp.GATED_TILES, mlp._GATED_COUNTER),
+               "stream": (mlp.STREAM_TILES, mlp._STREAM_COUNTER)}
     selected = {}
     for rep in reports:
         for inst in rep["instances"]:
             p = inst["params"]
             selected[p.get("variant", inst["kernel"])] = True
+            if inst["kernel"] == "mlp_matmul" and p["variant"] in counter:
+                # the family the pick launches
+                table, names = counter[p["variant"]]
+                selected[names[table[p["tile"]][5]]] = True
     missing = [k for k in selected if launches.get(k, 0) == 0]
     if missing:
         fail(f"kernels picked for the main path never launched: {missing}")
@@ -1551,6 +1624,10 @@ def main() -> None:
             fail(f"{op}: no CUDA kernel launched on the main path")
     rms = {k: launches[k] for k in ("rms_simt", "rms_vec", "rms_cluster")}
     print(f"[smoke] rms_norm on the main path by family: {rms}")
+    gated = {k: launches[k] for k in ("gated_simt", "gated_wgmma",
+                                      "stream_simt", "stream_gemv",
+                                      "split")}
+    print(f"[smoke] mlp_matmul on the main path by family: {gated}")
 
     missing = [k for k in TABLE4 + ("jacobi_plane", "jacobi_ring")
                if tuner_launches.get(k, 0) == 0]
@@ -1580,7 +1657,8 @@ def main() -> None:
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                **{k: r[k] for k in ("device_us", "library_device_us")
+                **{k: r[k] for k in ("device_us", "library_device_us",
+                                     "composite_ms", "composite_device_us")
                    if k in r}}
 
     for n in KERNELS:

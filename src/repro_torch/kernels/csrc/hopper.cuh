@@ -1,7 +1,8 @@
-// Device helpers for the tensor-core tiles: the TMA + wgmma GEMM tiles
-// of gemm.cu (tensor-map loads, mbarriers, shared-memory matrix
-// descriptors, the bf16 warpgroup MMAs), the TMA ring of jacobi3d.cu and
-// the warp-level MMA tiles of attention.cu (cp.async, ldmatrix, mma.sync
+// Device helpers for the tensor-core tiles: the TMA + wgmma GEMM and
+// gated-MLP tiles of gemm.cu (tensor-map loads, mbarriers, shared-memory
+// matrix descriptors, the bf16 warpgroup MMAs), its streamed gated GEMV
+// (1-D bulk copies, read-once loads), the TMA ring of jacobi3d.cu and the
+// warp-level MMA tiles of attention.cu (cp.async, ldmatrix, mma.sync
 // m16n8k16 bf16 and m16n8k8 tf32, the hi + lo splits).  PTX for sm_90a;
 // the host side's tensor-map encoder.
 #pragma once
@@ -75,6 +76,21 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   } while (!done);
 }
 
+// The same wait with its spin loop inside the PTX: no branch the
+// compiler sees, so wgmma groups left in flight across it stay
+// asynchronous (a compiler-visible divergent loop makes ptxas serialize
+// them, C7518).
+__device__ __forceinline__ void mbar_wait_spin(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n}\n"
+      ::"r"(bar), "r"(parity) : "memory");
+}
+
 // 2-D TMA load of one box at (c0 innermost, c1) into shared memory,
 // completing its bytes on ``bar``.
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
@@ -114,6 +130,34 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups of the warpgroup are in
+// flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// 1-D bulk asynchronous copy of ``bytes`` (a multiple of 16, both
+// addresses 16-byte aligned) from global to shared memory, completing
+// its bytes on ``bar``.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// One 16-byte load of data read once: not kept in L1, the L2 asked to
+// fetch the 256-byte block around it (the next rows' lanes read the
+// rest).  The data must not be written during the kernel.
+__device__ __forceinline__ uint4 ld_stream16(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+  return v;
 }
 
 // Pin the accumulator registers at this point of the program, so the
@@ -193,8 +237,31 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da, uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float* d, uint64_t da,
+                                               uint64_t db) {
+  wgmma_m64n64k16(d, da, db);
+}
 template <>
 __device__ __forceinline__ void wgmma_bf16<128>(float* d, uint64_t da,
                                                 uint64_t db) {

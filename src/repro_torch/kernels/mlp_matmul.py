@@ -5,17 +5,24 @@ as CUDA kernels of ``csrc/gemm.cu`` (design, bound and what is left on
 the table are noted there):
 
 * ``fused`` (primary) — one tiled kernel with two f32 accumulators,
-  the activation and gating multiply at the store (`_fused_kernel`);
-* ``stream`` — whole-D panels of x, W_gate and W_up resident in shared
-  memory, no contraction loop (`_stream_kernel`); on the H100 it fits
-  only where ``(BM + 2*BN) * D`` elements fit 227 KB, so at gemma's
-  D = 3072 the analysis rules out all but its smallest tiles;
+  the activation and gating multiply at the store (`_fused_kernel`):
+  SIMT rows (any type and shape), and TMA + wgmma rows for bf16 — X
+  staged once a stage for both weights, two wgmma chains — the tiled
+  regime (prefill);
+* ``stream`` — the whole contraction D in one block, one output flush,
+  no accumulator carried across blocks (`_stream_kernel`): SIMT rows
+  with whole-D panels of x, W_gate and W_up resident in shared memory
+  (on the H100 only where ``(BM + 2*BN) * D`` elements fit 227 KB, so at
+  gemma's D = 3072 the analysis rules out all but the smallest), and
+  gated GEMV rows with only x's panel resident and both weights streamed
+  once — the small-M regime (decode);
 * ``split`` — two tiled GEMM passes with f32 outputs
   (`_split_mm_kernel`), then the elementwise combine in PyTorch, as
   the reference combines in jnp outside Pallas.
 
 The declaration keeps the reference's TPU spaces, analyses and pretune
-grid; the H100 space is each variant's compiled tiles.
+grid; the H100 space is each variant's compiled tiles, each family
+priced by its own cost (`family_costs`).
 """
 from __future__ import annotations
 
@@ -26,43 +33,76 @@ import numpy as np
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, KernelVariant, TILE_AXIS,
                                      divisors, tuned_kernel)
-from repro_torch.core.hw import dtype_bytes
-from repro_torch.kernels.common import cdiv, dtype_name, require_shape
-from repro_torch.kernels.matmul import (GEMM_TILES, gemm_hopper_cost,
-                                        gemm_launch, gemm_tiles_cost,
-                                        tile_fields)
+from repro_torch.core.hw import H100_SXM, dtype_bytes
+from repro_torch.kernels.common import (cdiv, dtype_name, family_costs,
+                                        require_shape)
+from repro_torch.kernels.matmul import (GEMM_TILES, GEMV, SIMT, WGMMA,
+                                        gemm_hopper_cost, gemm_launch,
+                                        gemm_tiles_cost, tile_fields,
+                                        wgmma_takes)
 
 __all__ = ["mlp_matmul", "mlp_matmul_stream", "mlp_matmul_split",
            "mlp_plain", "fused_cuda", "stream_cuda", "split_cuda",
-           "GATED_TILES", "STREAM_TILES", "ACT_CODES", "LAUNCHES"]
+           "GATED_TILES", "STREAM_TILES", "ACT_CODES", "LAUNCHES",
+           "stream_gemv_takes"]
 
-# Launches of each CUDA kernel by its wrapper: one per call for fused
-# and stream; split launches its GEMM twice per call (gate, up).
-LAUNCHES = {"fused": 0, "stream": 0, "split": 0}
+# Launches of each CUDA kernel by its wrapper: "fused" and "stream"
+# count calls (one launch each), "gated_simt" / "gated_wgmma" and
+# "stream_simt" / "stream_gemv" the kernel of each family those calls
+# launch; split launches its GEMM twice per call (gate, up).
+LAUNCHES = {"fused": 0, "stream": 0, "split": 0, "gated_simt": 0,
+            "gated_wgmma": 0, "stream_simt": 0, "stream_gemv": 0}
+_GATED_COUNTER = {SIMT: "gated_simt", WGMMA: "gated_wgmma"}
+_STREAM_COUNTER = {SIMT: "stream_simt", GEMV: "stream_gemv"}
 
 _SIZES = (8, 16, 32, 64, 128, 256, 512, 1024)
 
 # the C side's activation switch
 ACT_CODES = {"silu": 0, "gelu": 1, "relu": 2}
 
-# name -> (BM, BN, BK, TM, TN); order = csrc/gemm.cu GATED_TILES.
+# warps of a stream GEMV block (csrc/gemm.cu SG_WARPS)
+SG_WARPS = 8
+
+# name -> (BM, BN, BK, TM, TN, FAMILY, STAGES, SPLIT), the GEMM table's
+# fields; order = csrc/gemm.cu GATED_TILES, GATED_WGMMA_TILES.  The wgmma
+# rows are 128 x BN x 64 tiles of two 64-row warpgroups, STAGES stages
+# of one X box and two weight boxes, the deeper ring first (the first
+# of two rows the analysis ties wins); no row splits K.
 GATED_TILES: Dict[str, Tuple[int, ...]] = {
-    "m16n64k32": (16, 64, 32, 1, 4),
-    "m32n64k32": (32, 64, 32, 2, 4),
-    "m64n64k16": (64, 64, 16, 4, 4),
-    "m128n64k16": (128, 64, 16, 8, 4),
-    "m64n128k16": (64, 128, 16, 4, 8),
-    "m16n32k64": (16, 32, 64, 1, 2),
-    "m16n16k64": (16, 16, 64, 1, 1),
+    "m16n64k32": (16, 64, 32, 1, 4, SIMT, 1, 1),
+    "m32n64k32": (32, 64, 32, 2, 4, SIMT, 1, 1),
+    "m64n64k16": (64, 64, 16, 4, 4, SIMT, 1, 1),
+    "m128n64k16": (128, 64, 16, 8, 4, SIMT, 1, 1),
+    "m64n128k16": (64, 128, 16, 4, 8, SIMT, 1, 1),
+    "m16n32k64": (16, 32, 64, 1, 2, SIMT, 1, 1),
+    "m16n16k64": (16, 16, 64, 1, 1, SIMT, 1, 1),
+    "wgmma_n64s4": (128, 64, 64, 64, 64, WGMMA, 4, 1),
+    "wgmma_n64s3": (128, 64, 64, 64, 64, WGMMA, 3, 1),
+    "wgmma_n128s4": (128, 128, 64, 64, 128, WGMMA, 4, 1),
+    "wgmma_n128s3": (128, 128, 64, 64, 128, WGMMA, 3, 1),
 }
 
-# name -> (BM, BN, TM, TN); order = csrc/gemm.cu STREAM_TILES.
+# name -> the same eight fields; order = csrc/gemm.cu STREAM_TILES,
+# STREAM_GEMV_TILES.  BK is 0: the whole of D in one block.  GEMV rows:
+# BM rows of x, BN columns a block, TN a lane's 8 bf16 columns (4 in
+# f32), STAGES the rows of its weight in flight per lane (half the warps
+# read W_gate, half W_up).
 STREAM_TILES: Dict[str, Tuple[int, ...]] = {
-    "m4n4": (4, 4, 1, 1),
-    "m8n8": (8, 8, 1, 1),
-    "m16n16": (16, 16, 1, 1),
-    "m32n32": (32, 32, 2, 2),
+    "m4n4": (4, 4, 0, 1, 1, SIMT, 1, 1),
+    "m8n8": (8, 8, 0, 1, 1, SIMT, 1, 1),
+    "m16n16": (16, 16, 0, 1, 1, SIMT, 1, 1),
+    "m32n32": (32, 32, 0, 2, 2, SIMT, 1, 1),
+    "gemv_m1n64": (1, 64, 0, 1, 8, GEMV, 16, 1),
+    "gemv_m1n128": (1, 128, 0, 1, 8, GEMV, 16, 1),
+    "gemv_m4n64": (4, 64, 0, 4, 8, GEMV, 16, 1),
+    "gemv_m4n128": (4, 128, 0, 4, 8, GEMV, 16, 1),
+    "gemv_m8n64": (8, 64, 0, 8, 8, GEMV, 8, 1),
+    "gemv_m8n128": (8, 128, 0, 8, 8, GEMV, 8, 1),
 }
+
+# CUDA's limit on a grid's y dimension (gated wgmma rows put F/BN on y,
+# stream GEMV rows M/BM)
+_GRID_Y = 65535
 
 
 def _act(name: str):
@@ -150,26 +190,117 @@ def _split_analysis(p, *, m: int, d: int, f: int, act: str = "silu",
 # ---------------------------------------------------------------------------
 
 
+def _gated_bytes(m: int, d: int, f: int, eb: int, rows: int) -> np.ndarray:
+    """Device-memory bytes of a gated launch with x, W_gate and W_up read
+    once and the output written once (`matmul._unique_bytes` with two
+    weights)."""
+    return np.full(rows, (float(m) * d + 2.0 * d * f) * eb + float(m) * f * eb)
+
+
+def _gated_wgmma_cost(t, *, m: int, d: int, f: int, eb: int):
+    """TMA + wgmma gated rows: `matmul._wgmma_cost`'s shape with two
+    weights.  Two wgmma chains on one X box double the tensor-core
+    FLOPs; a stage is one X box and two weight boxes; the unique bytes of
+    x, W_gate, W_up and the output (row tiles are the grid's fast axis,
+    so the blocks that share a weight tile run side by side); STAGES
+    stages in flight; two m64nBN accumulators, BN f32 registers a
+    thread."""
+    bn, stages = t[:, 1], t[:, 6]
+    gm, gn = cdiv(m, 128), cdiv(f, bn)
+    stage = 128 * 64 * 2 + 2 * 64 * bn * 2
+    return dict(
+        blocks=gm * gn,
+        threads=np.full(len(t), 384),
+        regs=bn + 26,
+        smem=stages * stage + 16 * stages + 1024,
+        flops=np.zeros(len(t)),
+        tc_flops=2.0 * 2.0 * (cdiv(m, 64) * 64) * (gn * bn)
+        * (cdiv(d, 64) * 64.0),
+        hbm_bytes=_gated_bytes(m, d, f, eb, len(t)),
+        smem_bytes=(gm * gn) * cdiv(d, 64) * stage * 1.0,
+        inflight_bytes=stages * (min(m, 128) * 64 * 2 + 2 * 64 * bn * 2)
+        * 1.0,
+        feasible=gn <= _GRID_Y)
+
+
+def _stream_gemv_smem(bm, bn, d: int, eb: int):
+    """Shared bytes of a stream GEMV block: x's whole-D panel (pitch D
+    rounded up to 16 elements), the warps' f32 sums of both products and
+    the panel's barrier."""
+    return bm * (cdiv(d, 16) * 16) * eb + 2 * bm * bn * 4 + 16
+
+
+def _stream_gemv_cost(t, *, m: int, d: int, f: int, eb: int):
+    """Whole-D gated GEMV rows: `matmul._gemv_cost`'s shape with two
+    weights and no split.  A lane's 16-byte slice of a row of its half's
+    weight, STAGES rows in flight per lane; row blocks are the grid's
+    slowest axis, each re-reading the weights from HBM; every row is
+    bounded to 128 registers (2 blocks per SM).  Infeasible where x's
+    panel does not fit the block's shared memory."""
+    bm, bn, rows = t[:, 0], t[:, 1], t[:, 6]
+    gm, gn = cdiv(m, bm), cdiv(f, bn)
+    return dict(
+        blocks=gn * gm,
+        threads=np.full(len(t), 32 * SG_WARPS),
+        regs=np.full(len(t), 128),
+        smem=_stream_gemv_smem(bm, bn, d, eb),
+        flops=2.0 * 2.0 * (gm * bm) * (gn * bn) * float(d),
+        tc_flops=np.zeros(len(t)),
+        hbm_bytes=(_gated_bytes(m, d, f, eb, len(t))
+                   + (gm - 1) * 2.0 * d * f * eb),
+        smem_bytes=(gn * gm) * (2.0 * bm * d * eb
+                                + 2.0 * SG_WARPS * 2 * bm * bn * 4),
+        inflight_bytes=32.0 * SG_WARPS * rows * 16,
+        feasible=gm <= _GRID_Y)
+
+
+_KEYS = ("blocks", "threads", "regs", "smem", "flops", "tc_flops",
+         "hbm_bytes", "smem_bytes", "inflight_bytes")
+
+
 def _fused_hopper(cols, *, m: int, d: int, f: int, act: str = "silu",
                   dtype: str = "float32"):
+    """The gated table: SIMT rows priced by `gemm_hopper_cost` with two
+    operands, wgmma rows by `_gated_wgmma_cost` (infeasible unless
+    `wgmma_takes` the product)."""
     t = tile_fields(GATED_TILES, cols[TILE_AXIS])
     eb = dtype_bytes(dtype)
-    out = gemm_hopper_cost(m=m, n=f, k=d, bm=t[:, 0], bn=t[:, 1],
-                           bk=t[:, 2], tm=t[:, 3], tn=t[:, 4],
-                           in_bytes=eb, out_bytes=eb, operands=2)
+    fam = t[:, 5]
+    out = family_costs(fam, {
+        SIMT: lambda sel: gemm_hopper_cost(
+            m=m, n=f, k=d, bm=t[sel, 0], bn=t[sel, 1], bk=t[sel, 2],
+            tm=t[sel, 3], tn=t[sel, 4], in_bytes=eb, out_bytes=eb,
+            operands=2),
+        WGMMA: lambda sel: _gated_wgmma_cost(t[sel], m=m, d=d, f=f, eb=eb)},
+        keys=_KEYS)
+    out["feasible"] &= (fam != WGMMA) | wgmma_takes(dtype, f, d)
     out["trans"] = float(m) * f              # one exp/tanh per output
     return out
 
 
 def _stream_hopper(cols, *, m: int, d: int, f: int, act: str = "silu",
                    dtype: str = "float32"):
+    """The stream table: SIMT rows priced by `gemm_hopper_cost` over the
+    whole-K panel, GEMV rows by `_stream_gemv_cost`."""
     t = tile_fields(STREAM_TILES, cols[TILE_AXIS])
     eb = dtype_bytes(dtype)
-    out = gemm_hopper_cost(m=m, n=f, k=d, bm=t[:, 0], bn=t[:, 1], bk=None,
-                           tm=t[:, 2], tn=t[:, 3], in_bytes=eb,
-                           out_bytes=eb, operands=2)
+    out = family_costs(t[:, 5], {
+        SIMT: lambda sel: gemm_hopper_cost(
+            m=m, n=f, k=d, bm=t[sel, 0], bn=t[sel, 1], bk=None,
+            tm=t[sel, 3], tn=t[sel, 4], in_bytes=eb, out_bytes=eb,
+            operands=2),
+        GEMV: lambda sel: _stream_gemv_cost(t[sel], m=m, d=d, f=f, eb=eb)},
+        keys=_KEYS)
     out["trans"] = float(m) * f
     return out
+
+
+def stream_gemv_takes(tile: str, d: int, dtype: str) -> bool:
+    """Whether the stream GEMV row ``tile`` holds x's (BM, D) panel in a
+    block's shared memory (the only limit of its kernel's shapes)."""
+    bm, bn = STREAM_TILES[tile][:2]
+    return _stream_gemv_smem(bm, bn, d, dtype_bytes(dtype)) \
+        <= H100_SXM.shmem_per_block
 
 
 def _split_hopper(cols, *, m: int, d: int, f: int, act: str = "silu",
@@ -206,12 +337,35 @@ def _check(kernel: str, x, w_gate, w_up, act: str):
     return m, d, f
 
 
+def _refuse(kernel: str, tiles, tile: str, x, w_gate, w_up) -> None:
+    """ValueError for a product the tile's kernel cannot take: the gated
+    wgmma rows take bfloat16 with D and F multiples of 8 and 16-byte-
+    aligned operands (`wgmma_takes`, as the GEMM table's wgmma rows);
+    the stream GEMV rows an x panel that fits a block's shared memory."""
+    m, d = x.shape
+    f = w_gate.shape[1]
+    fam = tiles[tile][5]
+    if fam == WGMMA:
+        if not wgmma_takes(dtype_name(x), f, d):
+            raise ValueError(
+                f"{kernel}: tile {tile} takes bfloat16 with D and F "
+                f"multiples of 8, got {dtype_name(x)} (M={m}, D={d}, F={f})")
+        if any(t.data_ptr() % 16 for t in (x, w_gate, w_up)):
+            raise ValueError(f"{kernel}: tile {tile} needs 16-byte-aligned "
+                             f"operands for its tensor maps")
+    elif fam == GEMV and not stream_gemv_takes(tile, d, dtype_name(x)):
+        raise ValueError(
+            f"{kernel}: tile {tile} holds x's ({tiles[tile][0]}, D) panel "
+            f"in shared memory, and D={d} in {dtype_name(x)} does not fit")
+
+
 def _gated_launch(kernel: str, fn_name: str, tiles, x, w_gate, w_up,
                   act: str, tile: str):
     import torch
     m, d, f = _check(kernel, x, w_gate, w_up, act)
     if tile not in tiles:
         raise ValueError(f"{kernel}: unknown tile {tile!r}")
+    _refuse(kernel, tiles, tile, x, w_gate, w_up)
     out = torch.empty((m, f), dtype=x.dtype, device=x.device)
     rc = getattr(_cuda.library(), fn_name)(
         list(tiles).index(tile), _cuda.dtype_code(x), ACT_CODES[act],
@@ -222,18 +376,22 @@ def _gated_launch(kernel: str, fn_name: str, tiles, x, w_gate, w_up,
 
 
 def fused_cuda(x, w_gate, w_up, act: str = "silu", *, tile: str):
-    """Launch the two-accumulator CUDA kernel ``tile``."""
+    """Launch the gated CUDA kernel of ``tile``: a SIMT row's
+    two-accumulator kernel, or a wgmma row's TMA + wgmma kernel."""
     out = _gated_launch("mlp_matmul", "repro_gemm_gated", GATED_TILES,
                         x, w_gate, w_up, act, tile)
     LAUNCHES["fused"] += 1
+    LAUNCHES[_GATED_COUNTER[GATED_TILES[tile][5]]] += 1
     return out
 
 
 def stream_cuda(x, w_gate, w_up, act: str = "silu", *, tile: str):
-    """Launch the whole-D-panel CUDA kernel ``tile``."""
+    """Launch the whole-D CUDA kernel of ``tile``: a SIMT row's resident
+    panels, or a GEMV row's streamed weights."""
     out = _gated_launch("mlp_matmul_stream", "repro_gemm_stream",
                         STREAM_TILES, x, w_gate, w_up, act, tile)
     LAUNCHES["stream"] += 1
+    LAUNCHES[_STREAM_COUNTER[STREAM_TILES[tile][5]]] += 1
     return out
 
 
@@ -254,7 +412,8 @@ def split_cuda(x, w_gate, w_up, act: str = "silu", *, tile: str):
 
 def mlp_matmul_stream(x, w_gate, w_up, act: str = "silu", *,
                       tile: str | None = None):
-    """Stream schedule: whole-D panels per block, gated tile in one shot."""
+    """Stream schedule: the whole of D per block, the gated tile in one
+    flush."""
     if x.device.type == "cpu":
         return mlp_plain(x, w_gate, w_up, act)
     return stream_cuda(x, w_gate, w_up, act, tile=tile)

@@ -76,20 +76,22 @@ def _close(got, want, dtype, f32=2e-4):
     (7, BLAS2_TILES), (8, BLAS2_TILES), (9, JACOBI_TILES)])
 def test_tile_tables_match_the_library(cuda, kind, table):
     """The Python tile tables name the C side's instantiations in order
-    (the GEMM table with its family, stages and split fields), through a
-    buffer of the width the C interface declares."""
+    (the GEMM, gated and stream tables with their family, stages and
+    split fields), through a buffer of the width the C interface
+    declares."""
     lib = _cuda.library()
     assert lib.repro_tile_count(kind) == len(table)
     out = (ctypes.c_int * _cuda.TILE_INFO_INTS)()
     for i, fields in enumerate(table.values()):
         assert lib.repro_tile_info(kind, i, out) == 0
-        slots = {0: (0, 1, 2, 3, 4, 6, 7, 8), 2: (0, 1, 3, 4),
+        slots = {0: (0, 1, 2, 3, 4, 6, 7, 8), 1: (0, 1, 2, 3, 4, 6, 7, 8),
+                 2: (0, 1, 2, 3, 4, 6, 7, 8),
                  3: (0, 5, 1, 2, 3), 4: (0, 1, 5, 6), 5: (0, 5, 6),
                  6: (0, 1), 7: (0, 1), 8: (0, 1)}.get(kind,
                                                       (0, 1, 2, 3, 4))
         assert tuple(out[j] for j in slots) == tuple(fields), (kind, i)
     threads = {SIMT: None, GEMV: 256, WGMMA: 384}
-    if kind == 0:
+    if kind in (0, 1, 2):
         for i, fields in enumerate(table.values()):
             lib.repro_tile_info(kind, i, out)
             want = threads[fields[5]] or (fields[0] // fields[3]) * (
@@ -407,13 +409,119 @@ def test_gated_mlp_kernels(cuda, dtype, act, variant, fn, tiles):
     wu = _rand((96, 72), dtype, cuda, 12, scale=96 ** -0.5)
     want = mlp_plain(x, wg, wu, act)
     for tile in tiles:
-        if variant == "split" and not _takes(tile, dtype, 72, 96):
+        if tiles[tile][5] == WGMMA and not wgmma_takes(
+                str(dtype).rpartition(".")[2], 72, 96):
             with pytest.raises(ValueError, match="takes bfloat16"):
                 fn(x, wg, wu, act, tile=tile)
             continue
         got = fn(x, wg, wu, act, tile=tile)
         torch.cuda.synchronize()
         _close(got, want, dtype)
+
+
+GATED_WGMMA_ROWS = [t for t, f in GATED_TILES.items() if f[5] == WGMMA]
+STREAM_GEMV_ROWS = [t for t, f in STREAM_TILES.items() if f[5] == GEMV]
+ACTS = ["silu", "gelu", "relu"]
+# (M, D, F) for the gated wgmma rows: one live warpgroup, a ragged
+# second row tile and a ragged last column tile, D not a whole number
+# of 64-deep k-blocks, and the serving prefill shape
+GATED_SHAPES = [(5, 96, 72), (130, 136, 200), (64, 200, 1000),
+                (256, 3072, 24576)]
+# (M, D, F) for the stream GEMV rows: M under, at and over BM (a grid
+# of row blocks), D not a whole number of chunks and D * eb not a
+# multiple of 16 (x copied without the bulk copy), F ragged against
+# every BN and not a whole number of 16-byte vectors (scalar lanes),
+# and the serving decode shapes
+STREAM_SHAPES = [(1, 96, 72), (5, 100, 70), (9, 200, 1003),
+                 (4, 3072, 24576), (1, 3072, 24576)]
+
+
+def _mlp_operands(shape, dtype, device, seed):
+    """x, W_gate, W_up drawn on the card (the serving shapes' weights are
+    75M values each)."""
+    m, d, f = shape
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return tuple((torch.randn(s, generator=g, device=device) * c).to(dtype)
+                 for s, c in (((m, d), 1.0), ((d, f), d ** -0.5),
+                              ((d, f), d ** -0.5)))
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("shape", GATED_SHAPES,
+                         ids=["x".join(map(str, s)) for s in GATED_SHAPES])
+@pytest.mark.parametrize("tile", GATED_WGMMA_ROWS)
+def test_gated_wgmma_rows_against_plain(cuda, tile, shape, act):
+    """Each TMA + wgmma gated row against the plain version in bf16 (the
+    rows take no other type), counted under its family."""
+    x, wg, wu = _mlp_operands(shape, torch.bfloat16, cuda, 40)
+    before = dict(kernels.launch_counts())
+    got = fused_cuda(x, wg, wu, act, tile=tile)
+    torch.cuda.synchronize()
+    _close(got, mlp_plain(x, wg, wu, act), torch.bfloat16)
+    after = kernels.launch_counts()
+    assert after["gated_wgmma"] == before["gated_wgmma"] + 1
+    assert after["fused"] == before["fused"] + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("shape", STREAM_SHAPES,
+                         ids=["x".join(map(str, s)) for s in STREAM_SHAPES])
+@pytest.mark.parametrize("tile", STREAM_GEMV_ROWS)
+def test_stream_gemv_rows_against_plain(cuda, tile, shape, act, dtype):
+    """Each whole-D gated GEMV row against the plain version; two calls
+    give the same bits (fixed butterfly, then warp order)."""
+    x, wg, wu = _mlp_operands(shape, dtype, cuda, 50)
+    before = dict(kernels.launch_counts())
+    got = stream_cuda(x, wg, wu, act, tile=tile)
+    again = stream_cuda(x, wg, wu, act, tile=tile)
+    torch.cuda.synchronize()
+    _close(got, mlp_plain(x, wg, wu, act), dtype)
+    assert torch.equal(got, again)
+    after = kernels.launch_counts()
+    assert after["stream_gemv"] == before["stream_gemv"] + 2
+    assert after["stream"] == before["stream"] + 2
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tile", STREAM_GEMV_ROWS)
+def test_stream_gemv_rows_take_unaligned_operands(cuda, tile, dtype):
+    """x and the weights as views one element off 16-byte alignment: x
+    through the ordinary copy, the weights through masked scalar loads."""
+    m, d, f = 4, 96, 136
+    flat = _rand((1 + m * d + 2 * (1 + d * f),), dtype, cuda, 60, scale=0.1)
+    x = flat[1:1 + m * d].view(m, d)
+    o = 1 + m * d
+    wg = flat[o + 1:o + 1 + d * f].view(d, f)
+    wu = flat[o + 2 + d * f:o + 2 + 2 * d * f].view(d, f)
+    got = stream_cuda(x, wg, wu, "gelu", tile=tile)
+    torch.cuda.synchronize()
+    _close(got, mlp_plain(x, wg, wu, "gelu"), dtype)
+
+
+@pytest.mark.parametrize("tile", GATED_WGMMA_ROWS + STREAM_GEMV_ROWS)
+def test_new_mlp_rows_refuse_what_they_cannot_take(cuda, tile):
+    """The gated wgmma rows: float32, D or F not a multiple of 8, an
+    unaligned base; the stream GEMV rows: an x panel past 227 KB.  A
+    ValueError before any launch."""
+    if tile in GATED_WGMMA_ROWS:
+        for dtype, (m, d, f) in ((torch.float32, (8, 64, 64)),
+                                 (torch.bfloat16, (8, 60, 64)),
+                                 (torch.bfloat16, (8, 64, 70))):
+            x, wg, wu = _mlp_operands((m, d, f), dtype, cuda, 70)
+            with pytest.raises(ValueError, match="takes bfloat16"):
+                fused_cuda(x, wg, wu, "silu", tile=tile)
+        _, wg, wu = _mlp_operands((8, 64, 64), torch.bfloat16, cuda, 73)
+        flat = _rand((1 + 8 * 64,), torch.bfloat16, cuda, 76)
+        with pytest.raises(ValueError, match="16-byte-aligned"):
+            fused_cuda(flat[1:].view(8, 64), wg, wu, "silu", tile=tile)
+        return
+    bm = STREAM_TILES[tile][0]
+    d = 232448 // (4 * bm) + 16           # f32: the panel alone is too big
+    x, wg, wu = _mlp_operands((bm, d, 64), torch.float32, cuda, 77)
+    with pytest.raises(ValueError, match="does not fit"):
+        stream_cuda(x, wg, wu, "silu", tile=tile)
 
 
 # (M, N): 16-byte vector loads for both types, for float32 only

@@ -191,12 +191,18 @@ def test_other_kernels_keep_their_h100_ranking(kernel_id, sig, variant,
 
 @pytest.mark.parametrize("m", [4, 256])
 def test_the_gated_mlps_own_variants_keep_their_prices(m):
-    """fused and stream rows carry no tensor-core flops: their predicted
-    times are bitwise those of the FP32-priced model."""
+    """The SIMT rows of fused and stream carry no tensor-core flops:
+    their predicted times are bitwise those of the FP32-priced model.
+    (The gated wgmma rows state tensor-core flops by design.)"""
+    from repro_torch.kernels.mlp_matmul import GATED_TILES, STREAM_TILES
+    table = {"fused": GATED_TILES, "stream": STREAM_TILES}
     sig = dict(m=m, d=3072, f=24576, act="gelu", dtype="bfloat16")
     pts, now = _times("mlp_matmul", sig)
     _, before = _times("mlp_matmul", sig, _fp32_mxu_model())
-    own = np.array([p["variant"] != "split" for p in pts])
+    own = np.array([p["variant"] != "split"
+                    and table[p["variant"]][p["tile"]][5] == SIMT
+                    for p in pts])
+    assert own.sum() == 11
     np.testing.assert_array_equal(now[own], before[own])
 
 
