@@ -65,16 +65,22 @@ Phases, each fatal on failure (exit code != 0, no result line):
              rows); launch counters set to 0 before and read after;
 8. extend  — the kernel API's extension path: stencil2d (found by
              discovery in ``kernels/``) through ``ops.stencil2d`` under the
-             H100 at its pretune grid and 8192^2 f32/bf16, `KernelTuner` on
-             it at 8192^2 (static, hybrid, exhaustive), the examples
+             H100 at its pretune grid, 8192^2 f32/bf16 (fatal unless the
+             analysis picks a TMA ring row there) and a ragged 1000 x 1003
+             grid (a march row), `KernelTuner` on it at 8192^2 f32 and
+             bf16 (static, hybrid, exhaustive), the examples
              ``custom_kernel`` (saxpy2d, declared in its own file),
              ``annotated_tuning`` and ``autotune_kernel``, and the
              mega-space matmul factory (2048^3 bf16, timed beside its
              bound and ``torch.matmul``, and on device time beside
              ``torch.matmul``'s); launch counters set to 0 before and read
              after.  Then both extension kernels are held against
-             their plain versions at 8192^2 f32/bf16 and timed, and the
-             4.2M-point mega space is ranked under tpu-v5e (host work).
+             their plain versions at 8192^2 f32/bf16 and timed (stencil2d
+             on its ring pick and on the march row the analysis ranks
+             first among its own, each beside its device time, the bound,
+             the plain version and the conv2d composite; saxpy2d beside
+             ``torch.add``, both on device time), and the 4.2M-point mega
+             space is ranked under tpu-v5e (host work).
 
 Phase 2 also holds the Table IV kernels against their plain versions at
 the tuner's sizes (above the 50 MB L2), jacobi3d on its static pick (a
@@ -153,6 +159,8 @@ KERNELS = {
                      "src/repro/kernels/jacobi3d.py:37"),
     "stencil2d": ("src/repro_torch/kernels/csrc/stencil2d.cu",
                   "src/repro/kernels/stencil2d.py:51"),
+    "stencil2d_march": ("src/repro_torch/kernels/csrc/stencil2d.cu",
+                        "src/repro/kernels/stencil2d.py:51"),
     "saxpy2d": ("src/repro_torch/examples/saxpy2d.cu",
                 "examples/custom_kernel.py:34"),
 }
@@ -164,13 +172,15 @@ SERVE_KERNELS = ("matmul", "matmul_prefill", "splitk_reduce", "rms_norm",
 # matmul row is the wgmma family's GEMM kernel (matmul and the split
 # MLP's passes), the flash row its bf16 tensor-core family's kernel, the
 # rms_norm row its vector rows' kernel, the jacobi3d row its ring rows'
-# kernel, the fused and stream rows their Hopper families' kernels
-# (gated wgmma, whole-D gated GEMV) and the *_simt rows their SIMT
-# kernels; the other attention, rms_norm and jacobi3d rows are one
-# family each, counted by their wrappers under the row's name
+# kernel, the stencil2d row its ring rows' kernel, the fused and stream
+# rows their Hopper families' kernels (gated wgmma, whole-D gated GEMV)
+# and the *_simt rows their SIMT kernels; the other attention, rms_norm,
+# jacobi3d and stencil2d rows are one family each, counted by their
+# wrappers under the row's name
 COUNTER = {"matmul_prefill": "gemm_wgmma", "flash": "flash_mma",
            "rms_norm": "rms_vec", "rms_simt_ragged": "rms_simt",
-           "jacobi3d": "jacobi_ring", "fused": "gated_wgmma",
+           "jacobi3d": "jacobi_ring", "stencil2d": "stencil2d_ring",
+           "fused": "gated_wgmma",
            "fused_simt": "gated_simt", "stream": "stream_gemv",
            "stream_simt": "stream_simt"}
 TABLE4 = ("matvec", "atax", "bicg", "jacobi3d")
@@ -362,13 +372,16 @@ def phase_build():
             print(f"[build]   {kid}/{vid or kid} {tile}: "
                   f"{int(declared[i])} | {got[0]}, {got[1]} | "
                   f"{smem.value} B")
-    ext_sig = {"stencil2d": dict(y=8192, x=8192, dtype="float32"),
-               "saxpy2d": dict(m=8192, n=8192, dtype="float32")}
+    ext_sig = {"stencil2d": dict(y=8192, x=8192),
+               "saxpy2d": dict(m=8192, n=8192)}
+    print("[build] extension tile: declared regs f32, bf16 | compiled "
+          "numRegs f32, bf16 | static smem")
     for kid, elib in (("stencil2d", st_lib), ("saxpy2d", sx_lib)):
         h = api.get_spec(kid)._hopper[None]
-        declared = np.broadcast_to(np.asarray(h.analysis(
-            {api.TILE_AXIS: np.asarray(h.tiles)}, **ext_sig[kid])["regs"]),
-            (len(h.tiles),))
+        declared = [np.broadcast_to(np.asarray(h.analysis(
+            {api.TILE_AXIS: np.asarray(h.tiles)}, **ext_sig[kid],
+            dtype=dt)["regs"]), (len(h.tiles),))
+            for dt in ("float32", "bfloat16")]
         attrs = getattr(elib, f"{kid}_attrs")
         for i, tile in enumerate(h.tiles):
             got = []
@@ -378,7 +391,8 @@ def phase_build():
                 if rc != 0:
                     fail(f"cudaFuncGetAttributes({kid} {tile}): {rc}")
                 got.append(regs.value)
-            print(f"[build]   {kid} (extension) {tile}: {int(declared[i])} "
+            print(f"[build]   {kid} (extension) {tile}: "
+                  f"{int(declared[0][i])}, {int(declared[1][i])} "
                   f"| {got[0]}, {got[1]} | {smem.value} B")
 
 
@@ -1326,13 +1340,16 @@ def phase_dispatch(dev):
 # ---------------------------------------------------------------------------
 
 # ops.stencil2d's instances: the reference's pretune grid, then 8192^2
-# (268 MB in and out in f32, above the 50 MB L2)
+# (268 MB in and out in f32, above the 50 MB L2), where the analysis
+# must pick a ring row, and a grid whose rows are not whole 16-byte
+# vectors (the march rows' domain)
 STENCIL_SIGS = [dict(y=512, x=512, dtype="float32"),
                 dict(y=1024, x=1024, dtype="float32"),
                 dict(y=2048, x=2048, dtype="float32"),
                 dict(y=1024, x=1024, dtype="bfloat16"),
                 dict(y=8192, x=8192, dtype="float32"),
-                dict(y=8192, x=8192, dtype="bfloat16")]
+                dict(y=8192, x=8192, dtype="bfloat16"),
+                dict(y=1000, x=1003, dtype="float32")]
 # float32 tolerances: the Jacobi sweeps' 1e-5; saxpy2d's f32 result is
 # one rounding of an exact 2a plus b (1e-6); bfloat16 2e-2 for both
 EXT_TOL = {"stencil2d": 1e-5, "saxpy2d": 1e-6}
@@ -1358,9 +1375,11 @@ def phase_extend(dev, card: str):
     every launch counter set to 0 before and read after: stencil2d
     through ``ops`` (cold H100 rank, then launch) at STENCIL_SIGS, each
     output held against the plain version; `KernelTuner` on stencil2d
-    at 8192^2 f32; the three examples' ``main``; the mega-space matmul
-    registered, dispatched under the H100 and unregistered.  Fatal if
-    a dispatch fell back or a static tune launched a kernel."""
+    at 8192^2 f32 and bf16; the three examples' ``main``; the
+    mega-space matmul registered, dispatched under the H100 and
+    unregistered.  Fatal if a dispatch fell back, a static tune
+    launched a kernel or the analysis did not pick a ring row at
+    8192^2."""
     import torch
     from repro_torch import kernels
     from repro_torch import tuning_cache as tc
@@ -1369,8 +1388,8 @@ def phase_extend(dev, card: str):
                                       custom_kernel)
     from repro_torch.kernels import api, ops
     from repro_torch.kernels.matmul import matmul_plain
+    from repro_torch.kernels import stencil2d as st
     from repro_torch.kernels.megamatmul import mega_matmul_spec
-    from repro_torch.kernels.stencil2d import stencil2d_plain
 
     print(f"[extend] card: {card}", flush=True)
     api.reset_dispatch_stats()
@@ -1387,14 +1406,23 @@ def phase_extend(dev, card: str):
             wall = (time.perf_counter() - t0) * 1e3
             tile = tc.lookup_or_tune("stencil2d", **sig)[api.TILE_AXIS]
             shape = f"{sig['y']}x{sig['x']} {sig['dtype']}"
-            err = _hold("stencil2d", got, stencil2d_plain(u), sig["dtype"],
-                        f"{shape} tile {tile}")
+            family = ("ring" if st.STENCIL_TILES[tile][3] == st.RING
+                      else "march")
+            if sig["y"] == 8192 and family != "ring":
+                fail(f"stencil2d {shape}: the H100 analysis picked the "
+                     f"march row {tile}, not a ring row")
+            err = _hold("stencil2d", got, st.stencil2d_plain(u),
+                        sig["dtype"], f"{shape} tile {tile}")
             tol = EXT_TOL["stencil2d"] if sig["dtype"] == "float32" else 2e-2
-            print(f"[extend] ops.stencil2d {shape}: tile {tile} (cold H100 "
-                  f"rank + first launch {wall:.1f} ms wall), max|err| "
-                  f"{err:.3g} (tol {tol:g})", flush=True)
+            print(f"[extend] ops.stencil2d {shape}: tile {tile} ({family} "
+                  f"row; cold H100 rank + first launch {wall:.1f} ms "
+                  f"wall), max|err| {err:.3g} (tol {tol:g})", flush=True)
             del u, got
-    tune_case("extend", "stencil2d", dict(y=8192, x=8192, dtype="float32"))
+    for dtype in ("float32", "bfloat16"):
+        r = tune_case("extend", "stencil2d",
+                      dict(y=8192, x=8192, dtype=dtype))
+        _rank_own("stencil2d march rows alone", r,
+                  lambda t: st.STENCIL_TILES[t][3] == st.MARCH)
 
     print("[extend] examples/custom_kernel.main([]) (saxpy2d, declared in "
           "its own file):", flush=True)
@@ -1450,19 +1478,22 @@ def phase_extend(dev, card: str):
     finally:
         api.unregister("mega_matmul")
     launches = kernels.launch_counts()       # ... and ends here
-    st = api.dispatch_stats()
-    print(f"[extend] extension-path launches: {launches}; dispatch {st}")
-    if st["fallback"] != 0:
-        fail(f"a dispatch on the extension path fell back: {st}")
+    stats = api.dispatch_stats()
+    print(f"[extend] extension-path launches: {launches}; dispatch {stats}")
+    if stats["fallback"] != 0:
+        fail(f"a dispatch on the extension path fell back: {stats}")
     return launches
 
 
 def phase_extend_kernels(dev) -> dict:
     """stencil2d and saxpy2d held against their plain versions at 8192^2
-    f32 and bf16 on the tile dispatch picks, and timed beside the plain
-    version, the bound and (saxpy2d) ``torch.add``; then the 4.2M-point
-    mega space ranked under tpu-v5e in a fresh process (host work).
-    Returns the float32 rows."""
+    f32 and bf16 and timed: stencil2d on its tile dispatch pick (a ring
+    row) and on the march row the analysis ranks first among its own,
+    each beside its device time per launch, the bound, the plain
+    version and the conv2d composite; saxpy2d on its pick beside
+    ``torch.add``, both also on device time.  Then the 4.2M-point mega
+    space ranked under tpu-v5e in a fresh process (host work).  Returns
+    the float32 rows (stencil2d: the ring pick; stencil2d_march)."""
     import torch
     import torch.nn.functional as F
     from repro_torch import tuning_cache as tc
@@ -1479,28 +1510,22 @@ def phase_extend_kernels(dev) -> dict:
             gen = torch.Generator(device=dev)
             gen.manual_seed(0)
             args = api.get_spec(kid).make_inputs(gen, **sig)
-            tile = tc.lookup_or_tune(kid, spec="h100", db=tc.TuningDatabase(),
-                                     **sig)[api.TILE_AXIS]
+            tiles = {kid: tc.lookup_or_tune(
+                kid, spec="h100", db=tc.TuningDatabase(),
+                **sig)[api.TILE_AXIS]}
             fn, plain = ((st.stencil2d_cuda, st.stencil2d_plain)
                          if kid == "stencil2d"
                          else (ck.saxpy2d_cuda, ck.saxpy2d_plain))
-            err = _hold(kid, fn(*args, tile=tile), plain(*args), dtype,
-                        f"8192x8192 {dtype} tile {tile}")
             pts, eb = 8192.0 * 8192, dtype_bytes(dtype)
             nbytes, flops = ((2 * pts * eb, 6 * pts) if kid == "stencil2d"
                              else (3 * pts * eb, 2 * pts))
             b_ms, b_by = bound(nbytes, flops, dtype)
-            lib = (None if kid == "stencil2d"
-                   else (lambda a, b: torch.add(b, a, alpha=2.0)))
-            row = dict(max_abs_err=err,
-                       ms=time_ms(lambda: fn(*args, tile=tile)),
-                       plain_ms=time_ms(lambda: plain(*args)),
-                       bound_ms=b_ms, bound_by=b_by,
-                       library_ms=(time_ms(lambda: lib(*args))
-                                   if lib is not None else None),
-                       shape=f"8192x8192 {dtype} tile {tile}")
-            extra = ""
+            base = dict(plain_ms=time_ms(lambda: plain(*args)),
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
             if kid == "stencil2d":
+                tiles["stencil2d_march"] = _family_tile(
+                    kid, None, sig, lambda t: st.STENCIL_TILES[t][3]
+                    == st.MARCH)
                 (u,) = args
                 c0, c1 = st.C0_DEFAULT, st.C1_DEFAULT
                 w = torch.tensor([[0.0, c1, 0.0], [c1, c0, c1],
@@ -1513,18 +1538,39 @@ def phase_extend_kernels(dev) -> dict:
                     return out
                 c_err = (composite().float()
                          - plain(u).float()).abs().max().item()
-                extra = (f" | torch composite (conv2d + boundary copy, 3 "
-                         f"calls) {time_ms(composite):.4f} ms, max|err| "
+                base.update(composite_ms=time_ms(composite),
+                            composite_device_us=device_us(composite,
+                                                          calls=50))
+                other = (f"torch composite (conv2d + boundary copy, 3 "
+                         f"calls) {base['composite_ms']:.4f} ms, device "
+                         f"{base['composite_device_us']:.2f} us, max|err| "
                          f"{c_err:.3g}")
+            else:
+                def lib(a, b):
+                    return torch.add(b, a, alpha=2.0)
+                base.update(library_ms=time_ms(lambda: lib(*args)),
+                            library_device_us=device_us(
+                                lambda: lib(*args), calls=50))
+                other = (f"library torch.add(b, a, alpha=2) "
+                         f"{base['library_ms']:.4f} ms, device "
+                         f"{base['library_device_us']:.2f} us")
             tol = EXT_TOL[kid] if dtype == "float32" else 2e-2
-            print(f"[extend] {kid} {row['shape']}: max|err| {err:.3g} "
-                  f"(tol {tol:g} abs + rel) | kernel {row['ms']:.4f} ms | "
-                  f"plain {row['plain_ms']:.4f} ms | bound {b_ms:.4f} ms ({b_by}) "
-                  f"| library "
-                  + (f"{row['library_ms']:.4f} ms (torch.add alpha=2)"
-                     if lib is not None else "none") + extra, flush=True)
-            if dtype == "float32":
-                rows[kid] = row
+            for name, tile in tiles.items():
+                err = _hold(kid, fn(*args, tile=tile), plain(*args), dtype,
+                            f"8192x8192 {dtype} tile {tile}")
+                row = dict(base, max_abs_err=err,
+                           ms=time_ms(lambda: fn(*args, tile=tile)),
+                           device_us=device_us(lambda: fn(*args, tile=tile),
+                                               calls=50),
+                           shape=f"8192x8192 {dtype} tile {tile}")
+                print(f"[extend] {name} {row['shape']}: max|err| {err:.3g} "
+                      f"(tol {tol:g} abs + rel) | kernel {row['ms']:.4f} "
+                      f"ms, device {row['device_us']:.2f} us per launch | "
+                      f"bound {b_ms:.4f} ms ({b_by}), "
+                      f"{b_ms / row['ms'] * 100:.0f} % | plain "
+                      f"{row['plain_ms']:.4f} ms | {other}", flush=True)
+                if dtype == "float32":
+                    rows[name] = row
             del args
     torch.cuda.empty_cache()
 
@@ -1634,7 +1680,8 @@ def main() -> None:
     if missing:
         fail(f"Table IV kernels never launched on the tuning path: "
              f"{missing}")
-    missing = [k for k in EXTEND if ext_launches.get(k, 0) == 0]
+    missing = [k for k in EXTEND + ("stencil2d_ring", "stencil2d_march")
+               if ext_launches.get(k, 0) == 0]
     if missing:
         fail(f"extension kernels never launched on the extension path: "
              f"{missing}")
@@ -1644,7 +1691,8 @@ def main() -> None:
     paths.update({n: ("tuner", tuner_launches)
                   for n in TABLE4 + ("jacobi_plane",)})
     paths["rms_cluster"] = ("dispatch", dispatch_launches)
-    paths.update({n: ("extend", ext_launches) for n in EXTEND})
+    paths.update({n: ("extend", ext_launches)
+                  for n in EXTEND + ("stencil2d_march",)})
 
     def entry(name):
         src, replaces = KERNELS[name]

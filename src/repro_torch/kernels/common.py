@@ -393,6 +393,16 @@ def family_costs(fam, costs, keys) -> Dict[str, np.ndarray]:
     return out
 
 
+def declared_regs(table, regs, t, eb: int) -> np.ndarray:
+    """Declared registers of the rows ``t`` (an (N, F) array of the
+    tile ``table``'s fields) for elements of ``eb`` bytes: ``regs`` maps
+    each tile name to its compiled counts, (float32, bfloat16)."""
+    col = 0 if eb == 4 else 1
+    by_fields = {table[n]: r[col] for n, r in regs.items()}
+    return np.array([by_fields[tuple(int(v) for v in row)] for row in t],
+                    dtype=np.int64)
+
+
 def hopper_info_batch(*, blocks, threads, regs, smem, flops,
                       tc_flops=0.0, trans=0.0, hbm_bytes, smem_bytes=0.0,
                       launches=1, busy_threads=None, inflight_bytes=None,

@@ -30,8 +30,8 @@ from repro_torch.core.search import SearchSpace
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, TILE_AXIS, cuda_profile,
                                      divisors, get_spec, tuned_kernel)
-from repro_torch.kernels.common import (block_info, cdiv, dtype_name,
-                                        dtype_str, family_costs,
+from repro_torch.kernels.common import (block_info, cdiv, declared_regs,
+                                        dtype_name, dtype_str, family_costs,
                                         pick_divisor_candidates)
 from repro_torch.kernels.matmul import tile_fields
 from repro_torch.kernels.ref import jacobi3d_ref
@@ -117,15 +117,6 @@ def ring_takes(dtype: str, x: int) -> bool:
     return x % (16 // dtype_bytes(dtype)) == 0
 
 
-def _regs(t, eb: int) -> np.ndarray:
-    """Declared registers of the rows ``t`` for elements of ``eb``
-    bytes."""
-    col = 0 if eb == 4 else 1
-    by_fields = {JACOBI_TILES[n]: r[col] for n, r in _REGS.items()}
-    return np.array([by_fields[tuple(int(v) for v in row)] for row in t],
-                    dtype=np.int64)
-
-
 def _plane_cost(t, *, z: int, y: int, x: int, eb: int):
     """u read once and out written once from device memory, plus the
     plane below and above each block's ZB planes; the in-plane halo
@@ -137,7 +128,8 @@ def _plane_cost(t, *, z: int, y: int, x: int, eb: int):
     staged = gx * gy * float(z) * (bx + 2) * (by + 2)
     return dict(blocks=gx * gy * gz, threads=bx * by,
                 busy_threads=np.minimum(bx, x) * np.minimum(by, y),
-                regs=_regs(t, eb), smem=4 * (bx + 2) * (by + 2),
+                regs=declared_regs(JACOBI_TILES, _REGS, t, eb),
+                smem=4 * (bx + 2) * (by + 2),
                 flops=8.0 * pts,
                 hbm_bytes=(pts + 2.0 * (gz - 1) * y * x) * eb + pts * eb,
                 smem_bytes=(staged + 4.0 * pts) * 4)
@@ -169,7 +161,8 @@ def _ring_cost(t, *, z: int, y: int, x: int, eb: int):
     staged = gx * gy * (float(z) + 2.0 * gz) * (bx + 2 * v) * (by + 2) * eb
     return dict(blocks=gx * gy * gz, threads=bx // v * by,
                 busy_threads=cdiv(np.minimum(bx, x), v) * np.minimum(by, y),
-                regs=_regs(t, eb), smem=s * stage + 8 * s,
+                regs=declared_regs(JACOBI_TILES, _REGS, t, eb),
+                smem=s * stage + 8 * s,
                 flops=8.0 * pts,
                 hbm_bytes=(pts + 2.0 * (gz - 1) * y * x) * eb + pts * eb,
                 smem_bytes=staged - pts * eb + pts * eb * (3.0 + 2.0 / v),

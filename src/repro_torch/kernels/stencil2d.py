@@ -15,11 +15,16 @@ its CUDA source, ``csrc/stencil2d.cu`` (design and bound in the note at
 its top), builds on its own through `_cuda.load_extension`.
 
 Port of the reference's Pallas kernel
-(`src/repro/kernels/stencil2d.py:_stencil_kernel`).  The declaration
-keeps the reference's TPU block space (``by`` rows per grid step),
-analysis, ``cuda=`` profile and pretune grid; its H100 space is the
-(x tile, row groups, rows per run) instantiations of `STENCIL_TILES`,
-spanning 32 to 1024 threads.
+(`src/repro/kernels/stencil2d.py:_stencil_kernel`) as the two kernels of
+``csrc/stencil2d.cu``: march rows (``stencil_kernel``: a thread a
+column, marching down a run of rows with the rows above and below in
+registers; any shape) and ring rows (``stencil_ring_kernel``: a ring of
+S row tiles in shared memory fed by TMA, 16-byte vectors along x; X a
+multiple of 16 / elem_bytes and 16-byte-aligned bases, else ValueError).
+The declaration keeps the reference's TPU block space (``by`` rows per
+grid step), analysis, ``cuda=`` profile and pretune grid; its H100 space
+is the instantiations of `STENCIL_TILES`, both families priced together
+by `stencil_tiles_cost`.
 """
 from __future__ import annotations
 
@@ -33,28 +38,58 @@ from repro_torch.core.hw import dtype_bytes
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, TILE_AXIS, cuda_profile,
                                      divisors, get_spec, tuned_kernel)
-from repro_torch.kernels.common import cdiv, dtype_name, dtype_str
+from repro_torch.kernels.common import (cdiv, declared_regs, dtype_name,
+                                        dtype_str, family_costs)
+from repro_torch.kernels.jacobi3d import ring_stage_bytes, ring_takes
 from repro_torch.kernels.matmul import tile_fields
 
 __all__ = ["stencil2d", "stencil2d_cuda", "stencil2d_plain",
            "make_tunable_stencil2d", "extension", "STENCIL_TILES",
-           "LAUNCHES"]
+           "MARCH", "RING", "stencil_tiles_cost", "LAUNCHES"]
 
 C0_DEFAULT = 0.5
 C1_DEFAULT = 0.125
 
-# Launches of the CUDA kernel by `stencil2d_cuda` (one per call).
-LAUNCHES = {"stencil2d": 0}
+# Launches: "stencil2d" counts calls of `stencil2d_cuda` (one per call,
+# whatever the tile), "stencil2d_march" / "stencil2d_ring" the kernel of
+# each family that it launched.
+LAUNCHES = {"stencil2d": 0, "stencil2d_march": 0, "stencil2d_ring": 0}
+_FAMILY_COUNTER = ("stencil2d_march", "stencil2d_ring")
 
-# name -> (x tile BX, row groups BY, rows per run R); threads = BX * BY;
-# order = csrc/stencil2d.cu STENCIL_TILES.
+# tile families (csrc/stencil2d.cu StencilFamily)
+MARCH, RING = 0, 1
+
+# name -> (x tile BX, row groups BY (march) or rows a stage RB (ring),
+# rows per run R, family, ring stages S); order = csrc/stencil2d.cu
+# STENCIL_TILES, then STENCIL_RING_TILES.  March rows run BX * BY
+# threads, ring rows BX / (16 / elem_bytes) * RB, the deeper rings first
+# (where the analysis ties rows, the first wins); a ring row's R + 2 is
+# a whole number of stages.
 STENCIL_TILES: Dict[str, Tuple[int, ...]] = {
-    "x32y1r16": (32, 1, 16), "x32y4r16": (32, 4, 16),
-    "x64y2r32": (64, 2, 32), "x128y1r64": (128, 1, 64),
-    "x128y2r16": (128, 2, 16), "x256y1r32": (256, 1, 32),
-    "x128y4r16": (128, 4, 16), "x256y2r16": (256, 2, 16),
-    "x512y1r8": (512, 1, 8), "x128y8r8": (128, 8, 8),
-    "x32y32r4": (32, 32, 4),
+    "x32y1r16": (32, 1, 16, MARCH, 0), "x32y4r16": (32, 4, 16, MARCH, 0),
+    "x64y2r32": (64, 2, 32, MARCH, 0), "x128y1r64": (128, 1, 64, MARCH, 0),
+    "x128y2r16": (128, 2, 16, MARCH, 0),
+    "x256y1r32": (256, 1, 32, MARCH, 0),
+    "x128y4r16": (128, 4, 16, MARCH, 0),
+    "x256y2r16": (256, 2, 16, MARCH, 0), "x512y1r8": (512, 1, 8, MARCH, 0),
+    "x128y8r8": (128, 8, 8, MARCH, 0), "x32y32r4": (32, 32, 4, MARCH, 0),
+    "ring_x128y16r126s6": (128, 16, 126, RING, 6),
+    "ring_x128y8r62s6": (128, 8, 62, RING, 6),
+    "ring_x64y16r126s6": (64, 16, 126, RING, 6),
+    "ring_x64y8r62s4": (64, 8, 62, RING, 4),
+}
+_TILE_INDEX = {t: i for i, t in enumerate(STENCIL_TILES)}
+
+# declared registers per thread, (float32, bfloat16), of every row: the
+# compiled counts for sm_90a, which chip_smoke's [build] prints beside
+# them (`stencil2d_attrs`)
+_REGS: Dict[str, Tuple[int, int]] = {
+    "x32y1r16": (42, 40), "x32y4r16": (32, 32), "x64y2r32": (32, 32),
+    "x128y1r64": (32, 32), "x128y2r16": (32, 32), "x256y1r32": (32, 32),
+    "x128y4r16": (32, 32), "x256y2r16": (32, 32), "x512y1r8": (32, 32),
+    "x128y8r8": (32, 32), "x32y32r4": (32, 32),
+    "ring_x128y16r126s6": (30, 31), "ring_x128y8r62s6": (30, 31),
+    "ring_x64y16r126s6": (30, 31), "ring_x64y8r62s4": (30, 32),
 }
 
 _SOURCE = _cuda.CSRC / "stencil2d.cu"
@@ -90,19 +125,76 @@ def _stencil2d_analysis(p, *, y: int, x: int, dtype: str = "float32"):
     )
 
 
-def _stencil2d_hopper(cols, *, y: int, x: int, dtype: str = "float32"):
+def _march_cost(t, *, y: int, x: int, eb: int):
     """u read once and out written once from device memory, plus the
     halo rows of each run (one above, two below its R rows); the
-    lane-edge cells come from L1/L2.  No shared memory."""
-    t = tile_fields(STENCIL_TILES, cols[TILE_AXIS])
+    lane-edge cells come from L1/L2.  No shared memory.  A thread waits
+    on the row below its cell with the row after next already issued:
+    a block states two rows of its threads' elements in flight (Little's
+    law over the card)."""
     bx, by, r = t[:, 0], t[:, 1], t[:, 2]
-    eb = dtype_bytes(dtype)
     runs = cdiv(y, r)
     pts = float(y) * x
     return dict(blocks=cdiv(x, bx) * cdiv(runs, by), threads=bx * by,
                 busy_threads=np.minimum(bx, x) * np.minimum(by, runs),
-                regs=32, smem=0, flops=6.0 * pts,
-                hbm_bytes=(pts + 3.0 * (runs - 1) * x) * eb + pts * eb)
+                regs=declared_regs(STENCIL_TILES, _REGS, t, eb), smem=0,
+                flops=6.0 * pts,
+                hbm_bytes=(pts + 3.0 * (runs - 1) * x) * eb + pts * eb,
+                inflight_bytes=2.0 * bx * by * eb)
+
+
+def _ring_cost(t, *, y: int, x: int, eb: int):
+    """u read once and out written once from device memory, plus the
+    halo rows of each run: a run stages the row above its R rows and,
+    inside the grid, the row below, in whole stages of RB rows.  TMA
+    writes the ring as device memory delivers it, one transfer priced
+    once in ``hbm_bytes``; the halo columns come from L2 and are priced
+    as shared-memory traffic, beside a thread's three 16-byte and two
+    scalar reads per vector of points.  Stages j - 1 and j are pinned
+    while a block computes step j, so S - 1 stages are in flight while
+    it waits for its next stage: a block states those bytes in flight
+    (Little's law over the card)."""
+    bx, rb, r, s = t[:, 0], t[:, 1], t[:, 2], t[:, 4]
+    v = 16 // eb
+    gx, runs = cdiv(x, bx), cdiv(y, r)
+    pts = float(y) * x
+    # a stage of RB rows is jacobi3d's box of RB - 2 rows and its two
+    # halo rows
+    stage = ring_stage_bytes(bx, rb - 2, eb)
+    last = y - (runs - 1) * r                # rows of the bottom run
+    staged_rows = ((runs - 1) * cdiv(r + 2, rb) + cdiv(last + 1, rb)) * rb
+    staged = gx * staged_rows * (bx + 2.0 * v) * eb
+    return dict(blocks=gx * runs, threads=bx // v * rb,
+                busy_threads=cdiv(np.minimum(bx, x), v) * np.minimum(rb, y),
+                regs=declared_regs(STENCIL_TILES, _REGS, t, eb),
+                smem=s * stage + 8 * s,
+                flops=6.0 * pts,
+                hbm_bytes=(staged_rows * float(x) + pts) * eb,
+                smem_bytes=staged - pts * eb + pts * eb * (3.0 + 2.0 / v),
+                inflight_bytes=(s - 1.0) * stage)
+
+
+def stencil_tiles_cost(t, *, y: int, x: int,
+                       dtype: str) -> Dict[str, np.ndarray]:
+    """`hopper_info_batch` arguments of STENCIL_TILES rows ``t`` (an (N,
+    5) array of the table's fields) for a (y, x) ``dtype`` grid, each
+    row priced by its family; ring rows are infeasible unless
+    `ring_takes` the grid's rows.  Both families state their bytes in
+    flight, so both are priced by Little's law over the card."""
+    eb = dtype_bytes(dtype)
+    fam = t[:, 3]
+    out = family_costs(
+        fam, {MARCH: lambda sel: _march_cost(t[sel], y=y, x=x, eb=eb),
+              RING: lambda sel: _ring_cost(t[sel], y=y, x=x, eb=eb)},
+        keys=("blocks", "threads", "busy_threads", "regs", "smem", "flops",
+              "hbm_bytes", "smem_bytes", "inflight_bytes"))
+    out["feasible"] &= (fam != RING) | ring_takes(dtype, x)
+    return out
+
+
+def _stencil2d_hopper(cols, *, y: int, x: int, dtype: str = "float32"):
+    return stencil_tiles_cost(tile_fields(STENCIL_TILES, cols[TILE_AXIS]),
+                              y=y, x=x, dtype=dtype)
 
 
 def _stencil2d_inputs(gen, *, y: int, x: int, dtype: str = "float32"):
@@ -125,26 +217,40 @@ def stencil2d_plain(u, c0: float = C0_DEFAULT, c1: float = C1_DEFAULT):
 def stencil2d_cuda(u, c0: float = C0_DEFAULT, c1: float = C1_DEFAULT, *,
                    tile: str):
     """Launch the CUDA stencil instantiation ``tile`` on a CUDA tensor
-    u (Y, X) -> (Y, X)."""
+    u (Y, X) -> (Y, X).  A ring row refuses with ValueError a grid whose
+    X is not a whole number of 16-byte vectors (`ring_takes`) or an
+    operand off a 16-byte boundary."""
     import torch
     _cuda.require_operands("stencil2d", u)
     if u.dim() != 2 or u.numel() == 0:
         raise ValueError(f"stencil2d: u must be a non-empty (Y, X) grid, "
                          f"got {tuple(u.shape)}")
-    if tile not in STENCIL_TILES:
+    idx = _TILE_INDEX.get(tile)
+    if idx is None:
         raise ValueError(f"stencil2d: unknown tile {tile!r}")
     y, x = u.shape
-    _, by, r = STENCIL_TILES[tile]
-    if cdiv(y, by * r) > 65535:
+    _, by, r, family, _ = STENCIL_TILES[tile]
+    rows = r if family == RING else by * r
+    if cdiv(y, rows) > 65535:
         raise ValueError(f"stencil2d: {y} rows exceed tile {tile}'s grid "
-                         f"(65535 row blocks of {by * r} rows)")
+                         f"(65535 row blocks of {rows} rows)")
+    if family == RING:
+        if not ring_takes(dtype_name(u), x):
+            raise ValueError(
+                f"stencil2d: tile {tile} takes X a multiple of "
+                f"{16 // u.element_size()} (16-byte rows), got X={x} "
+                f"{dtype_name(u)}")
+        if u.data_ptr() % 16:
+            raise ValueError(f"stencil2d: tile {tile} needs a 16-byte-"
+                             f"aligned grid")
     lib = extension()
     out = torch.empty_like(u)
     rc = lib.stencil2d_launch(
-        list(STENCIL_TILES).index(tile), _cuda.dtype_code(u), u.data_ptr(),
-        out.data_ptr(), y, x, float(c0), float(c1), _cuda.stream_of(u))
+        idx, _cuda.dtype_code(u), u.data_ptr(), out.data_ptr(), y, x,
+        float(c0), float(c1), _cuda.stream_of(u))
     _cuda.check(rc, "stencil2d", lib)
     LAUNCHES["stencil2d"] += 1
+    LAUNCHES[_FAMILY_COUNTER[family]] += 1
     return out
 
 

@@ -39,6 +39,7 @@ from repro_torch.kernels.rms_norm import (CLUSTER, RMS_TILES, VEC,
                                           cluster_takes, rms_norm_cuda,
                                           rms_norm_plain, vec_takes)
 from repro_torch.kernels.rms_norm import SIMT as RMS_SIMT
+from repro_torch.kernels.stencil2d import RING as STENCIL_RING
 from repro_torch.kernels.stencil2d import (STENCIL_TILES, stencil2d_cuda,
                                            stencil2d_plain)
 
@@ -717,10 +718,70 @@ def _custom_kernel():
 @pytest.mark.parametrize("tile", list(STENCIL_TILES))
 @pytest.mark.parametrize("shape", EXT_SHAPES)
 def test_stencil2d_kernel(cuda, dtype, tile, shape):
+    """Every row of both families; a ring row refuses an X that is not a
+    whole number of 16-byte vectors with ValueError before any launch."""
     u = _rand(shape, dtype, cuda, 60)
+    if STENCIL_TILES[tile][3] == STENCIL_RING and not ring_takes(
+            str(dtype).rpartition(".")[2], shape[1]):
+        with pytest.raises(ValueError, match="16-byte rows"):
+            stencil2d_cuda(u, tile=tile)
+        return
     got = stencil2d_cuda(u, tile=tile)
     torch.cuda.synchronize()
     _close(got, stencil2d_plain(u), dtype, f32=1e-5)
+
+
+STENCIL_RING_ROWS = [t for t, f in STENCIL_TILES.items()
+                     if f[3] == STENCIL_RING]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tile", STENCIL_RING_ROWS)
+@pytest.mark.parametrize("shape", [(1, 16), (2, 8), (3, 24), (7, 8),
+                                   (15, 40), (37, 72), (300, 136),
+                                   (261, 16), (127, 264), (8192, 512)])
+def test_stencil_ring_rows_against_plain(cuda, dtype, tile, shape):
+    """Y of 1-3 rows, under RB, not a multiple of RB or R, X of one
+    vector and not of BX, and 8192 x 512: the plain version's bits in
+    both types (each product and the sum rounded in f32 in one order,
+    one rounding to the input type); two calls give the same bits."""
+    u = _rand(shape, dtype, cuda, 95)
+    got = stencil2d_cuda(u, tile=tile)
+    again = stencil2d_cuda(u, tile=tile)
+    torch.cuda.synchronize()
+    want = stencil2d_plain(u)
+    _close(got, want, dtype, f32=1e-5)
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype,x", [(torch.float32, 70),
+                                     (torch.float32, 33),
+                                     (torch.bfloat16, 36),
+                                     (torch.bfloat16, 1003)])
+@pytest.mark.parametrize("tile", STENCIL_RING_ROWS)
+def test_stencil_ring_rows_refuse_ragged_x_and_unaligned_grids(cuda, dtype,
+                                                               x, tile):
+    u = _rand((20, x), dtype, cuda, 96)
+    with pytest.raises(ValueError, match="16-byte rows"):
+        stencil2d_cuda(u, tile=tile)
+    misaligned = _rand((20 * 64 + 1,), dtype, cuda, 96)[1:].view(20, 64)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        stencil2d_cuda(misaligned, tile=tile)
+
+
+def test_stencil_declared_registers_are_the_compiled_counts(cuda):
+    """kernels/stencil2d.py's `_REGS` (what the H100 analysis declares)
+    against `stencil2d_attrs`, for every row and both types."""
+    from repro_torch.kernels import stencil2d
+    lib = stencil2d.extension()
+    regs, smem, thr = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    for i, tile in enumerate(STENCIL_TILES):
+        for dt in (0, 1):
+            assert lib.stencil2d_attrs(i, dt, ctypes.byref(regs),
+                                       ctypes.byref(smem),
+                                       ctypes.byref(thr)) == 0
+            assert regs.value == stencil2d._REGS[tile][dt], (tile, dt)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -761,11 +822,17 @@ def _compiled_table(lib, fn, width):
 
 def test_extension_tile_tables_match_their_declarations(cuda):
     """Each extension's compiled table is its declared hopper= tiles,
-    in order; and the compiled attributes are readable per tile."""
+    in order (stencil2d's with its family and stage fields, and each
+    row's threads for float32); and the compiled attributes are readable
+    per tile."""
     from repro_torch.kernels import stencil2d
     ck = _custom_kernel()
+    rows = _compiled_table(stencil2d.extension(), "stencil2d_tile_info", 6)
+    for (bx, by, _, family, _), got in zip(STENCIL_TILES.values(), rows):
+        assert got[5] == (bx // 4 * by if family == STENCIL_RING
+                          else bx * by)
     for mod, fn, table, width in (
-            (stencil2d, "stencil2d_tile_info", STENCIL_TILES, 3),
+            (stencil2d, "stencil2d_tile_info", STENCIL_TILES, 5),
             (ck, "saxpy2d_tile_info", ck.SAXPY_TILES, 2)):
         lib = mod.extension()
         assert _compiled_table(lib, fn, width) == list(table.values())

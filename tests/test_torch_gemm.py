@@ -139,7 +139,9 @@ def test_the_split_variant_and_mega_rank_the_same_rows():
 # moved to tests/test_torch_attn_norm.py, whose tile tables gained
 # tensor-core and vector rows that change those picks by design; the
 # jacobi3d table gained TMA ring rows, which take 256^3 by design (the
-# plane rows' own ranking is tests/test_torch_jacobi.py's).
+# plane rows' own ranking is tests/test_torch_jacobi.py's), and so did
+# the stencil2d table, whose ring rows take every grid here (the march
+# rows' picks are tests/test_torch_stencil.py's).
 PICKS_BEFORE = [
     ("matvec", dict(m=8192, n=8192, dtype="float32"), None, "r2w1"),
     ("matvec", dict(m=8192, n=8192, dtype="bfloat16"), None, "r1w1"),
@@ -150,14 +152,18 @@ PICKS_BEFORE = [
     ("atax", dict(m=1024, n=512, dtype="float32"), None, "t128r1"),
     ("jacobi3d", dict(z=256, y=256, x=256, dtype="float32"), None,
      "ring_x128y8z32s6"),
-    ("stencil2d", dict(y=512, x=512, dtype="float32"), None, "x32y32r4"),
-    ("stencil2d", dict(y=1024, x=1024, dtype="float32"), None, "x512y1r8"),
-    ("stencil2d", dict(y=2048, x=2048, dtype="float32"), None, "x64y2r32"),
+    ("stencil2d", dict(y=512, x=512, dtype="float32"), None,
+     "ring_x64y16r126s6"),
+    ("stencil2d", dict(y=1024, x=1024, dtype="float32"), None,
+     "ring_x64y16r126s6"),
+    ("stencil2d", dict(y=2048, x=2048, dtype="float32"), None,
+     "ring_x128y16r126s6"),
     ("stencil2d", dict(y=1024, x=1024, dtype="bfloat16"), None,
-     "x512y1r8"),
-    ("stencil2d", dict(y=8192, x=8192, dtype="float32"), None, "x128y1r64"),
+     "ring_x64y16r126s6"),
+    ("stencil2d", dict(y=8192, x=8192, dtype="float32"), None,
+     "ring_x128y16r126s6"),
     ("stencil2d", dict(y=8192, x=8192, dtype="bfloat16"), None,
-     "x128y1r64"),
+     "ring_x128y16r126s6"),
 ]
 
 

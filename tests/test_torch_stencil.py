@@ -9,9 +9,20 @@
   ``kepler_k20``; `KernelTuner` gives the reference's static report.
 * Under the H100 the ranked space is the compiled tile table, and a
   static tune launches nothing.
+* The tile table mirrors both C X-macros of ``csrc/stencil2d.cu`` (march
+  rows, then ring rows), family and stage fields included; ring rows
+  take X a multiple of 16 / elem_bytes and are priced finite exactly
+  there, state their shared memory and bytes in flight, and every row
+  declares its compiled register count.  The H100 picks a ring row at
+  8192^2 and a march row where X is ragged.
+* A numpy model of the ring kernel (TMA boxes at signed coordinates with
+  zero fill, the slot schedule, the rows read across stage and run
+  boundaries, the sum order) gives the plain version's bits in float32
+  and bfloat16.
 * The module is found by discovery: nothing else names it.
 """
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,11 +37,17 @@ from repro.kernels.stencil2d import stencil2d_pallas, stencil2d_ref
 from repro_torch import tuning_cache as tc
 from repro_torch.core import KernelTuner, hw
 from repro_torch.core.target import use_target
-from repro_torch.kernels import api, ops
+from repro_torch.core.predict import static_times_batch
+from repro_torch.kernels import _cuda, api, ops
+from repro_torch.kernels import stencil2d as st
 from repro_torch.kernels.stencil2d import (STENCIL_TILES, stencil2d,
                                            stencil2d_plain)
+from repro_torch.tuning_cache.registry import _model_for
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+H100 = hw.H100_SXM
+RING_ROWS = [t for t, f in STENCIL_TILES.items() if f[3] == st.RING]
+MARCH_ROWS = [t for t, f in STENCIL_TILES.items() if f[3] == st.MARCH]
 
 
 @pytest.fixture(autouse=True)
@@ -155,16 +172,18 @@ def test_h100_winner_is_a_compiled_feasible_tile(sig):
 
 
 def test_h100_space_spans_32_to_1024_threads_and_prices_the_bytes():
+    """The march rows: 32 to 1024 threads, u read once and out written
+    once plus 3 halo rows per run of R rows; every row is feasible on a
+    grid both families take."""
     spec = api.get_spec("stencil2d")
     h = spec._hopper[None]
     sig = dict(y=8192, x=8192, dtype="float32")
-    cols = {"tile": np.asarray(h.tiles)}
+    cols = {"tile": np.asarray(MARCH_ROWS)}
     an = h.analysis(cols, **sig)
     assert int(np.min(an["threads"])) == 32
     assert int(np.max(an["threads"])) == 1024
-    # u read once, out written once, plus 3 halo rows per run of R rows
     pts = 8192 * 8192 * 4
-    r = np.asarray([STENCIL_TILES[t][2] for t in h.tiles])
+    r = np.asarray([STENCIL_TILES[t][2] for t in MARCH_ROWS])
     np.testing.assert_allclose(an["hbm_bytes"],
                                2 * pts + 3 * (8192 // r - 1) * 8192 * 4)
     info = h.info(h.tiles, sig, hw.H100_SXM)
@@ -202,3 +221,256 @@ def test_stencil2d_is_discovered_not_named():
                 encoding="utf-8").read()
     lines = [l for l in init.splitlines() if "stencil2d" in l]
     assert all("make_tunable_stencil2d" in l for l in lines), lines
+
+
+# ---------------------------------------------------------------------------
+# the tile table, its two families and their pricing
+# ---------------------------------------------------------------------------
+
+
+def _macro_rows(macro: str):
+    text = (_cuda.CSRC / "stencil2d.cu").read_text()
+    m = re.search(rf"#define {macro}\(X\)((?:[^\n]*\\\n)*[^\n]*)", text)
+    assert m, macro
+    return [tuple(int(v) for v in r.split(","))
+            for r in re.findall(r"X\(([\d,\s]+)\)", m.group(1))]
+
+
+def _times(sig):
+    spec = api.get_spec("stencil2d")
+    pts = spec.hopper_space(**sig).enumerate()
+    cols = {k: np.asarray([p[k] for p in pts]) for k in pts[0]}
+    info = spec.hopper_info_batch(cols, H100, **sig)
+    return pts, static_times_batch(None, _model_for(H100), F=info.F,
+                                   pipe=info.pipe, feasible=info.feasible)
+
+
+def _pick(**sig):
+    return tc.lookup_or_tune("stencil2d", spec="h100",
+                             db=tc.TuningDatabase(), **sig)["tile"]
+
+
+def test_the_table_mirrors_the_c_x_macros():
+    march = _macro_rows("STENCIL_TILES")
+    ring = _macro_rows("STENCIL_RING_TILES")
+    assert [r[0] for r in march + ring] == list(range(len(STENCIL_TILES)))
+    want = [(bx, by, r, st.MARCH, 0) for _, bx, by, r in march] + \
+        [(bx, rb, r, st.RING, s) for _, bx, rb, r, s in ring]
+    assert list(STENCIL_TILES.values()) == want
+    src = (_cuda.CSRC / "stencil2d.cu").read_text()
+    assert "STENCIL_MARCH = 0, STENCIL_RING = 1" in src
+    assert (st.MARCH, st.RING) == (0, 1)
+    assert st._TILE_INDEX == {t: i for i, t in enumerate(STENCIL_TILES)}
+    # two pinned stages and one in flight at least; a TMA box side of at
+    # most 256 elements in both types; a run and its two halo rows fill
+    # whole stages; step 0's row groups reach the run's first row
+    for _, bx, rb, r, s in ring:
+        assert s >= 3 and 4 <= rb <= 256 and (r + 2) % rb == 0
+        for eb in (4, 2):
+            assert bx % (16 // eb) == 0 and bx + 2 * (16 // eb) <= 256
+    assert set(st._REGS) == set(STENCIL_TILES)
+
+
+@pytest.mark.parametrize("dtype,v", [("float32", 4), ("bfloat16", 8)])
+@pytest.mark.parametrize("x", [4, 8, 12, 1003, 1000, 8192, 36])
+def test_ring_rows_are_feasible_exactly_where_the_ring_takes_x(dtype, v,
+                                                               x):
+    pts, t = _times(dict(y=40, x=x, dtype=dtype))
+    for p, time in zip(pts, t):
+        ring = STENCIL_TILES[p["tile"]][3] == st.RING
+        assert np.isfinite(time) == (not ring or x % v == 0), p
+
+
+@pytest.mark.parametrize("dtype,eb", [("float32", 4), ("bfloat16", 2)])
+def test_ring_rows_state_their_bytes_in_flight_and_shared_memory(dtype,
+                                                                 eb):
+    rows = np.array(list(STENCIL_TILES.values()), dtype=np.int64)
+    c = st.stencil_tiles_cost(rows, y=8192, x=8192, dtype=dtype)
+    ring = rows[:, 3] == st.RING
+    v = 16 // eb
+    for (bx, rb, r, _, s), inflight, smem, threads in zip(
+            rows[ring], c["inflight_bytes"][ring], c["smem"][ring],
+            c["threads"][ring]):
+        box = (bx + 2 * v) * rb * eb
+        stage = -(-box // 128) * 128
+        assert inflight == (s - 1) * stage
+        assert smem == s * stage + 8 * s
+        assert threads == bx // v * rb
+    # the march rows: two rows of their threads' elements in flight, no
+    # shared memory
+    bx, by = rows[~ring, 0], rows[~ring, 1]
+    np.testing.assert_array_equal(c["inflight_bytes"][~ring],
+                                  2 * bx * by * eb)
+    assert (c["smem"][~ring] == 0).all()
+    # the ring reads u once plus two halo rows a run (R + 2 is whole
+    # stages); the bottom run stages its rows and the one above in whole
+    # stages
+    pts = 8192.0 * 8192
+    rb, r = rows[ring, 1], rows[ring, 2]
+    runs = -(-8192 // r)
+    last = 8192 - (runs - 1) * r
+    staged = (runs - 1) * (r + 2) + -(-(last + 1) // rb) * rb
+    np.testing.assert_allclose(c["hbm_bytes"][ring],
+                               (pts + staged * 8192.0) * eb)
+    assert (staged - 8192 <= 2 * runs + rb).all()
+    assert c["hbm_bytes"][ring].max() < c["hbm_bytes"][~ring].min()
+
+
+def test_declared_registers_are_the_compiled_counts_not_a_guess():
+    """Both families declare `_REGS`, per element type (chip_smoke's
+    [build] prints them beside `stencil2d_attrs`)."""
+    rows = np.array(list(STENCIL_TILES.values()), dtype=np.int64)
+    for dtype, col in (("float32", 0), ("bfloat16", 1)):
+        c = st.stencil_tiles_cost(rows, y=64, x=64, dtype=dtype)
+        np.testing.assert_array_equal(
+            c["regs"], [st._REGS[t][col] for t in STENCIL_TILES])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_h100_picks_a_ring_row_at_8192_squared(dtype):
+    assert _pick(y=8192, x=8192, dtype=dtype) in RING_ROWS
+    pts, t = _times(dict(y=8192, x=8192, dtype=dtype))
+    best_march = min(v for p, v in zip(pts, t) if p["tile"] in MARCH_ROWS)
+    assert min(t) < best_march
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("y,x", [(1000, 1003), (8192, 8190), (64, 36)])
+def test_h100_picks_a_march_row_where_x_is_ragged(dtype, y, x):
+    if dtype == "float32" and x == 36:
+        x = 38                      # 36 is whole float32 vectors
+    assert _pick(y=y, x=x, dtype=dtype) in MARCH_ROWS
+
+
+# ---------------------------------------------------------------------------
+# the ring kernel's schedule and arithmetic, in numpy
+# ---------------------------------------------------------------------------
+
+
+def _ring_model(u: np.ndarray, tile: str, v: int, c0: float, c1: float):
+    """What ``stencil_ring_kernel`` computes, block by block, on the f32
+    values of u: stage q a TMA box of RB rows x (BX + 2V) at (x0 - V, y0
+    - 1 + q RB), zeros outside the grid and never wholly outside it; the
+    loads issued as the kernel issues them (S at first, then after step
+    j the stage j - 1 + S), each checked to overwrite only the stage the
+    step just released; every read checked to find its stage in its slot,
+    waited for, and one of the two the step pins; the sum in the
+    kernel's order.  Returns f32 results."""
+    bx, rb, r, _, s = STENCIL_TILES[tile]
+    y_n, x_n = u.shape
+    f = np.float32
+    out = np.full(u.shape, np.nan, dtype=f)
+
+    def box(q, y0, x0):
+        b = np.zeros((rb, bx + 2 * v), dtype=f)
+        ys = np.arange(y0 - 1 + q * rb, y0 - 1 + (q + 1) * rb)
+        xs = np.arange(x0 - v, x0 + bx + v)
+        yi, xi = np.meshgrid(ys, xs, indexing="ij")
+        ok = (yi >= 0) & (yi < y_n) & (xi >= 0) & (xi < x_n)
+        assert (yi[:, 0] < y_n).any(), "a box wholly below the grid"
+        b[ok] = u[yi[ok], xi[ok]]
+        return b
+
+    cols = slice(v, v + bx)
+    for y0 in range(0, y_n, r):
+        for x0 in range(0, x_n, bx):
+            ny = min(r, y_n - y0)
+            nin = ny + 2 if y0 + ny < y_n else ny + 1
+            nst = -(-nin // rb)
+            steps = -(-(ny + 2) // rb)
+            slot, waited = {}, set()
+
+            def issue(q, j):
+                old = slot.get(q % s)
+                if old is not None:         # released after step j
+                    assert old[0] == q - s == j - 1
+                slot[q % s] = (q, box(q, y0, x0))
+
+            def row(i, j):
+                q = i // rb
+                assert q in (j - 1, j) and q in waited
+                assert slot[q % s][0] == q
+                return slot[q % s][1][i % rb]
+
+            for q in range(min(s, nst)):
+                issue(q, 0)
+            gx = x0 + np.arange(bx)
+            for j in range(steps):
+                if j < nst:
+                    waited.add(j)
+                for ty in range(rb):
+                    i = j * rb - 1 + ty
+                    if not 1 <= i <= ny:
+                        continue
+                    yy = y0 - 1 + i
+                    mid = row(i, j)
+                    cen = mid[cols].copy()
+                    res = cen
+                    if 0 < yy < y_n - 1:
+                        up, dn = row(i - 1, j)[cols], row(i + 1, j)[cols]
+                        west = mid[v - 1:v - 1 + bx]
+                        east = mid[v + 1:v + 1 + bx]
+                        s4 = ((up + dn) + west) + east
+                        res = np.where((gx > 0) & (gx < x_n - 1),
+                                       f(c0) * cen + f(c1) * s4, cen)
+                    live = gx < x_n
+                    out[yy, gx[live]] = res[live]
+                if j >= 1 and j - 1 + s < nst:
+                    issue(j - 1 + s, j)
+    return out
+
+
+# (Y, X): Y of 1-3 rows, under RB, not a multiple of RB or R (a run at
+# the grid's bottom whose row below is outside it, one whose last stage
+# holds only the run's last row), X = one vector, X not of BX
+RING_SHAPES = [(1, 16), (2, 8), (3, 24), (7, 8), (15, 40), (37, 72),
+               (300, 136), (261, 16), (127, 264), (64, 8)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tile", RING_ROWS)
+@pytest.mark.parametrize("shape", RING_SHAPES,
+                         ids=[f"{y}x{x}" for y, x in RING_SHAPES])
+def test_the_ring_schedule_computes_the_plain_versions_bits(tile, shape,
+                                                            dtype):
+    """The model of the kernel gives the plain version's bits: both add
+    the neighbours in one order, round each product and the sum in f32,
+    and round once to the input type."""
+    td = getattr(torch, dtype)
+    u = torch.from_numpy(np.random.default_rng(90).standard_normal(
+        shape).astype(np.float32)).to(td)
+    v = 16 // u.element_size()
+    got = _ring_model(u.float().numpy(), tile, v, st.C0_DEFAULT,
+                      st.C1_DEFAULT)
+    want = stencil2d_plain(u)
+    assert not np.isnan(got).any()
+    assert torch.equal(torch.from_numpy(got).to(td), want)
+
+
+def test_the_ring_schedule_with_one_float32_vector_per_row():
+    """X = 4: one float32 vector, both of its edge cells boundary."""
+    u = torch.from_numpy(np.random.default_rng(91).standard_normal(
+        (50, 4)).astype(np.float32))
+    for tile in RING_ROWS:
+        got = _ring_model(u.numpy(), tile, 4, 0.25, 0.1875)
+        assert torch.equal(torch.from_numpy(got),
+                           stencil2d_plain(u, 0.25, 0.1875))
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("y,x,by", [(64, 48, 16), (96, 40, 32)])
+def test_stencil2d_agrees_with_the_pallas_kernel(dtype, tol, y, x, by):
+    """X a multiple of 8 (a ring row takes it in either type): the plain
+    version and the dispatching wrapper (CPU tensors) against the Pallas
+    kernel in interpret mode, at this file's tolerances."""
+    a = np.random.default_rng(92).standard_normal((y, x)).astype(np.float32)
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    td = torch.float32 if dtype == "float32" else torch.bfloat16
+    want = np.asarray(stencil2d_pallas(jnp.asarray(a, jd), by=by,
+                                       interpret=True).astype(jnp.float32))
+    assert _pick(y=y, x=x, dtype=dtype) in STENCIL_TILES
+    tu = torch.from_numpy(a).to(td)
+    for got in (stencil2d_plain(tu), stencil2d(tu)):
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                                   atol=tol)
