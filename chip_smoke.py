@@ -38,7 +38,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
              shape and of two long-sequence instances, timed beside the
              H100 analysis' prediction (rank correlation, the static
              pick's regret, each attention instance labelled in or out
-             of the sample the analysis' fitted constant came from);
+             of the sample the analysis' fitted constant came from), and
+             beside it the pipeline tier's pick (``model="pipeline"``),
+             regret and Spearman (a finding, not a gate; `[tuner]` and
+             `[extend]` print the same for their cases);
+2c. pretuned — the shipped pretuned databases: ``python -m
+             repro_torch.tuning_cache pretune --verify --all-targets`` in
+             a fresh process (all seven files regenerate bit for bit,
+             with the census of the models that ranked them), then each
+             of ``h100_sxm.jsonl``'s 86 records launched on the card at
+             its signature with its params and held against the plain
+             version (the distinct tiles per kernel printed);
 3. check   — gemma-smoke in float32: prefill logits and 8 greedy tokens
              of the tuned CUDA path against the plain path on the CPU;
 4. serve   — the serving path: gemma-7b at full width and depth
@@ -47,6 +57,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
              --assert-frozen`` for two requests (4 x 64 prompt tokens, 32
              generated; 1 x 64, 8 generated), with every launch counter
              set to 0 before and read after;
+4b. deploy — the shipped-database path: ``pretune --config gemma-7b
+             --target h100-sxm`` into a database and ``export`` to JSONL
+             (fresh processes), then gemma-7b served 4 x 64 + 32 with
+             ``--tuning-db`` that JSONL and no ``--pretune``: no rank,
+             every dispatch frozen, ``[serve]``'s greedy tokens, the
+             time to the first token beside ``[serve]``'s;
+4c. service — a remote tuner: ``python -m repro_torch.tuning_cache
+             serve`` in a subprocess warmed with that JSONL, gemma-7b
+             served 1 x 64 + 8 with ``--tuning-server`` from a cold
+             dispatch state (every unique instance answered by the
+             service, zero local ranks), then against a server that
+             drops every request (the client degrades to local ranks);
+             both with ``[serve]``'s tokens, params and kernels;
+             launch counters set to 0 before and read after each path;
 5. profile — `torch.profiler` over a few decode steps of the first
              request's shape: device time by kernel, idle share, and
              the device time per launch of the B1, B2, B3 and B5 kernels
@@ -410,6 +434,24 @@ def _static_times(info):
     from repro_torch.tuning_cache.registry import _model_for
     return static_times_batch(None, _model_for(H100_SXM), F=info.F,
                               pipe=info.pipe, feasible=info.feasible)
+
+
+def _pipeline_rank(kid: str, sig, pts):
+    """The pipeline tier on H100 rows ``pts`` of ``kid`` at ``sig``: each
+    row's predicted seconds (the scoreboard over the Hopper ISA table,
+    +inf where infeasible) and the row `lookup_or_tune(model="pipeline")`
+    picks, ranked into a fresh database."""
+    from repro_torch import tuning_cache as tc
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.kernels import api
+    from repro_torch.tuning_cache.registry import _model_for
+    spec = api.get_spec(kid)
+    model = _model_for(H100_SXM, "pipeline")
+    times = [model.time_info(spec.hopper_static_info(p, H100_SXM, **sig))
+             for p in pts]
+    pick = tc.lookup_or_tune(kid, spec="h100", model="pipeline",
+                             db=tc.TuningDatabase(), **sig)
+    return times, pick
 
 
 def _dispatch_tile(kid: str, vid, sig):
@@ -919,10 +961,11 @@ def phase_ranking(dev):
         pts = spec.hopper_space(**sig).enumerate()
         cols = {k: np.asarray([p[k] for p in pts]) for k in pts[0]}
         info = spec.hopper_info_batch(cols, H100_SXM, **sig)
-        pred, meas, dev_ms, names = [], [], [], []
+        pred, meas, dev_ms, names, rows = [], [], [], [], []
         for p, t_pred in zip(pts, _static_times(info)):
             if not np.isfinite(t_pred):
                 continue
+            rows.append(p)
             fn = launch[(kid, p.get("variant"))]
             meas.append(time_ms(lambda: fn(p["tile"], *args), warmup=1))
             if kid in DEVICE_RANKED:
@@ -953,6 +996,23 @@ def phase_ranking(dev):
               f"{regret:.2f}x", flush=True)
         print("[ranking]   " + "; ".join(
             f"{n} {p:.4f}/{m:.4f}" for n, p, m in zip(names, pred, meas)))
+        # the pipeline tier on the same rows (a finding, not a gate)
+        ptimes, ppick = _pipeline_rank(kid, sig, rows)
+        pname = f"{ppick.get('variant', kid)}/{ppick['tile']}"
+        if pname not in names:
+            fail(f"{kid} {sig}: the pipeline tier picked {pname}, which "
+                 f"the H100 analysis marks infeasible")
+        pi = names.index(pname)
+        prho = spearman(ptimes, meas) if len(pred) > 2 else float("nan")
+        rows_out[-1].update(pipe_pick=pname, pipe_regret=meas[pi] / meas[best],
+                            pipe_rho=prho)
+        print(f"[ranking] {kid} {shape} pipeline tier: pick {pname} pred "
+              f"{ptimes[pi] * 1e3:.4f} ms meas {meas[pi]:.4f} ms, regret "
+              f"{meas[pi] / meas[best]:.2f}x, spearman {prho:.2f} (eq6: "
+              f"pick {names[pick]}, regret {regret:.2f}x, spearman "
+              f"{rho:.2f})", flush=True)
+        print("[ranking]   pipeline pred ms: " + "; ".join(
+            f"{n} {1e3 * t:.4f}" for n, t in zip(names, ptimes)))
         if kid == "flash_attention":
             q, k, v = args
             lib_us = device_us(lambda: torch.nn.functional
@@ -971,7 +1031,11 @@ def phase_ranking(dev):
                   f"spearman {rho:.2f}; pick {names[pick]} "
                   f"{1e3 * dev_ms[pick]:.2f} us; best {names[best]} "
                   f"{1e3 * dev_ms[best]:.2f} us; regret "
-                  f"{dev_ms[pick] / dev_ms[best]:.2f}x", flush=True)
+                  f"{dev_ms[pick] / dev_ms[best]:.2f}x; pipeline tier pick "
+                  f"{pname} {1e3 * dev_ms[pi]:.2f} us, regret "
+                  f"{dev_ms[pi] / dev_ms[best]:.2f}x, spearman "
+                  f"{spearman(ptimes, dev_ms) if len(pred) > 2 else 0:.2f}",
+                  flush=True)
             print("[ranking]   device us: " + "; ".join(
                 f"{n} {1e3 * m:.2f}" for n, m in zip(names, dev_ms)))
     return rows_out
@@ -1062,6 +1126,339 @@ def phase_serve():
     launches = kernels.launch_counts()       # ... and ends here
     print(f"[serve] main-path launches: {launches}")
     return reports, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4b-4d: the tuning cache's deployment tiers
+# ---------------------------------------------------------------------------
+
+# each kernel's float32 tolerance on the shipped H100 picks: its own
+# phase's (the Table IV and extension kernels', float32 attention's),
+# the card tests' 2e-4 for the others; bfloat16 2e-2.  Inputs: the
+# Table IV and extension kernels' own make_inputs, the rest drawn as
+# their [kernels] rows draw them
+PRETUNED_F32_TOL = {"matmul": 2e-4, "rms_norm": 2e-4,
+                    "flash_attention": 2e-4, "mlp_matmul": 2e-4,
+                    "stencil2d": 1e-5, **TABLE4_TOL}
+
+
+def _tool(*args, timeout: float = 600) -> str:
+    """Run ``python -m repro_torch.tuning_cache ARGS`` from the checkout;
+    fatal on a non-zero exit.  Returns its standard output."""
+    out = subprocess.run([sys.executable, "-m", "repro_torch.tuning_cache",
+                          *args], capture_output=True, text=True,
+                         timeout=timeout, env=dict(os.environ, PYTHONPATH=SRC))
+    if out.returncode != 0:
+        fail(f"tuning_cache {' '.join(args)} exited {out.returncode}: "
+             f"{(out.stdout + out.stderr)[-2000:]}")
+    return out.stdout
+
+
+def _pretuned_call(dev, kid: str, sig: dict, params: dict):
+    """Launch ``kid`` on the card at ``sig`` with a record's ``params``
+    and return (kernel output, plain output)."""
+    import torch
+    from repro_torch.kernels import api
+    from repro_torch.kernels import atax as ax
+    from repro_torch.kernels import bicg as bc
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import jacobi3d as jc
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import matvec as mv
+    from repro_torch.kernels import mlp_matmul as mlp
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.kernels import stencil2d as st
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    dt = getattr(torch, sig["dtype"])
+    randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev)
+                                   * scale).to(dt)
+    tile, vid = params["tile"], params.get("variant")
+    if kid == "matmul":
+        # the [kernels] phase's operands: B scaled by k^-1/2, so a dot's
+        # terms do not grow with k (as the card tests draw them)
+        a, b = randn(sig["m"], sig["k"]), randn(sig["k"], sig["n"],
+                                                scale=sig["k"] ** -0.5)
+        return mm.matmul_cuda(a, b, tile=tile), mm.matmul_plain(a, b)
+    if kid == "rms_norm":
+        args = (randn(sig["m"], sig["d"]),
+                1 + 0.1 * torch.randn(sig["d"], generator=gen, device=dev))
+        return rn.rms_norm_cuda(*args, tile=tile), rn.rms_norm_plain(*args)
+    if kid == "flash_attention":
+        b, h, d = sig["b"], sig["h"], sig["d"]
+        q, k, v = (randn(b, h, sig["sq"], d), randn(b, h, sig["skv"], d),
+                   randn(b, h, sig["skv"], d))
+        fn = fa.flash_cuda if vid == "flash" else fa.blocked_cuda
+        return (fn(q, k, v, sig["causal"], tile=tile),
+                fa.attention_plain(q, k, v, sig["causal"]))
+    if kid == "mlp_matmul":
+        m, d, f = sig["m"], sig["d"], sig["f"]
+        args = (randn(m, d), randn(d, f, scale=d ** -0.5),
+                randn(d, f, scale=d ** -0.5), sig["act"])
+        fn = {"fused": mlp.fused_cuda, "stream": mlp.stream_cuda,
+              "split": mlp.split_cuda}[vid]
+        return fn(*args, tile=tile), mlp.mlp_plain(*args)
+    cuda, plain = {"matvec": (mv.matvec_cuda, mv.matvec_plain),
+                   "atax": (ax.atax_cuda, ax.atax_plain),
+                   "bicg": (bc.bicg_cuda, bc.bicg_plain),
+                   "jacobi3d": (jc.jacobi3d_cuda, jc.jacobi3d_plain),
+                   "stencil2d": (st.stencil2d_cuda, st.stencil2d_plain)}[kid]
+    args = api.get_spec(kid).make_inputs(gen, **sig)
+    return cuda(*args, tile=tile), plain(*args)
+
+
+def phase_pretuned(dev):
+    """The shipped pretuned databases: ``pretune --verify --all-targets``
+    in a fresh process (every file regenerates bit for bit), then every
+    record of ``h100_sxm.jsonl`` launched on the card at its signature
+    with its params and held against the plain version, with the launch
+    counters set to 0 before and read after."""
+    import json as _json
+    import torch
+    from repro_torch import kernels
+    from repro_torch import tuning_cache as tc
+    from repro_torch.tuning_cache.cli import SHIPPED_TARGETS
+
+    t0 = time.perf_counter()
+    out = _tool("pretune", "--verify", "--all-targets")
+    lines = [ln for ln in out.splitlines() if " verify " in ln]
+    for ln in lines:
+        print(f"[pretuned] {ln}", flush=True)
+    if len(lines) != len(SHIPPED_TARGETS) or not all(
+            ": OK (models: " in ln for ln in lines):
+        fail(f"pretune --verify: {len(lines)} lines, not all OK")
+    print(f"[pretuned] pretune --verify --all-targets: "
+          f"{len(SHIPPED_TARGETS)} files OK in "
+          f"{time.perf_counter() - t0:.1f} s (a fresh process)", flush=True)
+
+    db = tc.TuningDatabase()
+    n = db.warm_jsonl(tc.pretuned_path("h100-sxm"))
+    if n != len(db) or n == 0:
+        fail(f"h100_sxm.jsonl warmed {n} records into {len(db)}")
+    kernels.reset_launch_counts()           # the shipped picks start here
+    tiles, worst = {}, {}
+    t0 = time.perf_counter()
+    for rec in db.records():
+        kid = rec.key.kernel_id
+        sig = {k: v for k, v in _json.loads(rec.key.signature).items()
+               if k not in ("model", "hopper", "variants")}
+        got, want = _pretuned_call(dev, kid, sig, rec.params)
+        torch.cuda.synchronize()
+        tol = PRETUNED_F32_TOL[kid] if sig["dtype"] == "float32" else 2e-2
+        # bicg returns two vectors
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            try:
+                torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                           atol=tol)
+            except AssertionError as e:
+                fail(f"[pretuned] {kid} {sig} {rec.params} disagrees with "
+                     f"its plain version: {str(e).splitlines()[0:4]}")
+            err = (g.float() - w.float()).abs().max().item()
+            worst[kid] = max(worst.get(kid, 0.0), err)
+        tiles.setdefault(kid, set()).add(
+            f"{rec.params.get('variant', kid)}/{rec.params['tile']}")
+        del got, want
+    launches = kernels.launch_counts()       # ... and end here
+    torch.cuda.empty_cache()
+    print(f"[pretuned] h100_sxm.jsonl: {n} records launched on the card "
+          f"and held against their plain versions in "
+          f"{time.perf_counter() - t0:.1f} s; distinct tiles per kernel: "
+          + ", ".join(f"{k} {len(v)}" for k, v in sorted(tiles.items())),
+          flush=True)
+    for k in sorted(tiles):
+        print(f"[pretuned]   {k}: max|err| {worst[k]:.3g}; "
+              f"{sorted(tiles[k])}")
+    print(f"[pretuned] launches: { {k: v for k, v in launches.items() if v} }")
+    # each pick's wrapper counts under its variant's name (flash, blocked,
+    # fused, stream, split) or the kernel's
+    never = {t.split("/")[0] for v in tiles.values() for t in v
+             if launches.get(t.split("/")[0], 0) == 0}
+    if never:
+        fail(f"shipped picks' kernels never launched: {sorted(never)}")
+    return launches
+
+
+def _served_records(db):
+    """{digest: params} of ``db``'s records that the shipped H100 file
+    does not hold: what a serve added."""
+    from repro_torch import tuning_cache as tc
+    shipped = tc.TuningDatabase()
+    shipped.warm_jsonl(tc.pretuned_path("h100-sxm"))
+    keep = {r.key.digest for r in shipped.records()}
+    return {r.key.digest: dict(r.params) for r in db.records()
+            if r.key.digest not in keep}
+
+
+def _serve_request(cfg, batch: int, plen: int, gen: int, *extra):
+    """One request through ``repro_torch.launch.serve`` with the launch
+    counters set to 0 before and read after.  Returns (report,
+    launches)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    kernels.reset_launch_counts()           # the path starts here
+    rep = serve.main(["--arch", "gemma-7b", "--batch", str(batch),
+                      "--prompt-len", str(plen), "--gen", str(gen),
+                      "--tuned-ops", *extra], cfg=cfg)
+    launches = kernels.launch_counts()       # ... and ends here
+    torch.cuda.empty_cache()
+    if not rep["logits_finite"] or not rep["device"].startswith("cuda"):
+        fail(f"serve {batch}x{plen}+{gen} {extra}: device {rep['device']}, "
+             f"finite logits {rep['logits_finite']}")
+    return rep, launches
+
+
+def _fresh_default_db():
+    """Clear the dispatch memo and drop the default database, so the next
+    dispatches are truly cold (the shipped H100 file warms anew)."""
+    from repro_torch import tuning_cache as tc
+    tc.clear_dispatch_memo()
+    tc.reset_default_db()
+
+
+def phase_deploy(reports, serve_launches, workdir: str):
+    """The shipped-database path at full width: ``pretune --config
+    gemma-7b`` for the H100 into a database in a fresh process, exported
+    to JSONL, then gemma-7b served 4 x 64 + 32 with ``--tuning-db`` that
+    JSONL and no ``--pretune``: fatal unless the serving process ranks
+    nothing, every dispatch is frozen, the greedy tokens equal
+    ``[serve]``'s and the same kernels launch.  Returns (JSONL, launches)."""
+    from repro_torch import tuning_cache as tc
+    from repro_torch.configs import get_config
+
+    batch, plen, gen = REQUESTS[0]
+    dbdir = os.path.join(workdir, "db")
+    jsonl = os.path.join(workdir, "gemma7b_h100.jsonl")
+    t0 = time.perf_counter()
+    out = _tool("--db", dbdir, "pretune", "--config", "gemma-7b",
+                "--target", "h100-sxm", "--batch", str(batch),
+                "--prompt-len", str(plen))
+    print(f"[deploy] {out.strip().splitlines()[0]} (a fresh process, "
+          f"{time.perf_counter() - t0:.1f} s wall)", flush=True)
+    print(f"[deploy] {_tool('--db', dbdir, 'export', '--out', jsonl).strip()}",
+          flush=True)
+    _fresh_default_db()
+    rep, launches = _serve_request(get_config("gemma-7b"), batch, plen, gen,
+                                   "--tuning-db", jsonl, "--assert-frozen")
+    st, db = rep["dispatch"], tc.get_default_db()
+    ranks = db.stats.tunes
+    print(f"[deploy] serve {batch}x{plen}+{gen} --tuning-db (no --pretune): "
+          f"{st['frozen']}/{st['total']} frozen, {ranks} ranks, "
+          f"{rep['runtime_tunes']} runtime tunes; first token "
+          f"{rep['first_token_s']:.2f} s after start against [serve]'s "
+          f"{reports[0]['first_token_s']:.2f} s (its graph pretune "
+          f"included); prefill {rep['prefill_ms']:.1f} ms, "
+          f"{rep['ms_per_token']:.2f} ms/token", flush=True)
+    if ranks or rep["runtime_tunes"] or st["frozen"] != st["total"]:
+        fail(f"[deploy] the serving process ranked or dispatched live: "
+             f"{st}, ranks {ranks}")
+    if rep["tokens"] != reports[0]["tokens"]:
+        fail("[deploy] greedy tokens differ from [serve]'s")
+    print(f"[deploy] greedy tokens equal [serve]'s {batch}x{plen}+{gen} "
+          f"request ({batch} x {gen + 1})")
+    ran = {k for k, v in launches.items() if v}
+    if ran != {k for k, v in serve_launches.items() if v}:
+        fail(f"[deploy] launched {sorted(ran)}, [serve] "
+             f"{sorted(k for k, v in serve_launches.items() if v)}")
+    print(f"[deploy] launches: { {k: v for k, v in launches.items() if v} }")
+    return jsonl, launches
+
+
+def _start_server(jsonl: str, *fault):
+    """``python -m repro_torch.tuning_cache serve --port 0 --warm-jsonl``
+    in a subprocess; returns (process, URL) from its ready line."""
+    import select
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.tuning_cache", "serve",
+         "--port", "0", "--warm-jsonl", jsonl, *fault],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=SRC))
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        ready, _, _ = select.select([proc.stdout], [], [], 1.0)
+        if not ready:
+            if proc.poll() is not None:
+                break
+            continue
+        line = proc.stdout.readline()
+        if not line:
+            break
+        if "listening on " in line:
+            print(f"[service] {line.strip()}", flush=True)
+            return proc, line.split("listening on ")[1].split()[0]
+    proc.kill()
+    proc.wait(timeout=30)
+    fail(f"the tuning server did not start (exit {proc.returncode})")
+
+
+def phase_service(reports, jsonl: str):
+    """A remote tuner: the tuning server in a subprocess warmed with
+    ``[deploy]``'s JSONL, gemma-7b served 1 x 64 + 8 with
+    ``--tuning-server`` and no ``--pretune`` from a cold dispatch state
+    (every unique instance must come from the service, zero local
+    ranks), then again against a server that drops every request (the
+    client must degrade to local ranks).  Both runs must give
+    ``[serve]``'s greedy tokens, on the card, through the same kernels
+    with the same params.  Returns the launches of the first run."""
+    from repro_torch import tuning_cache as tc
+    from repro_torch.configs import get_config
+    from repro_torch.tuning_cache import registry
+
+    cfg = get_config("gemma-7b")
+    batch, plen, gen = REQUESTS[1]
+    runs = {}
+    for label, fault in (("served", ()),
+                         ("degraded", ("--fault", "drop@server.request"))):
+        proc, url = _start_server(jsonl, *fault)
+        try:
+            _fresh_default_db()
+            t0 = time.perf_counter()
+            rep, launches = _serve_request(cfg, batch, plen, gen,
+                                           "--tuning-server", url)
+            wall = time.perf_counter() - t0
+            client = tc.service_client()
+            cs = client.stats.as_dict()
+            remote = client.remote_stats() if label == "served" else None
+            db = tc.get_default_db()
+            unique = len(registry.dispatch_memo_keys())
+            runs[label] = (rep, launches, _served_records(db))
+            print(f"[service] {label}: serve {batch}x{plen}+{gen} "
+                  f"--tuning-server in {wall:.1f} s, {unique} unique "
+                  f"instances, local ranks {db.stats.tunes}, client "
+                  f"{cs}, breaker {client.breaker.state}"
+                  + (f"; server {remote['server']}, db {remote['db']}; "
+                     f"{cs['requests'] / max(unique, 1):.2f} lookup round "
+                     f"trips per unique instance ({cs['attempts']} HTTP "
+                     f"exchanges, one the start-up health probe)"
+                     if remote else ""), flush=True)
+        finally:
+            tc.configure_service(None)
+            proc.kill()
+            proc.wait(timeout=30)
+            proc.stdout.close()
+        if rep["tokens"] != reports[1]["tokens"]:
+            fail(f"[service] {label}: greedy tokens differ from [serve]'s")
+        if label == "served" and (cs["hits"] != unique or db.stats.tunes
+                                  or cs["failures"] or not unique
+                                  or rep["dispatch"]["frozen"]):
+            fail(f"[service] not every unique instance came from the "
+                 f"service: {cs}, local ranks {db.stats.tunes}")
+        if label == "degraded" and (cs["hits"] or not cs["failures"]
+                                    or not cs["degraded"]
+                                    or db.stats.tunes != unique):
+            fail(f"[service] the fault run did not degrade to local ranks: "
+                 f"{cs}, local ranks {db.stats.tunes} of {unique}")
+    (_, l_s, p_s), (_, l_d, p_d) = runs["served"], runs["degraded"]
+    if p_s != p_d or l_s != l_d:
+        fail(f"[service] the degraded run changed the params or kernels: "
+             f"{p_s} vs {p_d}, {l_s} vs {l_d}")
+    print(f"[service] both runs: greedy tokens equal [serve]'s "
+          f"{batch}x{plen}+{gen} request, the same {len(p_s)} params and "
+          f"the same launches on the card: "
+          f"{ {k: v for k, v in l_s.items() if v} }", flush=True)
+    return l_s
 
 
 def phase_profile(dev, batch: int = 4, prompt_len: int = 64,
@@ -1221,7 +1618,22 @@ def tune_case(tag: str, kid: str, sig: dict) -> dict:
           f"{st.boundedness}", flush=True)
     print(f"[{tag}]   pred/meas ms: " + "; ".join(
         f"{k} {pred[k] * 1e3:.4f}/{meas[k] * 1e3:.4f}" for k in meas))
+    # the pipeline tier over the same rows (a finding, not a gate)
+    from repro_torch.core.predict import spearman
+    ptimes, ppick = _pipeline_rank(kid, sig, [{"tile": t} for t in meas])
+    ppick = ppick["tile"]
+    if ppick not in meas:
+        fail(f"{kid}: the pipeline tier picked {ppick}, which the tuner "
+             f"did not time")
+    prho = spearman(ptimes, [meas[t] for t in meas])
+    pregret = meas[ppick] / em.best_measured_s
+    print(f"[{tag}]   pipeline tier: pick {ppick} (pred "
+          f"{ptimes[list(meas).index(ppick)] * 1e3:.4f} ms, meas "
+          f"{meas[ppick] * 1e3:.4f} ms), regret {pregret:.3f}x, spearman "
+          f"{prho:.3f} (eq6: pick {pick}, regret {regret:.3f}x, spearman "
+          f"{em.spearman_static_vs_measured:.3f})", flush=True)
     return dict(kernel=kid, sig=sig, space=st.space_size, pick=pick,
+                pipe_pick=ppick, pipe_regret=pregret, pipe_rho=prho,
                 pred=pred, meas=meas, pick_ms=meas[pick] * 1e3, best=best,
                 best_ms=em.best_measured_s * 1e3, regret=regret,
                 rho=em.spearman_static_vs_measured,
@@ -1632,9 +2044,14 @@ def main() -> None:
     phase_build()
     rows = phase_kernels(dev)
     rows.update(phase_table4(dev))
+    pretuned_launches = phase_pretuned(dev)
     phase_ranking(dev)
     phase_check(dev)
     reports, launches = phase_serve()
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        jsonl, deploy_launches = phase_deploy(reports, launches, work)
+        service_launches = phase_service(reports, jsonl)
     phase_profile(dev)
     _, tuner_launches = phase_tuner()
     dispatch_launches = phase_dispatch(dev)
@@ -1675,6 +2092,10 @@ def main() -> None:
                                       "split")}
     print(f"[smoke] mlp_matmul on the main path by family: {gated}")
 
+    ran = lambda c: sorted(k for k, v in c.items() if v)
+    print(f"[smoke] kernels launched by the deployment tiers' paths: "
+          f"[pretuned] {ran(pretuned_launches)}; [deploy] "
+          f"{ran(deploy_launches)}; [service] {ran(service_launches)}")
     missing = [k for k in TABLE4 + ("jacobi_plane", "jacobi_ring")
                if tuner_launches.get(k, 0) == 0]
     if missing:

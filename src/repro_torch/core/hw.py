@@ -404,6 +404,19 @@ def resolve_target(target: Optional[Union[str, "ChipSpec"]] = None
         f"Hopper: {sorted(HOPPER_TABLE)}")
 
 
+def isa_family(spec: Optional[Union[str, "ChipSpec"]] = None) -> str:
+    """Stable ISA-family key for the per-family instruction tables
+    (`repro_torch.core.isa`): GPU specs (the Table I parts and the H100)
+    group by SASS generation (their ``family`` — one latency profile per
+    architecture, many parts), TPU specs are one pipeline family per
+    generation (their canonical name).  Resolves names/None like
+    `resolve_target`."""
+    spec = resolve_target(spec)
+    if isinstance(spec, (GpuSpec, HopperSpec)):
+        return spec.family
+    return spec.name
+
+
 def require_tpu(spec: "ChipSpec", what: str) -> TpuSpec:
     """Resolve + family-check for the TPU-only layers.
 

@@ -60,6 +60,7 @@ from repro_torch.core.annotations import parse_tuning_spec
 from repro_torch.core.autotuner import TunableKernel
 from repro_torch.core.hw import H100_SXM, GpuSpec, HopperSpec
 from repro_torch.core.mix import InstructionMix
+from repro_torch.core.occupancy import CudaOccupancy
 from repro_torch.core.search import Constraint, Params, SearchSpace
 from repro_torch.core.target import default_target
 from repro_torch.kernels.common import (BatchStaticInfo, HopperBatchInfo,
@@ -252,12 +253,15 @@ class HopperSpace:
 class HopperStaticInfo:
     """Scalar view of one H100 row, duck-typed like `CudaStaticInfo`
     for `repro_torch.core.predict.static_times_batch` and like
-    `KernelStaticInfo` for `repro_torch.core.KernelTuner`."""
+    `KernelStaticInfo` for `repro_torch.core.KernelTuner`.  ``hopper``
+    is the row's Eqs. 1-5 occupancy (resident blocks and warps per SM),
+    which the pipeline tier interleaves the row's stream by."""
 
     mix: InstructionMix
     predicted_step_time: float
     ok: bool
     grid_steps: int = 1
+    hopper: Optional[CudaOccupancy] = None
 
     @property
     def occupancy(self):
@@ -414,6 +418,11 @@ class KernelSpec:
       ``DEFAULT_CHUNK``).
     * ``cuda``, ``pretune``, ``variants``, ``primary_variant``,
       ``model`` — as the reference.
+    * ``schedule(p, **signature)`` — the pipeline tier's per-config
+      instruction stream under a TPU target, (class, units[, dep]) rows
+      (`repro_torch.core.pipeline.as_stream`), as the reference; None
+      synthesizes the stream from the feature mix.  The H100 rows always
+      use their feature row.
     """
 
     kernel_id: str
@@ -432,6 +441,7 @@ class KernelSpec:
     chunk_size: Optional[int] = None
     variants: Any = None
     primary_variant: Optional[str] = None
+    schedule: Optional[Callable[..., Any]] = None
 
     def __post_init__(self):
         if not self.kernel_id or not isinstance(self.kernel_id, str):
@@ -700,17 +710,24 @@ class KernelSpec:
 
     def _hopper_scalar(self, spec: HopperSpec, sig: Dict[str, Any]
                        ) -> Callable[[Params], HopperStaticInfo]:
-        """Scalar H100 analyzer: one row through the batch analyzer."""
+        """Scalar H100 analyzer: one row through its implementation's
+        batch analyzer (a row of an unknown variant is infeasible, as in
+        `hopper_info_batch`)."""
         def scalar(p):
-            cols = {k: np.asarray([v]) for k, v in p.items()}
-            b = self.hopper_info_batch(cols, spec, **sig)
+            vid = None if self._variants is None else p.get(VARIANT_AXIS)
+            h = self._hopper.get(vid)
+            if h is None:
+                return HopperStaticInfo(mix=InstructionMix(),
+                                        predicted_step_time=float("inf"),
+                                        ok=False)
+            b = h.info([p[TILE_AXIS]], sig, spec)
             return HopperStaticInfo(
                 mix=InstructionMix(mxu_flops=b.F[0, 0], vpu_flops=b.F[0, 1],
                                    trans_flops=b.F[0, 2],
                                    hbm_bytes=b.F[0, 3], vmem_bytes=b.F[0, 4],
                                    ctrl_ops=b.F[0, 5]),
                 predicted_step_time=float(b.pipe[0]),
-                ok=bool(b.feasible[0]))
+                ok=bool(b.feasible[0]), hopper=b.occupancy.at(0))
         return scalar
 
     def hopper_static_info(self, params: Params, spec: HopperSpec,
@@ -780,7 +797,9 @@ class KernelSpec:
             space=self.search_space(**sig),
             static_info=lambda p: self.static_info(p, **sig),
             static_info_batch=lambda c: self.static_info_batch(c, **sig),
-            chunk_size=self.chunk_size)
+            chunk_size=self.chunk_size,
+            schedule=(lambda p, _sig=sig: self.schedule(p, **_sig))
+            if self.schedule is not None else None)
 
     def _cuda_problem(self, gpu: GpuSpec,
                       sig: Dict[str, Any]) -> "tuning_cache.TuningProblem":
@@ -993,7 +1012,8 @@ def tuned_kernel(kernel_id: str, *,
                  constraints: Any = None,
                  chunk_size: Optional[int] = None,
                  variants: Sequence[KernelVariant] = (),
-                 primary_variant: Optional[str] = None):
+                 primary_variant: Optional[str] = None,
+                 schedule: Optional[Callable[..., Any]] = None):
     """Declare a kernel as a first-class tuning citizen: registers a
     :class:`KernelSpec` under ``kernel_id`` and returns the decorated
     function unchanged (with a ``.spec`` attribute)."""
@@ -1004,7 +1024,7 @@ def tuned_kernel(kernel_id: str, *,
                           reference=reference, pretune=tuple(pretune),
                           cuda=cuda, model=model, constraints=constraints,
                           chunk_size=chunk_size, variants=tuple(variants),
-                          primary_variant=primary_variant)
+                          primary_variant=primary_variant, schedule=schedule)
         register_spec(spec)
         fn.spec = spec
         return fn

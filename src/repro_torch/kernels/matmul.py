@@ -240,6 +240,26 @@ def _matmul_analysis(p, *, m: int, n: int, k: int, dtype: str = "float32"):
     )
 
 
+def _matmul_schedule(p, *, m: int, n: int, k: int, dtype: str = "float32"):
+    """Per-K-step instruction stream for the pipeline tier under a TPU
+    target, as the reference declares it: stage both operand tiles,
+    MXU-contract into the VMEM accumulator, amortized result flush.  Row
+    format: ``(class, units[, dep])`` with ``dep`` an index into the
+    stream."""
+    bm = min(int(p["bm"]), m)
+    bn = min(int(p["bn"]), n)
+    bk = min(int(p["bk"]), k)
+    eb = dtype_bytes(dtype)
+    return [
+        ("hbm", float((bm * bk + bk * bn) * eb)),          # 0: tile DMA in
+        ("vmem", float((bm * bk + bk * bn + bm * bn) * eb), 0),  # 1: staging
+        ("mxu", 2.0 * bm * bn * bk, 1),                    # 2: contraction
+        # result tile leaves once per (i, j) cell, i.e. every K/bk steps
+        ("hbm", float(bm * bn * eb) / max(cdiv(k, bk), 1)),
+        ("ctrl", 1.0),                                     # grid bookkeeping
+    ]
+
+
 def _matmul_inputs(gen, *, m: int, n: int, k: int, dtype: str = "float32"):
     import torch
     dt = getattr(torch, dtype)
@@ -348,6 +368,7 @@ def matmul_cuda(a, b, *, tile: str):
     signature=lambda a, b, **_: dict(m=a.shape[0], n=b.shape[1],
                                      k=a.shape[1], dtype=dtype_name(a)),
     static_info=_matmul_analysis,
+    schedule=_matmul_schedule,
     hopper=HopperSpace(tiles=tuple(GEMM_TILES), analysis=_matmul_hopper),
     out=lambda a, b, **_: ((a.shape[0], b.shape[1]), a.dtype),
     make_inputs=_matmul_inputs,

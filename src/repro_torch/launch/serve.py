@@ -9,7 +9,13 @@ layers dispatch RMSNorm, prefill attention and the gated MLP through
 the statically tuned kernels; ``--pretune`` ranks every kernel instance
 of this config's prefill + decode before serving (zero kernel runs),
 and ``--assert-frozen`` fails unless every dispatch then hit the frozen
-tables with zero runtime tunes.
+tables with zero runtime tunes.  The default tuning database starts
+warm with the pretuned JSONL shipped for the target
+(``tuning_cache/pretuned/``); ``--tuning-db`` layers a deployment's own
+JSONL on top (a ``pretune --config`` export covers every instance, so
+serving ranks nothing), and ``--tuning-server URL`` sends cold
+dispatches to a tuning service (``python -m repro_torch.tuning_cache
+serve``), degrading to local ranks when it is unreachable.
 """
 from __future__ import annotations
 
@@ -41,6 +47,29 @@ def _warm_tuning_db(db, path: str, strict: bool = False):
     return n, corrupt
 
 
+def _connect_tuning_server(url: str):
+    """Point cold dispatches at a tuning service; never fatal — an
+    unreachable service means serving starts degraded on the local
+    tiers (pretuned records, then local ranks), with a banner."""
+    from repro_torch import tuning_cache
+    try:
+        client = tuning_cache.configure_service(url)
+    except ValueError as e:
+        print(f"[serve] WARNING: bad --tuning-server {url!r} ({e}); "
+              f"serving DEGRADED on local tiers")
+        return None
+    health = client.health()
+    if health is None:
+        print(f"[serve] WARNING: tuning service {client.url} unreachable "
+              f"— serving DEGRADED on local tiers (pretuned records, "
+              f"then local ranks)")
+    else:
+        print(f"[serve] tuning service {client.url}: "
+              f"{health.get('records', '?')} records, "
+              f"generation {health.get('generation', '?')}")
+    return client
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -55,10 +84,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "card; 'cpu' runs the plain PyTorch versions)")
     ap.add_argument("--tuning-db", default=None,
                     help="JSONL tuning database to warm kernel dispatch "
-                         "with before serving")
+                         "with before serving (on top of the packaged "
+                         "pretuned records)")
     ap.add_argument("--strict-db", action="store_true",
                     help="exit non-zero if --tuning-db has corrupt "
                          "lines (default: skip them, print the count)")
+    ap.add_argument("--tuning-server", default=None, metavar="URL",
+                    help="tuning service to consult for cold dispatches "
+                         "(http://host:port); unreachable -> serve "
+                         "degraded on the local tiers")
     ap.add_argument("--tuned-ops", action="store_true",
                     help="route rms_norm / gated-mlp / full attention "
                          "through the tuned kernel registry "
@@ -84,6 +118,7 @@ def main(argv: Optional[Sequence[str]] = None, *,
     """Serve one batch of random prompts; returns the run's report.
     ``cfg`` overrides the ``--arch`` config (e.g. a depth cut made by a
     caller with ``dataclasses.replace``)."""
+    t_start = time.perf_counter()
     args = parse_args(argv)
 
     from repro_torch import tuning_cache
@@ -95,9 +130,13 @@ def main(argv: Optional[Sequence[str]] = None, *,
     from repro_torch.models.layers import set_tuned_layers
 
     device = resolve_device(args.device)
+    # the default database warms the target's shipped pretuned records;
+    # --tuning-db layers a deployment-specific JSONL on top
     db = tuning_cache.get_default_db()
     if args.tuning_db:
         _warm_tuning_db(db, args.tuning_db, strict=args.strict_db)
+    if args.tuning_server:
+        _connect_tuning_server(args.tuning_server)
     print(f"[serve] tuning cache ready: {len(db)} records resident")
 
     if cfg is None:
@@ -145,8 +184,10 @@ def main(argv: Optional[Sequence[str]] = None, *,
         logits, cache = prefill(params, {"tokens": tokens})
         _sync(device)
         t_prefill = time.perf_counter() - t0
+        t_first = time.perf_counter() - t_start
         print(f"[serve] prefill {args.batch}x{args.prompt_len}: "
-              f"{t_prefill * 1e3:.1f} ms")
+              f"{t_prefill * 1e3:.1f} ms; first token {t_first:.2f} s "
+              f"after start")
         finite = bool(torch.isfinite(logits).all())
         tok = logits[:, -1:].argmax(dim=-1)
         out_tokens = [tok]
@@ -196,6 +237,7 @@ def main(argv: Optional[Sequence[str]] = None, *,
     return {"config": cfg.name, "device": str(device),
             "batch": args.batch, "prompt_len": args.prompt_len,
             "gen": args.gen, "prefill_ms": t_prefill * 1e3,
+            "first_token_s": t_first,
             "ms_per_token": dt * 1e3, "tokens": toks.tolist(),
             "logits_finite": finite,
             "instances": instances, "dispatch": st,

@@ -42,9 +42,13 @@ sort the signature per dispatch.
 Under a `repro_torch.core.hw.HopperSpec` target the ranked space is the
 CUDA kernels' own launch space (the entry's ``problem`` switches on the
 active target) and the model is the H100 roofline
-(`repro_torch.core.predict.default_hopper_model`).  The reference's
-tuning-service hop and its ``pipeline`` model tier are not ported:
-asking for ``model="pipeline"`` raises ``NotImplementedError``.
+(`repro_torch.core.predict.default_hopper_model`); ``model="pipeline"``
+reranks that roofline's shortlist with the scoreboard simulator over the
+Hopper ISA table (`repro_torch.core.pipeline`).  On the all-default path
+a configured tuning service (`repro_torch.tuning_cache.service`) is
+consulted between the live memo and the local database, and a target's
+shipped pretuned JSONL is warmed into the default database on its first
+dispatch.
 """
 from __future__ import annotations
 
@@ -61,6 +65,7 @@ import numpy as np
 from repro_torch.core.hw import (ChipSpec, GPU_TABLE, GpuSpec, HOPPER_TABLE,
                                  HopperSpec, TPU_TABLE, TpuSpec,
                                  resolve_target)
+from repro_torch.core.pipeline import PipelineModel, pipeline_model
 from repro_torch.core.predict import (CostModel, default_cuda_model,
                                       default_hopper_model,
                                       default_tpu_model, static_times_batch)
@@ -83,9 +88,10 @@ __all__ = ["TuningProblem", "register", "register_entry", "unregister",
            "MODEL_KINDS", "ENV_MODEL", "default_model_kind",
            "set_default_model"]
 
-# The cost-model tiers of the reference (DESIGN.md §16): "eq6" is the
-# paper's CPI-linear model (the vectorized SoA path); "pipeline", its
-# scoreboard reranker, is accepted as a name but not ported yet.
+# The selectable cost-model tiers (DESIGN.md §16): "eq6" is the paper's
+# CPI-linear model (the vectorized SoA path; the H100 roofline under a
+# HopperSpec), "pipeline" the scoreboard-simulation reranker layered on
+# top of it.
 MODEL_KINDS: Tuple[str, ...] = ("eq6", "pipeline")
 
 # Environment override for the process-default model kind.
@@ -109,6 +115,11 @@ class TuningProblem:
     # preferred streaming chunk for rank_space (None: DEFAULT_CHUNK) —
     # declarations with very wide rows can lower it to cap peak memory
     chunk_size: Optional[int] = None
+    # optional per-config instruction-stream hook for the pipeline tier:
+    # ``schedule(params)`` returns what `repro_torch.core.pipeline.as_stream`
+    # accepts (an InstructionStream or (class, units[, dep]) rows).
+    # None: the stream is synthesized from the 7-feature mix.
+    schedule: Optional[Callable[[Params], Any]] = None
 
 
 class _FactoryEntry:
@@ -244,7 +255,8 @@ def normalize_signature(kernel_id: str,
 
 
 def rank_space(problem: TuningProblem, model: CostModel, *,
-               chunk_size: Optional[int] = None
+               chunk_size: Optional[int] = None,
+               workers: Optional[int] = None
                ) -> Tuple[Params, float, int]:
     """Argmin of the static model over the whole space, streamed.
 
@@ -256,11 +268,25 @@ def rank_space(problem: TuningProblem, model: CostModel, *,
     candidate.  Peak memory is O(chunk_size), never O(space), and the
     reduction merges candidates by ``(time, flat index)`` — exactly the
     tie-break `np.argmin` applies over the materialized lattice — so
-    the winner is bit-identical to the eager path for any chunk size.
+    the winner is bit-identical to the eager path for any chunk size
+    and any ``workers`` count.
+
+    ``workers > 1`` scores chunks on a bounded thread pool (at most
+    ``2*workers`` chunks in flight, preserving the memory bound); each
+    task runs under a copy of the submitting thread's context so
+    `use_target` scoping survives the hop.
 
     Returns ``(params, predicted seconds, rows scored)``; raises
     ``ValueError`` when constraints eliminate every configuration.
+
+    A `repro_torch.core.pipeline.PipelineModel` routes through the two-stage
+    reranker instead: its Eq. 6 ``base`` produces the top-K shortlist
+    (same streamed scoring as above), then the scoreboard simulator
+    reranks only those K candidates.
     """
+    if isinstance(model, PipelineModel):
+        return _rank_space_pipeline(problem, model, chunk_size=chunk_size,
+                                    workers=workers)
     batch = getattr(problem, "static_info_batch", None)
     if batch is None:
         pts = problem.space.enumerate()
@@ -285,7 +311,11 @@ def rank_space(problem: TuningProblem, model: CostModel, *,
         g = int(off[j]) if off is not None else j
         return lat.size, float(times[j]), g, lat.params_at(j)
 
-    results = map(score, problem.space.iter_lattice(chunk))
+    chunks = problem.space.iter_lattice(chunk)
+    if workers is not None and workers > 1:
+        results = _map_bounded(score, chunks, workers)
+    else:
+        results = map(score, chunks)
 
     scored = 0
     best: Optional[Tuple[float, int, Params]] = None
@@ -303,6 +333,112 @@ def rank_space(problem: TuningProblem, model: CostModel, *,
     return best[2], best[0], scored
 
 
+def _rank_space_pipeline(problem: TuningProblem, model: PipelineModel, *,
+                         chunk_size: Optional[int] = None,
+                         workers: Optional[int] = None
+                         ) -> Tuple[Params, float, int]:
+    """Two-stage rank: Eq. 6 shortlist, scoreboard rerank (DESIGN.md §16).
+
+    Stage 1 runs the *base* model over the whole space exactly like the
+    plain path, but keeps the top ``model.keep_n`` rows instead of one —
+    merged across chunks on ``(time, flat index)``, the stable-argsort
+    order of the materialized lattice, so the shortlist is bit-identical
+    for any chunk size or worker count.  Stage 2 builds the scalar
+    static info for each shortlisted config (at most K objects — the
+    SoA path stays object-free) and prices it with `simulate`; the
+    winner is the lexicographic minimum of ``(pipeline time, base time,
+    flat index)``, deterministic by the same argument.  An
+    all-infeasible space resolves to row 0 with +inf, matching the
+    plain path.
+    """
+    space = problem.space
+    base = model.base
+    cap = max(int(model.keep_n), 1)
+    batch = getattr(problem, "static_info_batch", None)
+
+    if batch is None:
+        pts = space.enumerate()
+        if not pts:
+            raise ValueError("search space has no feasible configurations")
+        infos = [problem.static_info(p) for p in pts]
+        times = np.asarray(static_times_batch(infos, base),
+                           dtype=np.float64)
+        scored = len(pts)
+        sel = np.lexsort((np.arange(scored), times))[:cap]
+        short = [(float(times[i]), int(i), pts[int(i)]) for i in sel]
+    else:
+        chunk = (chunk_size or getattr(problem, "chunk_size", None)
+                 or DEFAULT_CHUNK)
+
+        def score(lat) -> Tuple[int, Optional[np.ndarray],
+                                Optional[np.ndarray]]:
+            if lat.size == 0:
+                return 0, None, None
+            info = batch(lat.columns)
+            times = static_times_batch(None, base, F=info.F,
+                                       pipe=info.pipe,
+                                       feasible=info.feasible)
+            g = lat.offsets if lat.offsets is not None \
+                else np.arange(lat.size, dtype=np.int64)
+            sel = np.lexsort((g, times))[:cap]
+            return lat.size, times[sel], np.asarray(g)[sel]
+
+        chunks = space.iter_lattice(chunk)
+        if workers is not None and workers > 1:
+            results = _map_bounded(score, chunks, workers)
+        else:
+            results = map(score, chunks)
+        scored = 0
+        best_t = np.empty(0, dtype=np.float64)
+        best_g = np.empty(0, dtype=np.int64)
+        for n, t, g in results:
+            scored += n
+            if n == 0:
+                continue
+            t_all = np.concatenate((best_t, t))
+            g_all = np.concatenate((best_g, g))
+            sel = np.lexsort((g_all, t_all))[:cap]
+            best_t, best_g = t_all[sel], g_all[sel]
+        if scored == 0:
+            raise ValueError("search space has no feasible configurations")
+        short = [(float(tv), int(gv), space.from_flat(int(gv)))
+                 for tv, gv in zip(best_t, best_g)]
+
+    sched = getattr(problem, "schedule", None)
+    best: Optional[Tuple[float, float, int, Params]] = None
+    for base_t, g, params in short:
+        info = problem.static_info(params)
+        t = model.time_info(info, schedule=sched(params) if sched else None)
+        cand = (float(t), base_t, g, params)
+        if best is None or cand[:3] < best[:3]:
+            best = cand
+    assert best is not None    # short is non-empty by construction
+    return best[3], best[0], scored
+
+
+def _map_bounded(fn: Callable, items, workers: int):
+    """`map(fn, items)` on a thread pool with at most ``2*workers``
+    futures in flight (so a lazy generator is never drained eagerly),
+    yielding results in submission order.  Each task runs under a copy
+    of the caller's `contextvars` context, preserving `use_target`
+    scoping across the thread hop."""
+    import contextvars
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    def gen():
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            pending = deque()
+            for item in items:
+                while len(pending) >= workers * 2:
+                    yield pending.popleft().result()
+                ctx = contextvars.copy_context()
+                pending.append(ex.submit(ctx.run, fn, item))
+            while pending:
+                yield pending.popleft().result()
+    return gen()
+
+
 # Guards the check-then-set on _DEFAULT_MODELS and shard creation in
 # _DISPATCH_MEMO (plus clear_dispatch_memo): two threads
 # cold-tuning the same kernel must not build duplicate cost models or
@@ -313,7 +449,7 @@ def rank_space(problem: TuningProblem, model: CostModel, *,
 # there would put a contended acquire on every repeat trace.
 _models_lock = threading.Lock()
 
-# (spec fingerprint, model kind) -> CostModel
+# (spec fingerprint, model kind) -> CostModel | PipelineModel
 _DEFAULT_MODELS: Dict[Tuple[str, str], Any] = {}
 
 
@@ -495,7 +631,7 @@ def _kind_of(entry: Any) -> str:
     return kind if kind is not None else default_model_kind()
 
 
-def _model_for(spec: ChipSpec, kind: Optional[str] = None) -> CostModel:
+def _model_for(spec: ChipSpec, kind: Optional[str] = None):
     # memoized on (full-field fingerprint, kind): a modified spec that
     # keeps the default name must still get its own rate coefficients.
     # The fast path is a lock-free probe; the build is double-checked
@@ -504,10 +640,6 @@ def _model_for(spec: ChipSpec, kind: Optional[str] = None) -> CostModel:
     # the process default.
     if kind is None:
         kind = default_model_kind()
-    if kind == "pipeline":
-        raise NotImplementedError(
-            "the pipeline model tier (scoreboard rerank) is not ported "
-            "to repro_torch yet; use model='eq6'")
     mk = (fingerprint_spec(spec), kind)
     model = _DEFAULT_MODELS.get(mk)
     if model is None:
@@ -515,11 +647,13 @@ def _model_for(spec: ChipSpec, kind: Optional[str] = None) -> CostModel:
             model = _DEFAULT_MODELS.get(mk)
             if model is None:
                 if isinstance(spec, HopperSpec):
-                    model = default_hopper_model(spec)
+                    base = default_hopper_model(spec)
                 elif isinstance(spec, GpuSpec):
-                    model = default_cuda_model(spec)
+                    base = default_cuda_model(spec)
                 else:
-                    model = default_tpu_model(spec, mode="max")
+                    base = default_tpu_model(spec, mode="max")
+                model = pipeline_model(spec, base=base) \
+                    if kind == "pipeline" else base
                 _DEFAULT_MODELS[mk] = model
     return model
 
@@ -725,6 +859,34 @@ def frozen_lookup(kernel_id: str, signature: Dict[str, Any], *,
 on_default_target_change(thaw)
 
 
+def _service_resolve(key: CacheKey, kernel_id: str,
+                     signature: Dict[str, Any], spec: ChipSpec,
+                     mode: str) -> Optional[TuningRecord]:
+    """Consult the configured tuning service for one kernel instance.
+
+    Returns a `TuningRecord` under *our* locally-computed key, or
+    ``None`` on miss or degradation.  Never raises — the service tier
+    is optional by contract (`ServiceClient.resolve` already absorbs
+    every transport failure; this guard covers payload surprises)."""
+    from repro_torch.tuning_cache import service_client
+    try:
+        client = service_client()
+        if client is None:
+            return None
+        payload = client.resolve(kernel_id, dict(signature),
+                                 target=spec.name,
+                                 fingerprint=fingerprint_spec(spec),
+                                 mode=mode)
+        if payload is None or payload.get("digest") != key.digest:
+            # A digest mismatch means the server ranked under a
+            # different model/key schema: its params answer some other
+            # question, not our key.  Treat as a miss.
+            return None
+        return TuningRecord.from_dict({**payload, "key": key.to_dict()})
+    except Exception:
+        return None
+
+
 _tc = None   # the repro_torch.tuning_cache package, bound on first dispatch
 
 
@@ -754,18 +916,24 @@ def lookup_or_tune(kernel_id: str, *,
     probe (and after :func:`freeze`, a lock-free frozen-table probe
     with no generation check at all).
 
-    ``model`` takes a `CostModel` instance, a model *kind* name from
-    `MODEL_KINDS` (``"eq6"``; ``"pipeline"`` raises
-    ``NotImplementedError``), or ``None`` for the kernel's declared kind
-    under the process default.  The model's fingerprint
+    ``model`` takes a `CostModel`/`PipelineModel` instance, a model
+    *kind* name from `MODEL_KINDS` (``"eq6"`` / ``"pipeline"`` — the CLI
+    ``--model`` spelling, resolved per spec like
+    ``@tuned_kernel(model=...)``), or ``None`` for the kernel's declared
+    kind under the process default.  The model's fingerprint
     rides on the cache key, so records ranked under different tiers
     never mix.
+
+    Only the all-default path (``db`` and ``model`` both ``None``)
+    consults a configured tuning service, between the live memo and the
+    local database; it also warms the target's shipped pretuned JSONL
+    into the default database on the target's first dispatch.
     """
     kind: Optional[str] = None
     if isinstance(model, str):
         # a kind name is an *explicit* model request: same database
-        # semantics as passing the built model object (no memo), just
-        # resolved per spec below.
+        # semantics as passing the built model object (no memo, no
+        # service), just resolved per spec below.
         kind = _check_model_kind(model)
         model = None
     if db is None and model is None and kind is None:
@@ -783,6 +951,7 @@ def lookup_or_tune(kernel_id: str, *,
         spec = resolve_target(spec)
     memo_key = shard = None
     gen0 = 0
+    use_service = False
     if db is None:
         # parent package — circular at module-import time, so bound
         # lazily once rather than paying a per-dispatch `from ... import`
@@ -791,7 +960,13 @@ def lookup_or_tune(kernel_id: str, *,
             import repro_torch.tuning_cache as _tc_mod
             _tc = _tc_mod
         db = _tc.get_default_db()
-        if model is None and kind is None:   # default db + model: memo engages
+        if spec.name not in db.warmed_targets:     # once per (db, target)
+            _tc._warm_pretuned_spec(db, spec)
+        # Only the all-default path consults the tuning service: an
+        # explicit model (or kind) would key a digest the server
+        # (which ranks under ITS default model) can never answer.
+        use_service = model is None and kind is None
+        if use_service:         # default db + default model: memo engages
             entry = _REGISTRY.get(kernel_id)
             binder = _binder_of(entry) if entry is not None else None
             # the entry's effective model kind is part of the memo key:
@@ -825,6 +1000,22 @@ def lookup_or_tune(kernel_id: str, *,
     signature = normalize_signature(kernel_id, signature)
     key = dispatch_key(kernel_id, spec=spec, mode=mode,
                        model_name=model.fingerprint(), signature=signature)
+
+    if use_service:
+        # Service tier (DESIGN.md §13): between the live memo and the
+        # local database.  A hit is written through to the local tiers
+        # so later dispatches (and other processes sharing the disk
+        # store) stay warm even if the service dies; any failure —
+        # unreachable, slow, corrupt — returns None and we fall
+        # through to the local tiers below.
+        rec = _service_resolve(key, kernel_id, signature, spec, mode)
+        if rec is not None:
+            db.put(rec)
+            params = dict(rec.params)
+            if memo_key is not None:
+                with shard.lock:
+                    shard.entries[memo_key] = (gen0, dict(params))
+            return params
 
     def tune() -> TuningRecord:
         # The problem's static_info builders resolve their own spec from
