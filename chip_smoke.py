@@ -74,7 +74,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
 5. profile — `torch.profiler` over a few decode steps of the first
              request's shape: device time by kernel, idle share, and
              the device time per launch of the B1, B2, B3 and B5 kernels
-             (decode steps, then one prefill for attention);
+             (decode steps, then one prefill for attention); then the
+             device time per launch of matvec, atax and BiCG at the
+             tuner's sizes on their tuning-path picks;
 6. tuner   — the tuning path, the paper's own experiment: `KernelTuner`
              over the Table IV kernels (matvec, atax, BiCG at 8192 x 8192
              in float32 and bfloat16, jacobi3d at 256^3 float32) and the
@@ -104,7 +106,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
              first among its own, each beside its device time, the bound,
              the plain version and the conv2d composite; saxpy2d beside
              ``torch.add``, both on device time), and the 4.2M-point mega
-             space is ranked under tpu-v5e (host work).
+             space is ranked under tpu-v5e (host work);
+9. extract — the extraction tier on the port's own binaries, building
+             and launching nothing: ``cuobjdump -res-usage -sass`` of the
+             library and both extensions (`kernels._cuda.disassemble`);
+             (a) every KERNELS row's SASS functions with registers,
+             spills, instructions and the census of the main loop, fatal
+             where a row names no function; (b) issued instructions per
+             HBM byte and the issue bound beside the bytes bound and
+             [profile]'s device time on the decode instances and
+             prefill's two wgmma kernels; (c) [ranking]'s GEMM,
+             rms_norm, gated-MLP and serve-shape attention instances
+             ranked by the pipeline tier on SASS streams
+             (`core.sass.use_sass`) against the same run's times, beside
+             eq6 and the feature-row pipeline; (d) one gemma-7b decode
+             step and prefill of 4 x 64 + 32 traced on ``meta`` tensors
+             (`core.mix.trace_fn`), priced by the H100 roofline beside
+             [profile]'s device busy time and the bytes floor, fatal if
+             the step reads less than one copy of the weights.
 
 Phase 2 also holds the Table IV kernels against their plain versions at
 the tuner's sizes (above the 50 MB L2), jacobi3d on its static pick (a
@@ -114,7 +133,8 @@ own.  Every row of phases 2 and 2b launches the tile dispatch picks
 last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the JSON
 ``{"kernels": [...]}`` of every ported kernel, each with its launches on
-the path that launches it.
+the path that launches it and its SASS registers, spills and main-loop
+instructions.
 """
 from __future__ import annotations
 
@@ -440,15 +460,22 @@ def _pipeline_rank(kid: str, sig, pts):
     """The pipeline tier on H100 rows ``pts`` of ``kid`` at ``sig``: each
     row's predicted seconds (the scoreboard over the Hopper ISA table,
     +inf where infeasible) and the row `lookup_or_tune(model="pipeline")`
-    picks, ranked into a fresh database."""
+    picks, ranked into a fresh database.  Each row's stream is the one
+    the registry ranks it by: its feature row, or its SASS stream inside
+    `repro_torch.core.sass.use_sass`."""
     from repro_torch import tuning_cache as tc
     from repro_torch.core.hw import H100_SXM
     from repro_torch.kernels import api
     from repro_torch.tuning_cache.registry import _model_for
     spec = api.get_spec(kid)
     model = _model_for(H100_SXM, "pipeline")
-    times = [model.time_info(spec.hopper_static_info(p, H100_SXM, **sig))
-             for p in pts]
+    sched = spec._hopper_problem(H100_SXM, spec.normalize(sig)).schedule
+    times = []
+    for p in pts:
+        info = spec.hopper_static_info(p, H100_SXM, **sig)
+        times.append(model.time_info(
+            info, schedule=sched(p) if sched is not None and info.ok
+            else None))
     pick = tc.lookup_or_tune(kid, spec="h100", model="pipeline",
                              db=tc.TuningDatabase(), **sig)
     return times, pick
@@ -984,7 +1011,9 @@ def phase_ranking(dev):
         rho = spearman(pred, meas) if len(pred) > 2 else float("nan")
         regret = meas[pick] / meas[best]
         rows_out.append(dict(kernel=kid, sig=sig, rho=rho, regret=regret,
-                             pick=names[pick], best=names[best]))
+                             pick=names[pick], best=names[best],
+                             rows=rows, names=names, meas=meas,
+                             dev_ms=dev_ms or None))
         shape = {k: v for k, v in sig.items() if k not in ("act",
                                                               "causal")}
         if repr(sig) in sample:
@@ -1005,7 +1034,7 @@ def phase_ranking(dev):
         pi = names.index(pname)
         prho = spearman(ptimes, meas) if len(pred) > 2 else float("nan")
         rows_out[-1].update(pipe_pick=pname, pipe_regret=meas[pi] / meas[best],
-                            pipe_rho=prho)
+                            pipe_rho=prho, ptimes=ptimes)
         print(f"[ranking] {kid} {shape} pipeline tier: pick {pname} pred "
               f"{ptimes[pi] * 1e3:.4f} ms meas {meas[pi]:.4f} ms, regret "
               f"{meas[pi] / meas[best]:.2f}x, spearman {prho:.2f} (eq6: "
@@ -1494,15 +1523,15 @@ def phase_profile(dev, batch: int = 4, prompt_len: int = 64,
     rows = _device_rows(prof)
     busy = sum(r[0] for r in rows)
     if busy <= 0:
-        print("[profile] the profiler recorded no device time")
-        return
+        fail("[profile] the profiler recorded no device time")
+    out = {"decode_busy_ms": busy / steps}
     print(f"[profile] decode batch {batch}: {steps} steps in {wall_ms:.1f} "
           f"ms wall ({wall_ms / steps:.2f} ms/step), device busy "
           f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}")
     for ms, key, n in rows[:12]:
         print(f"[profile]   {ms / steps:8.3f} ms/step  {100 * ms / busy:5.1f}%"
               f"  x{n // steps:<4d} {key[:90]}")
-    _per_launch("decode", rows, steps)
+    out["decode"] = _per_launch("decode", rows, steps)
     # prefill runs the attention kernels: one profiled prefill
     with torch.inference_mode(), use_tuned_layers():
         torch.cuda.synchronize()
@@ -1519,9 +1548,44 @@ def phase_profile(dev, batch: int = 4, prompt_len: int = 64,
     for ms, key, n in rows[:8]:
         print(f"[profile]   {ms:8.3f} ms  {100 * ms / busy:5.1f}%  x{n:<4d} "
               f"{key[:90]}")
-    _per_launch("prefill", rows, 1)
+    out["prefill"] = _per_launch("prefill", rows, 1)
+    out["prefill_busy_ms"] = busy
     del params, cache
     torch.cuda.empty_cache()
+    out["table4"] = _table4_device_us(dev)
+    return out
+
+
+def _table4_device_us(dev) -> dict:
+    """Device time per launch of matvec, atax and BiCG at TABLE4_SHAPES,
+    float32 and bfloat16, on the tile the tuning path picks: {(kernel,
+    dtype): us}."""
+    import torch
+    from repro_torch import tuning_cache as tc
+    from repro_torch.kernels import api
+    from repro_torch.kernels import atax as ax
+    from repro_torch.kernels import bicg as bc
+    from repro_torch.kernels import matvec as mv
+    launch = {"matvec": mv.matvec_cuda, "atax": ax.atax_cuda,
+              "bicg": bc.bicg_cuda}
+    out = {}
+    for kid, fn in launch.items():
+        for dtype in ("float32", "bfloat16"):
+            sig = dict(TABLE4_SHAPES[kid], dtype=dtype)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            args = api.get_spec(kid).make_inputs(gen, **sig)
+            tile = tc.lookup_or_tune(kid, spec="h100", db=tc.TuningDatabase(),
+                                     **sig)[api.TILE_AXIS]
+            us = device_us(lambda: fn(*args, tile=tile), calls=50)
+            out[(kid, dtype)] = us
+            print(f"[profile] {kid} {dtype} "
+                  f"{'x'.join(str(v) for v in TABLE4_SHAPES[kid].values())} "
+                  f"tile {tile}: {us:.2f} us device time per launch "
+                  f"(kernels of one call)", flush=True)
+            del args
+    torch.cuda.empty_cache()
+    return out
 
 
 # the kernels of B1 (GEMV, wgmma, split-K reduce), B2 (warp-per-row,
@@ -1549,15 +1613,19 @@ def _device_rows(prof):
     return rows
 
 
-def _per_launch(what: str, rows, steps: int) -> None:
-    """The port's kernels' device time per launch in a profile."""
+def _per_launch(what: str, rows, steps: int) -> dict:
+    """The port's kernels' device time per launch in a profile:
+    {kernel name: (launches per step, us per launch)}."""
+    out = {}
     for ms, key, n in rows:
         for tag, names in PROFILED.items():
             # whole names: gemv_kernel is not stream_gemv_kernel
             if any(re.search(rf"(?<!\w){k}<", key) for k in names):
+                out[key] = (n // steps, 1e3 * ms / n)
                 print(f"[profile]   {what} {tag} {key[:60]}: x{n // steps} "
                       f"per step, {1e3 * ms / n:.2f} us device time per "
                       f"launch")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2023,6 +2091,307 @@ def phase_extend_kernels(dev) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the extraction tier on the card's own binaries
+# ---------------------------------------------------------------------------
+
+# each KERNELS row: (kernel id, variant, element type) of the row it
+# holds; the split-K reduction is a kernel of its own, not a row
+EXTRACT_ROWS = {
+    "matmul": ("matmul", None, "bfloat16"),
+    "matmul_prefill": ("matmul", None, "bfloat16"),
+    "splitk_reduce": (None, None, "bfloat16"),
+    "rms_norm": ("rms_norm", None, "bfloat16"),
+    "rms_cluster": ("rms_norm", None, "bfloat16"),
+    "rms_simt": ("rms_norm", None, "bfloat16"),
+    "rms_simt_ragged": ("rms_norm", None, "bfloat16"),
+    "flash": ("flash_attention", "flash", "bfloat16"),
+    "flash_tf32": ("flash_attention", "flash", "float32"),
+    "flash_simt": ("flash_attention", "flash", "float32"),
+    "blocked_tc": ("flash_attention", "blocked", "bfloat16"),
+    "blocked_simt": ("flash_attention", "blocked", "bfloat16"),
+    "fused": ("mlp_matmul", "fused", "bfloat16"),
+    "fused_simt": ("mlp_matmul", "fused", "bfloat16"),
+    "stream": ("mlp_matmul", "stream", "bfloat16"),
+    "stream_simt": ("mlp_matmul", "stream", "bfloat16"),
+    "split": ("mlp_matmul", "split", "bfloat16"),
+    "matvec": ("matvec", None, "float32"),
+    "atax": ("atax", None, "float32"),
+    "bicg": ("bicg", None, "float32"),
+    "jacobi3d": ("jacobi3d", None, "float32"),
+    "jacobi_plane": ("jacobi3d", None, "float32"),
+    "stencil2d": ("stencil2d", None, "float32"),
+    "stencil2d_march": ("stencil2d", None, "float32"),
+    "saxpy2d": ("saxpy2d", None, "float32"),
+}
+# a signature per kernel id for its rows' symbols (the element type is
+# the row's)
+EXTRACT_SIGS = {
+    "matmul": dict(m=4, n=3072, k=24576),
+    "rms_norm": dict(m=4, d=3072),
+    "flash_attention": dict(b=4, h=16, sq=64, skv=64, d=256, causal=True),
+    "mlp_matmul": dict(m=4, d=3072, f=24576, act="gelu"),
+    "stencil2d": dict(y=8192, x=8192), "saxpy2d": dict(m=8192, n=8192),
+    **TABLE4_SHAPES}
+# (b): the decode instances and prefill's two wgmma kernels, with the
+# name `torch.profiler` gives the kernel and the [profile] pass it is in
+ISSUE_CASES = (
+    ("stream_gemv m=4", "mlp_matmul",
+     dict(m=4, d=3072, f=24576, act="gelu", dtype="bfloat16"),
+     "stream_gemv_kernel", "decode"),
+    ("gemv_kernel m4s16", "matmul",
+     dict(m=4, n=3072, k=24576, dtype="bfloat16"), "gemv_kernel", "decode"),
+    ("rms_vec", "rms_norm", dict(m=4, d=3072, dtype="bfloat16"),
+     "rms_vec_kernel", "decode"),
+    ("gated_wgmma prefill", "mlp_matmul",
+     dict(m=256, d=3072, f=24576, act="gelu", dtype="bfloat16"),
+     "gated_wgmma_kernel", "prefill"),
+    ("wgmma_kernel prefill", "matmul",
+     dict(m=256, n=3072, k=24576, dtype="bfloat16"), "wgmma_kernel",
+     "prefill"))
+
+
+def _row_tile(shape: str):
+    """(variant or None, tile) of a [kernels] row's shape string."""
+    vid, _, tile = shape.partition("tile ")[2].split()[0].rpartition("/")
+    return vid or None, tile
+
+
+def _loop_line(fn) -> str:
+    """The census of a function's main loop (the loop a row's K, D or KV
+    runs through) and, where work loops nest in it, of the largest
+    innermost one."""
+    from repro_torch.core.sass import census
+    loop = fn.main_loop()
+    if loop is None:
+        return "no loop (straight-line code)"
+    loops = census(fn, {loop.index: 1.0}).loops
+
+    def line(what, lc):
+        classes = ", ".join(f"{k} {v}" for k, v in sorted(
+            lc["classes"].items(), key=lambda kv: -kv[1]))
+        return (f"{what} {lc['instructions']} instructions a pass "
+                f"({classes}), {lc['stall_cycles']} stall cycles, "
+                f"{lc['opcodes']}")
+    out = line("main loop", loops[loop.index])
+    inner = [l for l in fn.innermost()
+             if l is not loop and l.addrs < loop.addrs]
+    if inner:
+        big = max(inner, key=lambda l: len(l.addrs))
+        out += "; " + line("innermost", loops[big.index])
+    return out
+
+
+def _one_bound_bytes(kid: str, sig: dict) -> float:
+    """Each input read once and each output written once (bf16)."""
+    if kid == "matmul":
+        m, n, k = sig["m"], sig["n"], sig["k"]
+        return 2.0 * (m * k + k * n + m * n)
+    if kid == "mlp_matmul":
+        m, d, f = sig["m"], sig["d"], sig["f"]
+        return 2.0 * (m * d + 2 * d * f + m * f)
+    return 2.0 * 2 * sig["m"] * sig["d"] + 4.0 * sig["d"]
+
+
+def phase_extract(rows: dict, ranking: list, profile: dict) -> dict:
+    """The extraction tier on the port's own binaries, with no kernel
+    built or launched: (a) the SASS census of every KERNELS row's
+    kernels, fatal where a row names no function of the disassembly;
+    (b) issue time beside the bytes bound and [profile]'s device time on
+    the decode instances and prefill's wgmma kernels; (c) [ranking]'s
+    instances ranked by the pipeline tier on SASS streams against the
+    same run's times, beside eq6 and the feature-row pipeline; (d) one
+    gemma-7b decode step and prefill at full width traced on ``meta``
+    tensors, through `mix_of_fn`'s extractor and the H100 roofline,
+    fatal if the step reads less than one copy of the weights.  Returns
+    {KERNELS name: its SASS summary}."""
+    import numpy as np
+    import torch
+    from repro_torch import tuning_cache as tc
+    from repro_torch.configs import get_config
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.core.mix import mix_from_graph, trace_fn
+    from repro_torch.core.predict import spearman
+    from repro_torch.core.roofline import roofline_from_artifacts
+    from repro_torch.core.sass import find_function, template_symbol, \
+        use_sass
+    from repro_torch.distributed import make_serve_fns
+    from repro_torch.kernels import _cuda, api
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import use_tuned_layers
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(3) as ex:
+        parts = list(ex.map(_cuda.sass_functions, (None,) + EXTEND))
+    funcs = {k: v for part in parts for k, v in part.items()}
+    print(f"[extract] cuobjdump -res-usage -sass of the library and the "
+          f"{', '.join(EXTEND)} extensions: {len(funcs)} functions, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (a) every KERNELS row's functions
+    summary = {}
+    for name in KERNELS:
+        kid, vid, dtype = EXTRACT_ROWS[name]
+        if kid is None:
+            syms = (template_symbol("splitk_reduce_kernel", dtype),)
+            tile = "-"
+        else:
+            rvid, tile = _row_tile(rows[name]["shape"])
+            params = {"tile": tile} if vid is None else {
+                "variant": rvid or vid, "tile": tile}
+            syms = api.get_spec(kid).sass_symbols(
+                params, **EXTRACT_SIGS[kid], dtype=dtype)
+        if not syms:
+            fail(f"[extract] {name} {tile}: its launch space names no "
+                 f"SASS function")
+        for k, sym in enumerate(syms):
+            fn = find_function(funcs, sym)
+            if fn is None:
+                fail(f"[extract] {name} {tile} {dtype}: no function "
+                     f"{sym}... in the disassembly")
+            loop = fn.main_loop()
+            if k == 0:
+                summary[name] = dict(
+                    function=fn.demangled, regs=fn.regs, local=fn.local,
+                    spills=fn.spill_stores + fn.spill_loads,
+                    instructions=len(fn.instructions),
+                    loop_instructions=(len(fn.body(loop))
+                                       if loop is not None else 0))
+            print(f"[extract] {name} {tile} {dtype}: {fn.demangled[:90]}: "
+                  f"{fn.regs} registers, {fn.local} B local, spills "
+                  f"{fn.spill_stores} STL / {fn.spill_loads} LDL, "
+                  f"{len(fn.instructions)} instructions, "
+                  f"{len(fn.loops)} loops; {_loop_line(fn)}", flush=True)
+
+    # (b) issue time beside the bounds
+    clock = H100_SXM.gpu_clock_mhz * 1e6
+    issue_rate = 4 * H100_SXM.multiprocessors * clock
+    print(f"[extract] issue bound = warp instructions / (4 schedulers x "
+          f"{H100_SXM.multiprocessors} SMs x {clock / 1e9:.2f} GHz, the "
+          f"spec's boost clock)", flush=True)
+    for label, kid, sig, kname, where in ISSUE_CASES:
+        spec = api.get_spec(kid)
+        p = tc.lookup_or_tune(kid, spec="h100", db=tc.TuningDatabase(),
+                              **sig)
+        row = spec.sass_row(p, funcs, **sig)
+        c = row.census
+        instr = c.instructions
+        hbm = row.info.mix.hbm_bytes
+        t_issue = instr / issue_rate * 1e6
+        t_bytes = hbm / HBM_BYTES_PER_S * 1e6
+        t_once = _one_bound_bytes(kid, sig) / HBM_BYTES_PER_S * 1e6
+        hits = [(n, us) for key, (n, us) in profile[where].items()
+                if re.search(rf"(?<!\w){kname}<", key)]
+        meas = max(hits)[1] if hits else float("nan")
+        loop = row.function.main_loop()
+        classes = ", ".join(f"{k} {v:.3g}" for k, v in c.issued.items()
+                            if v)
+        print(f"[extract] {label} {p}: {instr:.4g} warp instructions "
+              f"issued ({classes}), "
+              f"main loop {row.trips.get(loop.index, 0) if loop else 0:.3g} "
+              f"passes a warp x {row.warps:.0f} warps; "
+              f"{instr / hbm:.4f} instructions per HBM byte; issue bound "
+              f"{t_issue:.2f} us | the row's bytes {t_bytes:.2f} us, one "
+              f"read of each operand {t_once:.2f} us | [profile] device "
+              f"{meas:.2f} us per launch", flush=True)
+
+    # (c) the ranking instances on SASS streams
+    want = [("matmul", dict(m=256, n=3072, k=24576, dtype="bfloat16")),
+            ("matmul", dict(m=4, n=3072, k=24576, dtype="bfloat16")),
+            ("rms_norm", dict(m=256, d=3072, dtype="bfloat16")),
+            ("rms_norm", dict(m=4, d=3072, dtype="bfloat16")),
+            ("rms_norm", dict(RMS_LONG)),
+            ("mlp_matmul", dict(m=256, d=3072, f=24576, act="gelu",
+                                dtype="bfloat16")),
+            ("mlp_matmul", dict(m=4, d=3072, f=24576, act="gelu",
+                                dtype="bfloat16"))] + [
+        ("flash_attention", dict(b=4, h=16, sq=64, skv=64, d=256,
+                                 causal=True, dtype=dt))
+        for dt in ("bfloat16", "float32")]
+    with use_sass(funcs):
+        for kid, sig in want:
+            r = next((r for r in ranking if r["kernel"] == kid
+                      and r["sig"] == sig), None)
+            if r is None:
+                fail(f"[extract] {kid} {sig}: not among [ranking]'s rows")
+            times, via = _pipeline_rank(kid, sig, r["rows"])
+            pick = r["names"].index(f"{via.get('variant', kid)}/"
+                                    f"{via['tile']}")
+            shape = {k: v for k, v in sig.items() if k not in ("act",
+                                                                  "causal")}
+            for what, meas in (("wrapper", r["meas"]),
+                               ("device", r["dev_ms"])):
+                if meas is None:
+                    continue
+                best = int(np.argmin(meas))
+                eq6 = r["names"].index(r["pick"])
+                pipe = r["names"].index(r["pipe_pick"])
+                rho = lambda t: spearman(t, meas) if len(t) > 2 else 0.0
+                eq6_rho = r["rho"] if what == "wrapper" else r["device_rho"]
+                print(f"[extract] {kid} {shape} on {what} time: SASS "
+                      f"pipeline pick {r['names'][pick]} regret "
+                      f"{meas[pick] / meas[best]:.2f}x spearman "
+                      f"{rho(times):.2f}; eq6 "
+                      f"{r['pick']} {meas[eq6] / meas[best]:.2f}x "
+                      f"{eq6_rho:.2f}; feature-row pipeline "
+                      f"{r['pipe_pick']} {meas[pipe] / meas[best]:.2f}x "
+                      f"{rho(r['ptimes']):.2f}; best {r['names'][best]}",
+                      flush=True)
+            print("[extract]   SASS pipeline pred ms: " + "; ".join(
+                f"{n} {1e3 * t:.4f}" for n, t in zip(r["names"], times)))
+
+    # (d) one decode step and one prefill of 4 x 64 + 32, traced
+    cfg = get_config("gemma-7b")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="meta")
+    prefill, decode = make_serve_fns(model)
+    tokens = torch.zeros((4, 64), dtype=torch.long, device="meta")
+    with torch.inference_mode(), use_tuned_layers():
+        g_pre = trace_fn(prefill, params, {"tokens": tokens})
+        with api.collect_dispatches():
+            _, cache = prefill(params, {"tokens": tokens})
+        g_dec = trace_fn(decode, params, cache,
+                         torch.zeros((4, 1), dtype=torch.long,
+                                     device="meta"))
+    weights = sum(p.value.numel() * p.value.element_size()
+                  for k, p in _param_items(params) if k != "embed")
+    n_params = sum(p.value.numel() for _, p in _param_items(params))
+    floor_ms = weights / HBM_BYTES_PER_S * 1e3
+    for what, graph, tokens_n, busy in (
+            ("decode step", g_dec, 4, profile["decode_busy_ms"]),
+            ("prefill", g_pre, 4 * 64, profile["prefill_busy_ms"])):
+        mix = mix_from_graph(graph)
+        terms = roofline_from_artifacts(
+            f"gemma-7b {what}", {}, None, 1, 2.0 * n_params * tokens_n,
+            spec=H100_SXM, mix=mix)
+        leaves = sum(1 for o in graph.ops if o.kernel is not None)
+        print(f"[extract] gemma-7b {what} (4 x 64 + 32, traced on meta: "
+              f"{len(graph.ops)} ops, {leaves} tuned-op leaves): "
+              f"mxu {mix.mxu_flops:.4g} vpu {mix.vpu_flops:.4g} trans "
+              f"{mix.trans_flops:.4g} flops, {mix.hbm_bytes / 1e9:.3f} GB; "
+              f"t_compute {terms.t_compute * 1e3:.3f} ms, t_memory "
+              f"{terms.t_memory * 1e3:.3f} ms ({terms.dominant}) | "
+              f"[profile] device busy {busy:.2f} ms | bytes floor "
+              f"{floor_ms:.2f} ms ({weights / 1e9:.2f} GB of bf16 weights "
+              f"past the embedding)", flush=True)
+        if what == "decode step" and mix.hbm_bytes < weights:
+            fail(f"[extract] the traced decode step reads "
+                 f"{mix.hbm_bytes:.4g} B, less than one read of the "
+                 f"{weights:.4g} B of weights")
+    print(f"[extract] phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return summary
+
+
+def _param_items(tree, prefix: str = ""):
+    from repro_torch.models.params import Param
+    for k, v in tree.items():
+        if isinstance(v, Param):
+            yield prefix + k, v
+        else:
+            yield from _param_items(v, prefix + k + ".")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(SRC, "repro_torch", "kernels",
                                       "csrc")):
@@ -2045,18 +2414,22 @@ def main() -> None:
     rows = phase_kernels(dev)
     rows.update(phase_table4(dev))
     pretuned_launches = phase_pretuned(dev)
-    phase_ranking(dev)
+    ranking = phase_ranking(dev)
     phase_check(dev)
     reports, launches = phase_serve()
     import tempfile
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         jsonl, deploy_launches = phase_deploy(reports, launches, work)
         service_launches = phase_service(reports, jsonl)
-    phase_profile(dev)
+    profile = phase_profile(dev)
+    for (kid, dtype), us in profile["table4"].items():
+        if dtype == "float32":
+            rows[kid]["device_us"] = us
     _, tuner_launches = phase_tuner()
     dispatch_launches = phase_dispatch(dev)
     ext_launches = phase_extend(dev, card)
     rows.update(phase_extend_kernels(dev))
+    sass = phase_extract(rows, ranking, profile)
 
     from repro_torch.kernels import mlp_matmul as mlp
     counter = {"fused": (mlp.GATED_TILES, mlp._GATED_COUNTER),
@@ -2128,7 +2501,9 @@ def main() -> None:
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 **{k: r[k] for k in ("device_us", "library_device_us",
                                      "composite_ms", "composite_device_us")
-                   if k in r}}
+                   if k in r},
+                "sass": {k: sass[name][k] for k in ("regs", "spills",
+                                                    "loop_instructions")}}
 
     for n in KERNELS:
         path, counts = paths[n]

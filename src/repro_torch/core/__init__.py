@@ -3,7 +3,8 @@
 Layers (paper §III):
   hw         Table I / Table II constants, TPU targets, the H100 target
   target     process-default hardware target (env / autodetect / scoped)
-  mix        the instruction-mix record Eq. 6 prices, boundedness rule
+  mix        instruction-mix extraction (torch graph + HLO text) and the
+             record Eq. 6 prices, boundedness rule
   occupancy  CUDA Eqs. 1-5 (faithful) + TPU pipeline occupancy
   predict    Eq. 6 time model, the H100 roofline model, calibration,
              rank metrics
@@ -11,6 +12,9 @@ Layers (paper §III):
   autotuner  KernelTuner (TPU block spaces, H100 tile tables) +
              GraphTuner.tune_config
   annotations  the Orio PerfTuning front end (paper Fig. 3)
+  hlo        collective bytes, op census, remat-duplication (HLO text)
+  roofline   3-term roofline from compiled artifacts (TPU and H100)
+  sass       the census of the port's own sm_90a binaries
 """
 from repro_torch.core.hw import (GPU_TABLE, FERMI_M2050, KEPLER_K20,
                                  MAXWELL_M40, H100_SXM, HOPPER_TABLE,
@@ -22,8 +26,10 @@ from repro_torch.core.hw import (GPU_TABLE, FERMI_M2050, KEPLER_K20,
 from repro_torch.core.target import (ENV_TARGET, default_target,
                                      set_default_target, use_target,
                                      detect_target)
-from repro_torch.core.mix import (InstructionMix, intensity,
-                                 classify_boundedness)
+from repro_torch.core.mix import (InstructionMix, TorchGraph, trace_fn,
+                                 mix_from_graph, mix_of_fn,
+                                 mix_from_hlo_text, mix_from_cost_analysis,
+                                 intensity, classify_boundedness)
 from repro_torch.core.occupancy import (CudaOccupancy, cuda_occupancy,
                                         CudaOccupancyBatch,
                                         cuda_occupancy_batch,
@@ -44,3 +50,12 @@ from repro_torch.core.autotuner import (KernelStaticInfo, TunableKernel,
                                         TuningReport, KernelTuner,
                                         GraphTuner, make_intensity_rule)
 from repro_torch.core.annotations import annotate, parse_tuning_spec
+from repro_torch.core.hlo import (collective_stats, op_census,
+                                 remat_duplication, analyze_hlo, HloReport,
+                                 CollectiveStats, parse_hlo, module_mix,
+                                 HloModule)
+from repro_torch.core.roofline import (RooflineTerms,
+                                      roofline_from_artifacts,
+                                      format_roofline_row)
+from repro_torch.core.sass import (SassFunction, SassCensus, parse_sass,
+                                  census, fit_trips, use_sass)

@@ -52,7 +52,7 @@ from repro_torch.core.predict import CostModel, default_cuda_model, \
 __all__ = [
     "StreamOp", "InstructionStream", "PipelineResult", "simulate",
     "synthesize_stream", "stream_of_info", "stream_from_hlo", "as_stream",
-    "PipelineModel", "pipeline_model",
+    "PipelineModel", "pipeline_model", "stream_from_sass",
 ]
 
 
@@ -336,13 +336,124 @@ def simulate(stream: InstructionStream, table: IsaTable, *,
 
 
 def stream_from_hlo(text_or_module: Any) -> InstructionStream:
-    """Extract a stream from compiled HLO text — the reference walks
-    its `core.hlo` module tree.  This package has no HLO front end yet:
-    the extraction tier (ROADMAP A5, `core/hlo.py`) is not ported, so
-    this raises ``NotImplementedError``."""
-    raise NotImplementedError(
-        "stream_from_hlo needs the extraction tier (core/hlo.py, ROADMAP "
-        "A5), which repro_torch does not have yet")
+    """Extract a stream from compiled HLO text via `core.hlo`'s
+    loop-aware walk: one segment per top-level instruction (execution-
+    multiplier-weighted units, same class tables as `module_mix`),
+    with dependences from the instruction's operands."""
+    from repro_torch.core import hlo as H
+    mod = text_or_module if isinstance(text_or_module, H.HloModule) \
+        else H.parse_hlo(text_or_module)
+    ops: List[StreamOp] = []
+    for cname, comp in mod.computations.items():
+        scale = mod.multipliers.get(cname, 0.0)
+        if scale <= 0 or mod.fusion_internal.get(cname, False):
+            continue
+        at: Dict[str, int] = {}    # producer instruction -> stream index
+        for ins in comp.instructions:
+            cls, units = _classify_hlo(ins, comp)
+            if cls is None or units <= 0.0:
+                continue
+            dep = next((at[o] for o in reversed(ins.operands) if o in at),
+                       None)
+            at[ins.name] = len(ops)
+            ops.append(StreamOp(cls, units * scale, dep))
+    return InstructionStream(tuple(ops))
+
+
+def _classify_hlo(ins: Any, comp: Any) -> Tuple[Optional[str], float]:
+    """(class, units) of one top-level HLO instruction, mirroring the
+    `module_mix` conventions (dot -> mxu flops, elementwise -> vpu,
+    shaping -> reg, top-level results -> hbm bytes)."""
+    from repro_torch.core import hlo as H
+    op = ins.opcode
+    if op == "dot":
+        k = 1.0
+        cm = H._CONTRACT_RE.search(ins.line)
+        lhs = comp.shape_of(ins.operands[0]) if ins.operands else None
+        if cm and lhs:
+            dims = lhs[0][1]
+            for i in (int(x) for x in cm.group(1).split(",") if x):
+                if i < len(dims):
+                    k *= dims[i]
+        return "mxu", 2.0 * ins.out_elems * k
+    if op == "convolution":
+        return "mxu", 2.0 * ins.out_elems
+    if op in H._TRANS:
+        return "trans", ins.out_elems
+    if op in H._VPU or op in H._REDUCE:
+        return "vpu", ins.out_elems
+    if op in H._REG:
+        return "reg", ins.out_elems
+    if op in H._MEM:
+        return "hbm", ins.out_bytes
+    if op == "select":
+        return "ctrl", ins.out_elems
+    if op in H._CTRL:
+        return "ctrl", 1.0
+    return None, 0.0
+
+
+# SASS classes in a stream: a control instruction (branch, barrier,
+# scoreboard wait) takes a scheduler's issue slot like an ALU one, at an
+# ALU instruction's 64 units; the ``ctrl`` class of the Hopper table
+# prices launches, which the stream carries as its own segment
+_SASS_STREAM_CLASS = {"ctrl": "vpu"}
+
+
+def stream_from_sass(function: Any, trips: Mapping[int, float], *,
+                     warps: float, info: Any = None,
+                     tma_bytes: float = 0.0) -> InstructionStream:
+    """The Hopper front end: a stream read from a kernel's SASS
+    (`repro_torch.core.sass.SassFunction`).
+
+    One iteration is one pass of the function's main loop (`SassFunction.
+    main_loop`) by every warp of the launch: one `StreamOp` per run of
+    consecutive body instructions of one class (units: `core.sass`'s per
+    warp instruction, times the launch's ``warps`` and the trips of any
+    loop nested in the body), each depending on the latest earlier run
+    that writes a register it reads (the def-use view of SASSOverlay's
+    scoreboards).  The code outside the main loop (set-up, epilogue,
+    other loops) and the row's launches (``info.mix.ctrl_ops``) are
+    spread over the iterations, one segment per class.  Iterations are
+    the main loop's ``trips`` per warp pass; concurrency is the row's
+    resident warps per SM (``info.hopper.active_warps``), as
+    `stream_of_info` takes it.  ``tma_bytes``: the device bytes the
+    launch's TMA and bulk copies move (`core.sass.census`)."""
+    from repro_torch.core.sass import bulk_share, executions
+    loop = function.main_loop()
+    counts = executions(function, trips, warps)
+    per_bulk = bulk_share(function, counts, tma_bytes)
+    iters = float(trips.get(loop.index, 1.0)) if loop is not None else 1.0
+    iters = max(iters, 1e-9)
+    launches = float(getattr(getattr(info, "mix", None), "ctrl_ops", 0.0)
+                     or 1.0)
+    ops: List[StreamOp] = [StreamOp("ctrl", launches / iters)]
+    writer: Dict[str, int] = {}
+    rest: Dict[str, float] = {}
+    for i, n in zip(function.instructions, counts):
+        cls = _SASS_STREAM_CLASS.get(i.cls, i.cls)
+        u = n * (64.0 if i.cls == "ctrl" else i.units(per_bulk)) / iters
+        if loop is None or not loop.contains(i.addr):
+            rest[cls] = rest.get(cls, 0.0) + u
+            continue
+        dst, src = i.regs()
+        dep = max((writer[r] for r in src if r in writer), default=None)
+        last = ops[-1]
+        if len(ops) > 1 and last.cls == cls and (dep is None
+                                                  or dep < len(ops) - 1):
+            # the run waits on the latest producer of any of its reads
+            deps = [d for d in (last.dep, dep) if d is not None]
+            ops[-1] = StreamOp(cls, last.units + u,
+                               max(deps) if deps else None)
+        else:
+            ops.append(StreamOp(cls, u, dep))
+        for r in dst:
+            writer[r] = len(ops) - 1
+    ops += [StreamOp(cls, rest[cls]) for cls in CLASSES
+            if rest.get(cls, 0.0) > 0.0]
+    conc = float(max(int(getattr(getattr(info, "hopper", None),
+                                 "active_warps", 1) or 1), 1))
+    return InstructionStream(tuple(ops), iterations=iters, concurrency=conc)
 
 
 # ---------------------------------------------------------------------------
@@ -407,10 +518,14 @@ class PipelineModel:
 
 def pipeline_model(spec: Optional[Union[str, ChipSpec]] = None, *,
                    base: Optional[CostModel] = None,
-                   keep_n: int = 64) -> PipelineModel:
+                   keep_n: int = 64,
+                   sass_key: Optional[str] = None) -> PipelineModel:
     """The default pipeline tier for a chip: family `IsaTable` +
     the family's Eq. 6 model (the H100 roofline under a `HopperSpec`)
-    as the shortlist producer."""
+    as the shortlist producer.  ``sass_key`` names the disassembly whose
+    streams the H100 rows are read from (`repro_torch.core.sass.
+    use_sass`): the model's fingerprint carries it, so ranks read from a
+    binary never answer for the feature-row streams or another binary."""
     spec = resolve_target(spec)
     if base is None:
         if isinstance(spec, HopperSpec):
@@ -420,4 +535,6 @@ def pipeline_model(spec: Optional[Union[str, ChipSpec]] = None, *,
         else:
             base = default_tpu_model(spec, mode="max")
     return PipelineModel(base=base, table=isa_table_for(spec), spec=spec,
-                         keep_n=int(keep_n))
+                         keep_n=int(keep_n),
+                         name="pipeline" if sass_key is None
+                         else f"pipeline+sass.{sass_key}")

@@ -30,6 +30,7 @@ import numpy as np
 from repro_torch import tuning_cache
 from repro_torch.core import KernelTuner
 from repro_torch.core.hw import dtype_bytes
+from repro_torch.core.sass import template_symbol
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, TILE_AXIS, divisors,
                                      get_spec, tuned_kernel)
@@ -128,6 +129,13 @@ def _saxpy_inputs(gen, *, m: int, n: int, dtype: str = "float32"):
             torch.randn((m, n), generator=gen, device=gen.device).to(dt))
 
 
+def _saxpy_symbols(tile: str, *, m: int, n: int, dtype: str = "float32"):
+    """The SASS function of row ``tile`` (the pipeline tier reads its
+    instruction stream from the disassembly)."""
+    tpb, v = SAXPY_TILES[tile]
+    return (template_symbol("saxpy_kernel", dtype, tpb, v),)
+
+
 # -- 3. the declaration: everything else is derived --------------------------
 
 @tuned_kernel(
@@ -136,7 +144,8 @@ def _saxpy_inputs(gen, *, m: int, n: int, dtype: str = "float32"):
     signature=lambda a, b, **_: dict(m=a.shape[0], n=a.shape[1],
                                      dtype=dtype_name(a)),
     static_info=_saxpy_analysis,
-    hopper=HopperSpace(tiles=tuple(SAXPY_TILES), analysis=_saxpy_hopper),
+    hopper=HopperSpace(tiles=tuple(SAXPY_TILES), analysis=_saxpy_hopper,
+                       symbols=_saxpy_symbols),
     out=lambda a, b, **_: (tuple(a.shape), a.dtype),
     make_inputs=_saxpy_inputs,
     reference=saxpy2d_plain,

@@ -17,6 +17,11 @@ A kernel declared outside the library — a module dropped into
 builds it with `load_extension`: one ``nvcc`` with the same flags, into
 its own digest-named library beside the main one, loaded with ctypes.
 The library's source list and C interface never name it.
+
+`disassemble` reads what was built: ``cuobjdump -res-usage -sass`` of the
+library or of an extension, from the toolkit ``nvcc`` came from, cached
+beside the binary; `sass_functions` parses it (`repro_torch.core.sass`)
+with names demangled by the toolkit's ``cu++filt``.
 """
 from __future__ import annotations
 
@@ -31,8 +36,8 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 __all__ = ["library", "load_extension", "build_log", "check", "stream_of",
-           "dtype_code", "require_operands", "CSRC", "SOURCES",
-           "TILE_INFO_INTS"]
+           "dtype_code", "require_operands", "disassemble", "demangle",
+           "sass_functions", "CSRC", "SOURCES", "TILE_INFO_INTS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("gemm.cu", "rms_norm.cu", "attention.cu", "blas2.cu",
@@ -231,6 +236,85 @@ def build_log(extension: Optional[str] = None) -> Dict[str, object]:
     if extension is not None:
         return dict(_ext_logs.get(extension, {}))
     return dict(_log)
+
+
+def _toolkit(tool: str) -> str:
+    """A binary of the toolkit ``nvcc`` came from (no fallback: a
+    missing tool raises)."""
+    path = os.path.join(os.path.dirname(_nvcc()), tool)
+    if not os.path.isfile(path):
+        raise RuntimeError(f"{tool} not found beside {_nvcc()}: the built "
+                           f"kernels cannot be disassembled on this "
+                           f"machine")
+    return path
+
+
+def _binary(extension: Optional[str]) -> Path:
+    if extension is None:
+        library()
+        return Path(str(_log["path"]))
+    log = _ext_logs.get(extension)
+    if not log:
+        raise RuntimeError(f"extension {extension!r} is not loaded: call "
+                           f"its module's extension() first")
+    return Path(str(log["path"]))
+
+
+def disassemble(extension: Optional[str] = None) -> str:
+    """``cuobjdump -res-usage`` and ``-sass`` of the kernel library
+    (building it first if needed) or of a loaded extension, in one text.
+    The text is cached beside the binary (``<library>.sass``, named by
+    the same digest), so an unchanged build disassembles once."""
+    lib = _binary(extension)
+    cache = lib.with_suffix(".sass")
+    if cache.is_file():
+        return cache.read_text()
+    tool = _toolkit("cuobjdump")
+    procs = [subprocess.Popen([tool, flag, str(lib)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for flag in ("-res-usage", "-sass")]
+    parts = []
+    for flag, p in zip(("-res-usage", "-sass"), procs):
+        out, err = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"cuobjdump {flag} {lib} failed "
+                               f"(rc={p.returncode}): {err[-2000:]}")
+        parts.append(out)
+    text = "".join(parts)
+    tmp = cache.with_suffix(f".{os.getpid()}.tmp")
+    tmp.write_text(text)
+    os.replace(tmp, cache)
+    return text
+
+
+def demangle(names: Sequence[str]) -> Dict[str, str]:
+    """Mangled -> demangled names, by the toolkit's ``cu++filt``."""
+    names = list(names)
+    p = subprocess.run([_toolkit("cu++filt")], input="\n".join(names),
+                       capture_output=True, text=True)
+    out = p.stdout.splitlines()
+    if p.returncode != 0 or len(out) != len(names):
+        raise RuntimeError(f"cu++filt failed (rc={p.returncode}): "
+                           f"{p.stderr[-2000:]}")
+    return dict(zip(names, out))
+
+
+_sass: Dict[str, Dict[str, object]] = {}
+
+
+def sass_functions(extension: Optional[str] = None) -> Dict[str, object]:
+    """The library's (or an extension's) SASS functions, keyed by mangled
+    name (`repro_torch.core.sass.parse_sass` of `disassemble`, names
+    demangled by `demangle`); memoized per binary."""
+    from repro_torch.core.sass import parse_sass
+    key = str(_binary(extension))
+    hit = _sass.get(key)
+    if hit is None:
+        hit = parse_sass(disassemble(extension))
+        for name, full in demangle(list(hit)).items():
+            hit[name].demangled = full
+        _sass[key] = hit
+    return hit
 
 
 def check(rc: int, what: str, lib: Optional[ctypes.CDLL] = None) -> None:

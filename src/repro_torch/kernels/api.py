@@ -61,6 +61,7 @@ from repro_torch.core.autotuner import TunableKernel
 from repro_torch.core.hw import H100_SXM, GpuSpec, HopperSpec
 from repro_torch.core.mix import InstructionMix
 from repro_torch.core.occupancy import CudaOccupancy
+from repro_torch.core import sass as _sass
 from repro_torch.core.search import Constraint, Params, SearchSpace
 from repro_torch.core.target import default_target
 from repro_torch.kernels.common import (BatchStaticInfo, HopperBatchInfo,
@@ -238,10 +239,15 @@ class HopperSpace:
       `repro_torch.kernels.common.hopper_info_batch` (grid size,
       threads, declared registers, shared bytes, FLOPs, bytes, ...)
       for those rows, without the ``spec``.
+    * ``symbols(tile, **signature)`` — the SASS functions one launch of
+      the row runs, as `repro_torch.core.sass.template_symbol` prefixes,
+      the kernel that does the row's work first (optional: a space
+      without it has no SASS stream for the pipeline tier).
     """
 
     tiles: Tuple[str, ...]
     analysis: Callable[..., Dict[str, Any]]
+    symbols: Optional[Callable[..., Tuple[str, ...]]] = None
 
     def info(self, tiles: Sequence[str], sig: Mapping[str, Any],
              spec: HopperSpec) -> HopperBatchInfo:
@@ -276,6 +282,32 @@ class HopperStaticInfo:
         if not self.ok:
             return float("inf")
         return max(model.time(self.mix), self.predicted_step_time)
+
+
+@dataclasses.dataclass
+class SassRow:
+    """One H100 row read from the disassembly (`KernelSpec.sass_row`):
+    its kernels' SASS functions (the working kernel first), the main
+    loop's trips per warp pass, the launch's warps, the bytes its TMA
+    and bulk copies move, the row's H100 static info, and the census of
+    the working kernel."""
+
+    functions: Tuple[Any, ...]
+    trips: Dict[int, float]
+    warps: float
+    tma_bytes: float
+    info: "HopperStaticInfo"
+    census: Any
+
+    @property
+    def function(self) -> Any:
+        return self.functions[0]
+
+    def stream(self):
+        """The row's `repro_torch.core.pipeline.stream_from_sass`."""
+        from repro_torch.core.pipeline import stream_from_sass
+        return stream_from_sass(self.function, self.trips, warps=self.warps,
+                                info=self.info, tma_bytes=self.tma_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -321,8 +353,21 @@ def reset_dispatch_stats() -> None:
     _STATS.reset()
 
 
-_COLLECT: "contextvars.ContextVar[Optional[List[Tuple[str, Dict]]]]" = \
+# the active collector: an object whose ``record(spec, signature, args,
+# kwargs)`` takes an op dispatch in place of running it and returns its
+# outputs (`collect_dispatches`; `repro_torch.core.mix.trace_fn`)
+_COLLECT: "contextvars.ContextVar[Optional[Any]]" = \
     contextvars.ContextVar("repro_torch_collect_dispatches", default=None)
+
+
+class _Dispatches(list):
+    """`collect_dispatches`' collector: ``(kernel_id, signature)`` per
+    dispatch, empty ``meta`` outputs."""
+
+    def record(self, spec: "KernelSpec", sig: Dict[str, Any], args,
+               kw) -> Any:
+        self.append((spec.kernel_id, dict(sig)))
+        return spec.meta_out(*args, **kw)
 
 
 @contextlib.contextmanager
@@ -337,7 +382,7 @@ def collect_dispatches():
     exactly the (kernel, shape, dtype) instance set runtime dispatch
     will ask for (`GraphTuner.tune_config`).
     """
-    sink: List[Tuple[str, Dict]] = []
+    sink = _Dispatches()
     tok = _COLLECT.set(sink)
     try:
         yield sink
@@ -421,8 +466,10 @@ class KernelSpec:
     * ``schedule(p, **signature)`` — the pipeline tier's per-config
       instruction stream under a TPU target, (class, units[, dep]) rows
       (`repro_torch.core.pipeline.as_stream`), as the reference; None
-      synthesizes the stream from the feature mix.  The H100 rows always
-      use their feature row.
+      synthesizes the stream from the feature mix.  The H100 rows use
+      their feature row, or — inside `repro_torch.core.sass.use_sass` —
+      the SASS stream of the functions their `HopperSpace` names
+      (`sass_row`), so the TPU schedule stays the reference's.
     """
 
     kernel_id: str
@@ -738,11 +785,65 @@ class KernelSpec:
 
     def _hopper_problem(self, spec: HopperSpec,
                         sig: Dict[str, Any]) -> "tuning_cache.TuningProblem":
+        active = _sass.active_sass()
+        schedule = None
+        if active is not None:
+            funcs = active[0]
+
+            def schedule(p):
+                row = self.sass_row(p, funcs, spec, **sig)
+                return None if row is None else row.stream()
         return tuning_cache.TuningProblem(
             space=self.hopper_space(**sig),
             static_info=self._hopper_scalar(spec, sig),
             static_info_batch=lambda c: self.hopper_info_batch(c, spec,
-                                                               **sig))
+                                                               **sig),
+            schedule=schedule)
+
+    def sass_symbols(self, params: Params, **signature) -> Tuple[str, ...]:
+        """The SASS functions one launch of an H100 row runs
+        (`HopperSpace.symbols`; ``()`` where the space names none)."""
+        vid = None if self._variants is None else params.get(VARIANT_AXIS)
+        h = self._hopper[vid]
+        if h.symbols is None:
+            return ()
+        return tuple(h.symbols(params[TILE_AXIS], **self.normalize(
+            signature)))
+
+    def sass_row(self, params: Params, functions: Mapping[str, Any],
+                 spec: HopperSpec = H100_SXM,
+                 **signature) -> Optional[SassRow]:
+        """An H100 row read from a disassembly (``functions``, as
+        `repro_torch.core.sass.parse_sass` gives them): its functions,
+        the main loop's trips read off the row's analysis
+        (`repro_torch.core.sass.fit_trips`), the launch's warps (blocks x
+        threads / 32) and the device bytes its TMA and bulk copies move
+        (the row's device bytes past those of its loads and stores of
+        stated width).  None where the row is infeasible or its space
+        names no functions; KeyError where a function is missing from
+        the disassembly."""
+        sig = self.normalize(signature)
+        syms = self.sass_symbols(params, **sig)
+        info = self._hopper_scalar(spec, sig)(params)
+        if not syms or not info.ok:
+            return None
+        found = tuple(_sass.find_function(functions, s) for s in syms)
+        missing = [s for s, f in zip(syms, found) if f is None]
+        if missing:
+            raise KeyError(f"{self.kernel_id} {dict(params)}: no SASS "
+                           f"function {missing} in the disassembly")
+        vid = None if self._variants is None else params.get(VARIANT_AXIS)
+        cost = self._hopper[vid].analysis(
+            {TILE_AXIS: np.asarray([params[TILE_AXIS]])}, **sig)
+        one = lambda v: float(np.asarray(v).reshape(-1)[0])
+        warps = one(cost["blocks"]) * -(-one(cost["threads"]) // 32)
+        fn = found[0]
+        trips = _sass.fit_trips(fn, info.mix, warps=warps)
+        tma = _sass.copy_bytes(fn, info.mix.hbm_bytes, trips, warps)
+        return SassRow(functions=found, trips=trips, warps=warps,
+                       tma_bytes=tma, info=info,
+                       census=_sass.census(fn, trips, warps=warps,
+                                           tma_bytes=tma))
 
     def fallback_tile(self, variant_id: Optional[str],
                       **signature) -> Tuple[Optional[str], str]:
@@ -874,15 +975,8 @@ class KernelSpec:
                 sig = self.extract_signature(*args, **kw)
                 col = _COLLECT.get()
                 if col is not None:
-                    import torch
-                    col.append((kernel_id, dict(sig)))
                     stats.collected += 1
-                    outs = self.out(*args, **kw)
-                    if isinstance(outs, list):
-                        return tuple(torch.empty(s, dtype=d, device="meta")
-                                     for s, d in outs)
-                    shape, dtype = outs
-                    return torch.empty(shape, dtype=dtype, device="meta")
+                    return col.record(self, sig, args, kw)
                 if tuned_params is not None:
                     stats.explicit += 1
                     fn, launch, _ = self._launch(tuned_params, sig)
@@ -920,6 +1014,17 @@ class KernelSpec:
             op.spec = self
             self._op = op
         return self._op
+
+    def meta_out(self, *args, **kw) -> Any:
+        """Empty ``meta`` tensors of a call's outputs (``out``): what an
+        op returns while a collector takes its dispatches."""
+        import torch
+        outs = self.out(*args, **kw)
+        if isinstance(outs, list):
+            return tuple(torch.empty(s, dtype=d, device="meta")
+                         for s, d in outs)
+        shape, dtype = outs
+        return torch.empty(shape, dtype=dtype, device="meta")
 
     def _fn_keywords(self) -> frozenset:
         if self._fn_kw is None:

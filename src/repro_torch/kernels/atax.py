@@ -29,6 +29,7 @@ import numpy as np
 from repro_torch.core.autotuner import KernelStaticInfo, TunableKernel
 from repro_torch.core.hw import H100_SXM, dtype_bytes
 from repro_torch.core.occupancy import cuda_occupancy_batch
+from repro_torch.core.sass import template_symbol
 from repro_torch.core.search import SearchSpace
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, TILE_AXIS, cuda_profile,
@@ -185,13 +186,26 @@ def atax_cuda(a, x, *, tile: str):
     return y
 
 
+def blas2_symbols(kernel: str, tile: str, dtype: str):
+    """atax's or BiCG's sweep instantiation for BLAS2_TILES row ``tile``
+    and the column-sum kernel that reduces its workspace."""
+    threads, rows = BLAS2_TILES[tile]
+    return (template_symbol(kernel, dtype, threads, rows),
+            template_symbol("colsum_kernel", dtype))
+
+
+def _atax_symbols(tile: str, *, m: int, n: int, dtype: str = "float32"):
+    return blas2_symbols("atax_kernel", tile, dtype)
+
+
 @tuned_kernel(
     "atax",
     space={"bm": divisors("m", (16, 32, 64, 128, 256, 512, 1024))},
     signature=lambda a, x, **_: dict(m=a.shape[0], n=a.shape[1],
                                      dtype=dtype_name(a)),
     static_info=_atax_analysis,
-    hopper=HopperSpace(tiles=tuple(BLAS2_TILES), analysis=_atax_hopper),
+    hopper=HopperSpace(tiles=tuple(BLAS2_TILES), analysis=_atax_hopper,
+                       symbols=_atax_symbols),
     out=lambda a, x, **_: ((a.shape[1], 1), a.dtype),
     make_inputs=_atax_inputs,
     reference=atax_ref,

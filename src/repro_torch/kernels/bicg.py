@@ -24,6 +24,7 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, cuda_profile, divisors,
                                      get_spec, tuned_kernel)
 from repro_torch.kernels.atax import (BLAS2_TILES, _blas2_hopper,
+                                      blas2_symbols,
                                       blas2_workspace_rows, check_blas2)
 from repro_torch.kernels.common import (block_info, cdiv, dtype_name,
                                         dtype_str,
@@ -99,13 +100,18 @@ def bicg_cuda(a, p, r, *, tile: str):
     return q, s
 
 
+def _bicg_symbols(tile: str, *, m: int, n: int, dtype: str = "float32"):
+    return blas2_symbols("bicg_kernel", tile, dtype)
+
+
 @tuned_kernel(
     "bicg",
     space={"bm": divisors("m", (16, 32, 64, 128, 256, 512, 1024))},
     signature=lambda a, p, r, **_: dict(m=a.shape[0], n=a.shape[1],
                                         dtype=dtype_name(a)),
     static_info=_bicg_analysis,
-    hopper=HopperSpace(tiles=tuple(BLAS2_TILES), analysis=_bicg_hopper),
+    hopper=HopperSpace(tiles=tuple(BLAS2_TILES), analysis=_bicg_hopper,
+                       symbols=_bicg_symbols),
     out=lambda a, p, r, **_: [((a.shape[0], 1), a.dtype),
                               ((a.shape[1], 1), a.dtype)],
     make_inputs=_bicg_inputs,

@@ -28,17 +28,21 @@ from repro_torch.core.occupancy import (CudaOccupancy, CudaOccupancyBatch,
 from repro_torch.core.predict import cuda_eq6_time
 from repro_torch.core.autotuner import KernelStaticInfo
 
-__all__ = ["cdiv", "block_info",
+__all__ = ["cdiv", "round_up", "block_info",
            "BatchStaticInfo", "block_info_batch",
            "CudaStaticInfo", "cuda_info",
            "CudaBatchStaticInfo", "cuda_info_batch",
            "HopperBatchInfo", "hopper_info_batch",
-           "pick_divisor_candidates", "require_shape",
+           "pick_divisor_candidates", "require_tiling", "require_shape",
            "dtype_name", "dtype_str", "resolve_device"]
 
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def round_up(x: int, m: int) -> int:
+    return cdiv(x, m) * m
 
 
 def dtype_name(t) -> str:
@@ -78,6 +82,25 @@ def pick_divisor_candidates(n: int, candidates: Sequence[int]) -> tuple:
     """Keep candidates that divide n (BlockSpec-exact tiling)."""
     vals = tuple(c for c in candidates if c <= n and n % c == 0)
     return vals or (n,)
+
+
+def require_tiling(kernel: str, shape: "dict", block: "dict") -> None:
+    """ValueError when a launch block fails to tile its dimension.
+
+    ``shape`` and ``block`` are same-length mappings pairing each
+    dimension with its block size, in order.  These guard *user input*,
+    so they must be real exceptions — a bare ``assert`` vanishes under
+    ``python -O``.
+    """
+    bad = [(dim, n, bname, b)
+           for (dim, n), (bname, b) in zip(shape.items(), block.items())
+           if n % b]
+    if bad:
+        detail = "; ".join(f"{bname}={b} does not divide {dim}={n}"
+                           for dim, n, bname, b in bad)
+        raise ValueError(
+            f"{kernel}: shape {tuple(shape.values())} is not tileable by "
+            f"block {dict(block)}: {detail}")
 
 
 def require_shape(kernel: str, name: str, got: tuple, want: tuple) -> None:

@@ -40,6 +40,7 @@ from repro_torch.kernels.api import (HopperSpace, KernelVariant, TILE_AXIS,
                                      cuda_profile, divisors, get_spec,
                                      tuned_kernel)
 from repro_torch.core.hw import H100_SXM, dtype_bytes
+from repro_torch.core.sass import template_symbol
 from repro_torch.kernels.common import (block_info, cdiv, dtype_name,
                                         dtype_str,
                                         family_costs,
@@ -595,6 +596,22 @@ def blocked_attention(q, k, v, causal: bool = True, *,
     return blocked_cuda(q, k, v, causal, tile=tile)
 
 
+def _flash_symbols(tile: str, *, dtype: str = "float32", **_):
+    bq, bkv, threads, fam = FLASH_TILES[tile]
+    if fam == SIMT:
+        return (template_symbol("flash_kernel", dtype, bq, bkv, threads),)
+    nw = threads // 32
+    kernel = "flash_mma_kernel" if fam == MMA else "flash_tf32_kernel"
+    return (template_symbol(kernel, bq, bkv, nw, nw * 16 // bq),)
+
+
+def _blocked_symbols(tile: str, *, dtype: str = "float32", **_):
+    bq, threads, fam = BLOCKED_TILES[tile]
+    if fam == SIMT:
+        return (template_symbol("blocked_kernel", dtype, bq, threads),)
+    return (template_symbol("blocked_tc_kernel", dtype, bq, threads // 32),)
+
+
 @tuned_kernel(
     "flash_attention",
     space={"bq": divisors("sq", (8, 16, 32, 64, 128, 256, 512)),
@@ -606,9 +623,11 @@ def blocked_attention(q, k, v, causal: bool = True, *,
         d=q.shape[3], causal=causal, dtype=dtype_name(q)),
     static_info=_flash_analysis,
     hopper={"flash": HopperSpace(tiles=tuple(FLASH_TILES),
-                                 analysis=_flash_hopper),
+                                 analysis=_flash_hopper,
+                                 symbols=_flash_symbols),
             "blocked": HopperSpace(tiles=tuple(BLOCKED_TILES),
-                                   analysis=_blocked_hopper)},
+                                   analysis=_blocked_hopper,
+                                   symbols=_blocked_symbols)},
     out=lambda q, k, v, causal=True, **_: (tuple(q.shape), q.dtype),
     pretune=tuple(dict(b=b, h=h, sq=s, skv=s, d=128, causal=causal,
                        dtype=dt)

@@ -26,6 +26,7 @@ import numpy as np
 
 from repro_torch.core.autotuner import KernelStaticInfo, TunableKernel
 from repro_torch.core.hw import dtype_bytes
+from repro_torch.core.sass import template_symbol
 from repro_torch.core.search import SearchSpace
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, TILE_AXIS, cuda_profile,
@@ -240,13 +241,22 @@ def jacobi3d_cuda(u, c0: float = C0_DEFAULT, c1: float = C1_DEFAULT, *,
     return out
 
 
+def _jacobi3d_symbols(tile: str, *, dtype: str = "float32", **_):
+    bx, by, zb, fam, stages = JACOBI_TILES[tile]
+    if fam == RING:
+        return (template_symbol("jacobi_ring_kernel", dtype, bx, by, zb,
+                                stages),)
+    return (template_symbol("jacobi_kernel", dtype, bx, by, zb),)
+
+
 @tuned_kernel(
     "jacobi3d",
     space={"bz": divisors("z", (1, 2, 4, 8, 16, 32, 64))},
     signature=lambda u, **_: dict(z=u.shape[0], y=u.shape[1], x=u.shape[2],
                                   dtype=dtype_name(u)),
     static_info=_jacobi3d_analysis,
-    hopper=HopperSpace(tiles=tuple(JACOBI_TILES), analysis=_jacobi3d_hopper),
+    hopper=HopperSpace(tiles=tuple(JACOBI_TILES), analysis=_jacobi3d_hopper,
+                       symbols=_jacobi3d_symbols),
     out=lambda u, **_: (tuple(u.shape), u.dtype),
     make_inputs=_jacobi3d_inputs,
     reference=jacobi3d_ref,

@@ -21,6 +21,7 @@ import numpy as np
 
 from repro_torch.core.autotuner import KernelStaticInfo, TunableKernel
 from repro_torch.core.hw import dtype_bytes
+from repro_torch.core.sass import template_symbol
 from repro_torch.core.search import SearchSpace
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, TILE_AXIS, cuda_profile,
@@ -36,7 +37,7 @@ __all__ = ["matmul", "matmul_static_info", "matmul_cuda", "matmul_plain",
            "GEMM_TILES", "SIMT", "GEMV", "WGMMA", "gemm_hopper_cost",
            "gemm_tiles_cost", "wgmma_takes", "tile_fields",
            "splitk_reduce", "splitk_reduce_cuda", "splitk_reduce_plain",
-           "LAUNCHES"]
+           "gemm_symbols", "LAUNCHES"]
 
 # Launches by kernel: "matmul" counts calls of `matmul_cuda` (one per
 # call, whatever the tile); "gemm_simt" / "gemm_gemv" / "gemm_wgmma"
@@ -223,6 +224,32 @@ def _matmul_hopper(cols, *, m: int, n: int, k: int, dtype: str = "float32"):
                            out_bytes=dtype_bytes(dtype))
 
 
+def gemm_symbols(tile: str, dtype: str, out_f32: bool = False):
+    """The SASS functions one launch of GEMM_TILES row ``tile`` runs in
+    ``dtype`` (``out_f32``: the split MLP's f32 passes): csrc/gemm.cu's
+    `gemm_kernel`, `gemv_kernel` or `wgmma_kernel` instantiation, and a
+    split-K row's `splitk_reduce_kernel`."""
+    bm, bn, bk, tm, tn, fam, stages, split = GEMM_TILES[tile]
+    out = "float32" if out_f32 or split > 1 else dtype
+    if fam == SIMT:
+        main = template_symbol("gemm_kernel", dtype,
+                               "float32" if out_f32 else dtype,
+                               bm, bn, bk, tm, tn)
+    elif fam == GEMV:
+        main = template_symbol("gemv_kernel", dtype, out, bm)
+    else:
+        main = template_symbol("wgmma_kernel", out, bn, stages)
+    if split > 1:
+        return main, template_symbol("splitk_reduce_kernel",
+                                     "float32" if out_f32 else dtype)
+    return (main,)
+
+
+def _matmul_symbols(tile: str, *, m: int, n: int, k: int,
+                    dtype: str = "float32"):
+    return gemm_symbols(tile, dtype)
+
+
 def _matmul_analysis(p, *, m: int, n: int, k: int, dtype: str = "float32"):
     """Static analysis of one config (scalars) or a lattice ((N,) cols)."""
     bm = np.minimum(np.asarray(p["bm"], dtype=np.int64), m)
@@ -369,7 +396,8 @@ def matmul_cuda(a, b, *, tile: str):
                                      k=a.shape[1], dtype=dtype_name(a)),
     static_info=_matmul_analysis,
     schedule=_matmul_schedule,
-    hopper=HopperSpace(tiles=tuple(GEMM_TILES), analysis=_matmul_hopper),
+    hopper=HopperSpace(tiles=tuple(GEMM_TILES), analysis=_matmul_hopper,
+                       symbols=_matmul_symbols),
     out=lambda a, b, **_: ((a.shape[0], b.shape[1]), a.dtype),
     make_inputs=_matmul_inputs,
     reference=matmul_ref,

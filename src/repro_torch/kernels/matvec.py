@@ -20,6 +20,7 @@ import numpy as np
 
 from repro_torch.core.autotuner import KernelStaticInfo, TunableKernel
 from repro_torch.core.hw import dtype_bytes
+from repro_torch.core.sass import template_symbol
 from repro_torch.core.search import SearchSpace
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, TILE_AXIS, cuda_profile,
@@ -115,6 +116,11 @@ def matvec_cuda(a, x, *, tile: str):
     return y
 
 
+def _matvec_symbols(tile: str, *, m: int, n: int, dtype: str = "float32"):
+    rows, wpr = MATVEC_TILES[tile]
+    return (template_symbol("matvec_kernel", dtype, rows, wpr),)
+
+
 @tuned_kernel(
     "matvec",
     space={"bm": divisors("m", (32, 64, 128, 256, 512, 1024)),
@@ -122,7 +128,8 @@ def matvec_cuda(a, x, *, tile: str):
     signature=lambda a, x, **_: dict(m=a.shape[0], n=a.shape[1],
                                      dtype=dtype_name(a)),
     static_info=_matvec_analysis,
-    hopper=HopperSpace(tiles=tuple(MATVEC_TILES), analysis=_matvec_hopper),
+    hopper=HopperSpace(tiles=tuple(MATVEC_TILES), analysis=_matvec_hopper,
+                       symbols=_matvec_symbols),
     out=lambda a, x, **_: ((a.shape[0], 1), a.dtype),
     make_inputs=_matvec_inputs,
     reference=matvec_ref,

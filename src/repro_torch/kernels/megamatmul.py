@@ -35,6 +35,7 @@ from repro_torch.kernels.api import HopperSpace, KernelSpec, register_spec
 from repro_torch.kernels.common import (cdiv, dtype_name,
                                         pick_divisor_candidates)
 from repro_torch.kernels.matmul import (GEMM_TILES, _matmul_hopper,
+                                        _matmul_symbols,
                                         _matmul_inputs, matmul_cuda,
                                         matmul_plain)
 from repro_torch.kernels.ref import matmul_ref
@@ -180,7 +181,8 @@ def mega_matmul_spec(*, blocks: Sequence[int] = MEGA_BLOCKS,
         extract_signature=lambda a, b, **_: dict(
             m=a.shape[0], n=b.shape[1], k=a.shape[1], dtype=dtype_name(a)),
         analysis=_mega_analysis,
-        hopper=HopperSpace(tiles=tuple(GEMM_TILES), analysis=_matmul_hopper),
+        hopper=HopperSpace(tiles=tuple(GEMM_TILES), analysis=_matmul_hopper,
+                           symbols=_matmul_symbols),
         out=lambda a, b, **_: ((a.shape[0], b.shape[1]), a.dtype),
         make_inputs=_matmul_inputs,
         reference=matmul_ref,

@@ -34,9 +34,11 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, KernelVariant, TILE_AXIS,
                                      divisors, tuned_kernel)
 from repro_torch.core.hw import H100_SXM, dtype_bytes
+from repro_torch.core.sass import template_symbol
 from repro_torch.kernels.common import (cdiv, dtype_name, family_costs,
                                         require_shape)
 from repro_torch.kernels.matmul import (GEMM_TILES, GEMV, SIMT, WGMMA,
+                                        gemm_symbols,
                                         gemm_hopper_cost, gemm_launch,
                                         gemm_tiles_cost, tile_fields,
                                         wgmma_takes)
@@ -427,6 +429,28 @@ def mlp_matmul_split(x, w_gate, w_up, act: str = "silu", *,
     return split_cuda(x, w_gate, w_up, act, tile=tile)
 
 
+def _fused_symbols(tile: str, *, m: int, d: int, f: int, act: str = "silu",
+                   dtype: str = "float32"):
+    bm, bn, bk, tm, tn, fam, stages, _ = GATED_TILES[tile]
+    if fam == WGMMA:
+        return (template_symbol("gated_wgmma_kernel", bn, stages),)
+    return (template_symbol("gated_kernel", dtype, bm, bn, bk, tm, tn),)
+
+
+def _stream_symbols(tile: str, *, m: int, d: int, f: int, act: str = "silu",
+                    dtype: str = "float32"):
+    bm, bn, _, tm, tn, fam, stages, _ = STREAM_TILES[tile]
+    if fam == GEMV:
+        return (template_symbol("stream_gemv_kernel", dtype, bm, bn,
+                                stages),)
+    return (template_symbol("stream_kernel", dtype, bm, bn, tm, tn),)
+
+
+def _split_symbols(tile: str, *, m: int, d: int, f: int, act: str = "silu",
+                   dtype: str = "float32"):
+    return gemm_symbols(tile, dtype, out_f32=True)
+
+
 @tuned_kernel(
     "mlp_matmul",
     space={"bm": divisors("m", _SIZES),
@@ -437,11 +461,14 @@ def mlp_matmul_split(x, w_gate, w_up, act: str = "silu", *,
         dtype=dtype_name(x)),
     static_info=_fused_analysis,
     hopper={"fused": HopperSpace(tiles=tuple(GATED_TILES),
-                                 analysis=_fused_hopper),
+                                 analysis=_fused_hopper,
+                                 symbols=_fused_symbols),
             "stream": HopperSpace(tiles=tuple(STREAM_TILES),
-                                  analysis=_stream_hopper),
+                                  analysis=_stream_hopper,
+                                  symbols=_stream_symbols),
             "split": HopperSpace(tiles=tuple(GEMM_TILES),
-                                 analysis=_split_hopper)},
+                                 analysis=_split_hopper,
+                                 symbols=_split_symbols)},
     out=lambda x, w_gate, w_up, act="silu", **_: (
         (x.shape[0], w_gate.shape[1]), x.dtype),
     pretune=tuple(dict(m=m, d=d, f=f, act=act, dtype=dt)

@@ -25,6 +25,7 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, TILE_AXIS, divisors,
                                      tuned_kernel)
 from repro_torch.core.hw import dtype_bytes
+from repro_torch.core.sass import template_symbol
 from repro_torch.kernels.common import (cdiv, dtype_name, family_costs,
                                         require_shape)
 
@@ -175,6 +176,15 @@ def rms_tiles_cost(t, *, m: int, d: int,
     return out
 
 
+def _rms_symbols(tile: str, *, m: int, d: int, dtype: str = "float32"):
+    rows, threads, fam, _, blocks = RMS_TILES[tile]
+    if fam == SIMT:
+        return (template_symbol("rms_kernel", dtype, rows),)
+    if fam == VEC:
+        return (template_symbol("rms_vec_kernel", dtype, threads),)
+    return (template_symbol("rms_cluster_kernel", dtype, blocks, threads),)
+
+
 def _rms_hopper(cols, *, m: int, d: int, dtype: str = "float32"):
     t = np.array([RMS_TILES[str(x)] for x in cols[TILE_AXIS]],
                  dtype=np.int64).reshape(-1, 5)
@@ -234,7 +244,8 @@ def rms_norm_cuda(x, w, eps: float = 1e-6, *, tile: str):
     signature=lambda x, w, **_: dict(m=x.shape[0], d=x.shape[1],
                                      dtype=dtype_name(x)),
     static_info=_rms_analysis,
-    hopper=HopperSpace(tiles=tuple(RMS_TILES), analysis=_rms_hopper),
+    hopper=HopperSpace(tiles=tuple(RMS_TILES), analysis=_rms_hopper,
+                       symbols=_rms_symbols),
     out=lambda x, w, **_: (tuple(x.shape), x.dtype),
     pretune=tuple(dict(m=m, d=d, dtype=dt)
                   for (m, d) in [(1024, 1024), (4096, 4096), (8192, 2048)]

@@ -35,6 +35,7 @@ import numpy as np
 
 from repro_torch.core.autotuner import TunableKernel
 from repro_torch.core.hw import dtype_bytes
+from repro_torch.core.sass import template_symbol
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.api import (HopperSpace, TILE_AXIS, cuda_profile,
                                      divisors, get_spec, tuned_kernel)
@@ -43,7 +44,7 @@ from repro_torch.kernels.common import (cdiv, declared_regs, dtype_name,
 from repro_torch.kernels.jacobi3d import ring_stage_bytes, ring_takes
 from repro_torch.kernels.matmul import tile_fields
 
-__all__ = ["stencil2d", "stencil2d_cuda", "stencil2d_plain",
+__all__ = ["stencil2d", "stencil2d_cuda", "stencil2d_plain", "stencil2d_ref",
            "make_tunable_stencil2d", "extension", "STENCIL_TILES",
            "MARCH", "RING", "stencil_tiles_cost", "LAUNCHES"]
 
@@ -192,6 +193,15 @@ def stencil_tiles_cost(t, *, y: int, x: int,
     return out
 
 
+def _stencil2d_symbols(tile: str, *, y: int, x: int,
+                       dtype: str = "float32"):
+    bx, by, r, fam, stages = STENCIL_TILES[tile]
+    if fam == RING:
+        return (template_symbol("stencil_ring_kernel", dtype, bx, by, r,
+                                stages),)
+    return (template_symbol("stencil_kernel", dtype, bx, by, r),)
+
+
 def _stencil2d_hopper(cols, *, y: int, x: int, dtype: str = "float32"):
     return stencil_tiles_cost(tile_fields(STENCIL_TILES, cols[TILE_AXIS]),
                               y=y, x=x, dtype=dtype)
@@ -212,6 +222,10 @@ def stencil2d_plain(u, c0: float = C0_DEFAULT, c1: float = C1_DEFAULT):
                        + c1 * (f[:-2, 1:-1] + f[2:, 1:-1]
                                + f[1:-1, :-2] + f[1:-1, 2:]))
     return out.to(u.dtype)
+
+
+# the reference's name for its oracle (`repro.kernels.stencil2d`)
+stencil2d_ref = stencil2d_plain
 
 
 def stencil2d_cuda(u, c0: float = C0_DEFAULT, c1: float = C1_DEFAULT, *,
@@ -261,7 +275,8 @@ def stencil2d_cuda(u, c0: float = C0_DEFAULT, c1: float = C1_DEFAULT, *,
                                   dtype=dtype_name(u)),
     static_info=_stencil2d_analysis,
     hopper=HopperSpace(tiles=tuple(STENCIL_TILES),
-                       analysis=_stencil2d_hopper),
+                       analysis=_stencil2d_hopper,
+                       symbols=_stencil2d_symbols),
     out=lambda u, **_: (tuple(u.shape), u.dtype),
     make_inputs=_stencil2d_inputs,
     reference=stencil2d_plain,

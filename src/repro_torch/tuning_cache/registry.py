@@ -66,6 +66,7 @@ from repro_torch.core.hw import (ChipSpec, GPU_TABLE, GpuSpec, HOPPER_TABLE,
                                  HopperSpec, TPU_TABLE, TpuSpec,
                                  resolve_target)
 from repro_torch.core.pipeline import PipelineModel, pipeline_model
+from repro_torch.core.sass import active_sass
 from repro_torch.core.predict import (CostModel, default_cuda_model,
                                       default_hopper_model,
                                       default_tpu_model, static_times_batch)
@@ -640,7 +641,12 @@ def _model_for(spec: ChipSpec, kind: Optional[str] = None):
     # the process default.
     if kind is None:
         kind = default_model_kind()
-    mk = (fingerprint_spec(spec), kind)
+    # an active disassembly (core.sass.use_sass) gives the H100 pipeline
+    # tier its streams: its own model, keyed by the binary
+    sass = active_sass() if kind == "pipeline" and \
+        isinstance(spec, HopperSpec) else None
+    sass_key = sass[1] if sass is not None else None
+    mk = (fingerprint_spec(spec), kind, sass_key)
     model = _DEFAULT_MODELS.get(mk)
     if model is None:
         with _models_lock:
@@ -652,7 +658,7 @@ def _model_for(spec: ChipSpec, kind: Optional[str] = None):
                     base = default_cuda_model(spec)
                 else:
                     base = default_tpu_model(spec, mode="max")
-                model = pipeline_model(spec, base=base) \
+                model = pipeline_model(spec, base=base, sass_key=sass_key) \
                     if kind == "pipeline" else base
                 _DEFAULT_MODELS[mk] = model
     return model

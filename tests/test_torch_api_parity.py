@@ -1,11 +1,13 @@
-"""The public API the port shares with the reference (ROADMAP C1).
+"""The public API the port shares with the reference (ROADMAP C1, C2).
 
 * Every name in the ``__all__`` of the reference's registry, its
-  ``tuning_cache`` package and the kernel modules is in the port's, or
-  is listed here: as a name of a module the port has not ported yet
-  (ROADMAP Queue A: A3, the pretuned databases; A6, the tuning
-  service) or as a ``*_pallas`` entry point, whose counterparts are the
-  port's ``*_cuda`` wrappers.
+  ``tuning_cache`` package, the kernel modules and every ported
+  ``core.*`` and ``models.*`` module is in the port's, or is listed in
+  `UNPORTED` with its reason: a TPU-only name, a name whose module
+  waits for a later item of ROADMAP Queue A (A7, the other model
+  families; A8, training and distribution), or a JAX-only front end
+  with its torch counterpart named; ``*_pallas`` entry points are
+  skipped, their counterparts being the port's ``*_cuda`` wrappers.
 * Under ``tpu-v5e`` a problem factory registered with `register` gives
   the reference's records; the default path leaves the reference's
   memo keys (`dispatch_memo_keys`); `reset_models` drops the model memo
@@ -30,13 +32,37 @@ from repro_torch.core.search import SearchSpace
 from repro_torch.core.target import use_target
 from repro_torch.tuning_cache import registry as reg
 
-# reference names whose module the port has not ported yet (none left:
-# the pretuned databases and the tuning service are ported)
-UNPORTED: dict = {}
+# reference names the port does not have, each with its reason
+UNPORTED = {
+    "default_interpret": "TPU-only: Pallas interpret mode off a TPU",
+    "CompilerParams": "TPU-only: Pallas TPU compiler parameters",
+    "tpu_compiler_params": "TPU-only: Pallas TPU compiler parameters",
+    "mix_from_jaxpr": "takes a jaxpr; the torch counterpart is "
+                      "repro_torch.core.mix.mix_from_graph over trace_fn",
+    "ssd_config": "A7: models/ssd.py (mamba2, hymba)",
+    "hybrid_windows": "A7: the hybrid family (hymba)",
+    "stack_dims": "A7: models/encdec.py (whisper)",
+    "lm_loss": "A8: training",
+    "batch_shapes": "A8: training",
+    "param_shardings": "A8: sharded parameters",
+    "tree_param_count": "A8: training and distribution",
+    "tree_param_bytes": "A8: training and distribution",
+}
 MODULES = ["tuning_cache.registry", "tuning_cache", "kernels.matmul",
            "kernels.matvec", "kernels.atax", "kernels.bicg",
            "kernels.jacobi3d", "kernels.flash_attention",
-           "kernels.rms_norm", "kernels.mlp_matmul"]
+           "kernels.rms_norm", "kernels.mlp_matmul", "kernels.stencil2d",
+           "kernels.common", "kernels.ref", "kernels.api",
+           "kernels.variants", "kernels.megamatmul", "core.annotations",
+           "core.autotuner", "core.hlo", "core.isa", "core.mix",
+           "core.occupancy", "core.pipeline", "core.predict",
+           "core.roofline", "core.search", "core.target", "models.config",
+           "models.layers", "models.model", "models.params",
+           "models.transformer"]
+
+
+def test_every_unported_name_has_a_reason():
+    assert all(isinstance(v, str) and v for v in UNPORTED.values())
 
 
 @pytest.mark.parametrize("module", MODULES)

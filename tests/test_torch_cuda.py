@@ -888,3 +888,68 @@ def test_extension_ops_dispatch_launches_the_kernels(cuda):
                f32=1e-6)
     counts = kernels.launch_counts()
     assert counts["stencil2d"] == 1 and counts["saxpy2d"] == 1, counts
+
+
+# the extraction tier on the card's own build: every row of every table
+# names a function of the disassembly, whose cuobjdump registers are the
+# runtime's numRegs for the same instantiation
+SASS_SIGS = {"matmul": dict(m=4, n=3072, k=24576),
+             "mlp_matmul": dict(m=4, d=3072, f=24576, act="gelu"),
+             "rms_norm": dict(m=4, d=3072),
+             "flash_attention": dict(b=4, h=16, sq=64, skv=64, d=256,
+                                     causal=True),
+             "matvec": dict(m=8192, n=8192), "atax": dict(m=8192, n=8192),
+             "bicg": dict(m=8192, n=8192),
+             "jacobi3d": dict(z=256, y=256, x=256),
+             "stencil2d": dict(y=8192, x=8192),
+             "saxpy2d": dict(m=8192, n=8192)}
+
+
+def test_the_disassembly_names_every_row(cuda):
+    from repro_torch.core import sass
+    from repro_torch.examples import custom_kernel
+    from repro_torch.kernels import stencil2d
+    stencil2d.extension()
+    custom_kernel.extension()
+    text = _cuda.disassemble()
+    assert "Function :" in text and "REG:" in text
+    assert _cuda.disassemble() == text                # cached beside it
+    funcs = {}
+    for ext in (None, "stencil2d", "saxpy2d"):
+        funcs.update(_cuda.sass_functions(ext))
+    for kid, sig in SASS_SIGS.items():
+        spec = api.get_spec(kid)
+        for vid, h in spec._hopper.items():
+            for tile in h.tiles:
+                for dt in ("float32", "bfloat16"):
+                    for sym in h.symbols(tile, dtype=dt, **sig):
+                        fn = sass.find_function(funcs, sym)
+                        assert fn is not None, (kid, vid, tile, dt, sym)
+                        assert fn.regs > 0 and fn.instructions
+                        assert fn.demangled.startswith("void ")
+
+
+@pytest.mark.parametrize("kind,table,kid", [(0, "gemm", "matmul"),
+                                            (3, "rms", "rms_norm")])
+def test_disassembled_registers_are_the_runtime_counts(cuda, kind, table,
+                                                       kid):
+    from repro_torch.core import sass
+    funcs = _cuda.sass_functions()
+    lib = _cuda.library()
+    spec = api.get_spec(kid)
+    h = spec._hopper[None]
+    regs, smem, thr = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    checked = 0
+    for i, tile in enumerate(h.tiles):
+        if kid == "matmul" and GEMM_TILES[tile][7] > 1:
+            continue        # split rows run f32 slices: another function
+        for code, dt in ((0, "float32"), (1, "bfloat16")):
+            if lib.repro_kernel_attrs(kind, i, code, ctypes.byref(regs),
+                                      ctypes.byref(smem),
+                                      ctypes.byref(thr)) != 0:
+                continue    # a type the row does not take
+            sym = h.symbols(tile, dtype=dt, **SASS_SIGS[kid])[0]
+            assert sass.find_function(funcs, sym).regs == regs.value, \
+                (tile, dt)
+            checked += 1
+    assert checked >= len(h.tiles)

@@ -304,9 +304,46 @@ def test_as_stream_validates_rows():
     assert s.ops[1].dep == 0 and s.iterations == 1.0
 
 
+_HLO_LOOP = """\
+HloModule m
+
+%cond (p.0: (s32[], f32[64])) -> pred[] {
+  %p.0 = (s32[], f32[64]) parameter(0)
+  %iv = s32[] get-tuple-element(%p.0), index=0
+  %limit = s32[] constant(16)
+  ROOT %lt = pred[] compare(%iv, %limit), direction=LT
+}
+
+%body (p.1: (s32[], f32[64])) -> (s32[], f32[64]) {
+  %p.1 = (s32[], f32[64]) parameter(0)
+  %iv.1 = s32[] get-tuple-element(%p.1), index=0
+  %one = s32[] constant(1)
+  %next = s32[] add(%iv.1, %one)
+  %x = f32[64] get-tuple-element(%p.1), index=1
+  %t = f32[64] tanh(%x)
+  ROOT %tup = (s32[], f32[64]) tuple(%next, %t)
+}
+
+ENTRY %main (a: f32[64]) -> f32[64] {
+  %a = f32[64] parameter(0)
+  %init = s32[] constant(0)
+  %tup.0 = (s32[], f32[64]) tuple(%init, %a)
+  %w = (s32[], f32[64]) while(%tup.0), condition=%cond, body=%body
+  ROOT %out = f32[64] get-tuple-element(%w), index=1
+}
+"""
+
+
 def test_stream_from_hlo_waits_for_the_extraction_tier():
-    with pytest.raises(NotImplementedError, match="core/hlo.py"):
-        stream_from_hlo("HloModule m")
+    # the extraction tier (core/hlo.py) has landed: the stream is the
+    # reference's, loop multipliers included (tests/test_torch_hlo.py
+    # holds it on the compiled fixtures)
+    got = stream_from_hlo(_HLO_LOOP)
+    want = ref_pipeline.stream_from_hlo(_HLO_LOOP)
+    assert [dataclasses.astuple(o) for o in got.ops] == \
+        [dataclasses.astuple(o) for o in want.ops]
+    assert ("trans", 16 * 64.0, None) in [dataclasses.astuple(o)
+                                         for o in got.ops]
 
 
 def test_matmul_schedule_hook_matches_the_reference():

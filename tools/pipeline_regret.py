@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The pipeline tier's picks read against the times of a chip_smoke log.
 
-    PYTHONPATH=src python tools/pipeline_regret.py LOG
+    PYTHONPATH=src python tools/pipeline_regret.py LOG [--sass DUMP ...]
 
 For every instance that ``chip_smoke.py``'s ``[ranking]``, ``[tuner]``
 and ``[extend]`` phases time row by row in LOG (the measured time of
@@ -10,19 +10,28 @@ each feasible H100 row), ranks the same rows on this machine's CPU with
 roofline) model, and prints each pick's regret on LOG's times and the
 Spearman of the pipeline's predicted times over the rows.  Run against
 an earlier run's log, it predicts what the next run's pipeline lines
-will read.  Needs no card.
+will read.  With ``--sass DUMP ...`` (``cuobjdump -res-usage -sass`` of
+the port's library and extensions, as `repro_torch.kernels._cuda.
+disassemble` writes them, plain or gzipped) the H100 rows are ranked by
+their SASS streams
+(`repro_torch.core.sass.use_sass`), as ``[extract]`` ranks them; where
+LOG prints a row's device time (``device us:``) its regret on device
+time is printed too.  Needs no card.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gzip
 import os
 import re
 import sys
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import repro_torch.kernels  # noqa: F401  (registers every kernel)
 from repro_torch import tuning_cache as tc
 from repro_torch.core.predict import spearman
+from repro_torch.core.sass import parse_sass, use_sass
 from repro_torch.kernels import api
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -72,33 +81,65 @@ def _case_sig(kid: str, m: re.Match) -> dict:
     return dict(y=a, x=b, dtype=dt)          # stencil2d
 
 
-def cases(lines: List[str]) -> List[Tuple[str, str, dict, Dict[str, float]]]:
-    """(phase, kernel, signature, {row: measured ms}) of every timed
-    instance in a chip_smoke log."""
+def _device(lines: List[str], i: int) -> Optional[Dict[str, float]]:
+    """{row: device us} of the [ranking] instance whose head is line i,
+    where the log prints its device times."""
+    for ln in lines[i + 2:i + 12]:
+        if ln.startswith("[ranking]   device us: "):
+            body = ln[len("[ranking]   device us: "):]
+            return {part.rsplit(" ", 1)[0]: float(part.rsplit(" ", 1)[1])
+                    for part in body.split("; ")}
+        if "feasible rows" in ln:
+            return None
+    return None
+
+
+def cases(lines: List[str]) -> List[Tuple[str, str, dict, Dict[str, float],
+                                          Optional[Dict[str, float]]]]:
+    """(phase, kernel, signature, {row: measured ms}, {row: device us} or
+    None) of every timed instance in a chip_smoke log."""
     heads = [i for i, ln in enumerate(lines)
              if ln.startswith("[ranking] ") and "feasible rows" in ln
              and "on device" not in ln]
     if len(heads) != len(RANKING):
         raise SystemExit(f"{len(heads)} [ranking] instances in the log, "
                          f"expected {len(RANKING)}")
-    out = [("ranking", kid, sig, _measured(lines[i + 1]))
+    out = [("ranking", kid, sig, _measured(lines[i + 1]), _device(lines, i))
            for (kid, sig), i in zip(RANKING, heads)]
     for i, ln in enumerate(lines):
         m = CASE.match(ln)
         if m:
             kid = m.group(2)
             out.append((m.group(1), kid, _case_sig(kid, m), {
-                f"{kid}/{t}": v for t, v in _measured(lines[i + 1]).items()}))
+                f"{kid}/{t}": v for t, v in _measured(lines[i + 1]).items()},
+                None))
     return out
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("log", help="a chip_smoke.py output")
+    ap.add_argument("--sass", nargs="+", default=(),
+                    help="disassemblies of the port's library and its "
+                    "extensions (rank the H100 rows by their SASS "
+                    "streams)")
     args = ap.parse_args(argv)
     with open(args.log, encoding="utf-8") as f:
         lines = f.read().splitlines()
-    for phase, kid, sig, meas in cases(lines):
+    scope = contextlib.nullcontext()
+    if args.sass:
+        funcs = {}
+        for path in args.sass:
+            opener = gzip.open if path.endswith(".gz") else open
+            with opener(path, "rt") as f:
+                funcs.update(parse_sass(f.read()))
+        scope = use_sass(funcs)
+    with scope:
+        _report(lines)
+
+
+def _report(lines: List[str]) -> None:
+    for phase, kid, sig, meas, dev in cases(lines):
         spec = api.get_spec(kid)
         names = list(meas)
         pts = [dict(zip(("variant", "tile"), n.split("/")))
@@ -114,6 +155,12 @@ def main(argv=None) -> None:
               f"{meas[pipe] / best:.3f}x spearman "
               f"{spearman(ptimes, [meas[n] for n in names]):.2f} | eq6 "
               f"{eq6} regret {meas[eq6] / best:.3f}x")
+        if dev is not None:
+            low = min(dev.values())
+            print(f"[{phase}]   on device time: pipeline {pipe} regret "
+                  f"{dev[pipe] / low:.3f}x spearman "
+                  f"{spearman(ptimes, [dev[n] for n in names]):.2f} | eq6 "
+                  f"{eq6} regret {dev[eq6] / low:.3f}x")
 
 
 if __name__ == "__main__":
