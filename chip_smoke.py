@@ -49,8 +49,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
              of ``h100_sxm.jsonl``'s 86 records launched on the card at
              its signature with its params and held against the plain
              version (the distinct tiles per kernel printed);
-3. check   — gemma-smoke in float32: prefill logits and 8 greedy tokens
-             of the tuned CUDA path against the plain path on the CPU;
+3. check   — every arch's smoke config (gemma-smoke first) in float32:
+             prefill logits (2e-3) and 8 greedy tokens of the tuned CUDA
+             path against the plain path on the CPU, the MoE configs
+             with their smallest top-k router margin;
 4. serve   — the serving path: gemma-7b at full width and depth
              (random weights from a seed) served through
              ``repro_torch.launch.serve --tuned-ops --pretune
@@ -71,6 +73,22 @@ Phases, each fatal on failure (exit code != 0, no result line):
              drops every request (the client degrades to local ranks);
              both with ``[serve]``'s tokens, params and kernels;
              launch counters set to 0 before and read after each path;
+4d. families — the other model families at published width, each
+             through ``serve --tuned-ops --pretune --assert-frozen``
+             with the launch counters set to 0 before and read after:
+             qwen2-moe-a2.7b at its full depth (24 layers, 60 experts
+             top-4 + 4 shared) for the two requests, then
+             `torch.profiler` over a few of its decode steps (device
+             busy time per step beside the experts' byte floor, idle
+             share, time by kernel); each other config for 2 x 64 + 8,
+             depth cut only to keep its weights within 40 GB
+             (moonshot 24 of 48 layers, chameleon 24 of 48, qwen1.5-110b
+             12 of 80), whisper-tiny with its stub frames; then every
+             unique (kernel, signature) of the ten configs' serving
+             paths launched on its H100 pick, held against its plain
+             version (bf16 2e-2, f32 2e-4) and timed beside it, its
+             bound and its one-call library equivalent (whisper's
+             non-causal encoder attention among them);
 5. profile — `torch.profiler` over a few decode steps of the first
              request's shape: device time by kernel, idle share, and
              the device time per launch of the B1, B2, B3 and B5 kernels
@@ -133,12 +151,14 @@ own.  Every row of phases 2 and 2b launches the tile dispatch picks
 last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the JSON
 ``{"kernels": [...]}`` of every ported kernel, each with its launches on
-the path that launches it and its SASS registers, spills and main-loop
+the path that launches it (a serving kernel's also on ``[families]``'
+qwen2-moe-a2.7b path) and its SASS registers, spills and main-loop
 instructions.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -228,6 +248,8 @@ COUNTER = {"matmul_prefill": "gemm_wgmma", "flash": "flash_mma",
            "fused_simt": "gated_simt", "stream": "stream_gemv",
            "stream_simt": "stream_simt"}
 TABLE4 = ("matvec", "atax", "bicg", "jacobi3d")
+# the registry ops the serving path dispatches
+SERVE_OPS = ("matmul", "rms_norm", "flash_attention", "mlp_matmul")
 # rms_norm's long row: gemma-7b's d_ff, past the vector rows' 16384
 RMS_LONG = dict(m=4, d=24576, dtype="bfloat16")
 EXTEND = ("stencil2d", "saxpy2d")
@@ -289,7 +311,7 @@ def bound(nbytes: float, flops: float, dtype: str):
         ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_us(fn, calls: int = 100, tries: int = 4) -> float:
+def device_us(fn, calls: int = 200, tries: int = 4) -> float:
     """Device time per call of ``fn()`` in microseconds: the self device
     time `torch.profiler` records over ``calls`` back-to-back calls (every
     kernel the call launches), over ``calls``.  A profile whose kernel
@@ -297,7 +319,8 @@ def device_us(fn, calls: int = 100, tries: int = 4) -> float:
     short: it is taken again, at most ``tries`` times.  If none was
     whole, the fullest profile that kept nine tenths of its k launches a
     call is read per recorded launch (its time x k / its launches);
-    else fatal."""
+    else fatal.  The profiler drops from a handful to a few tens of a
+    window's records: 200 calls keep them a small share."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -310,7 +333,7 @@ def device_us(fn, calls: int = 100, tries: int = 4) -> float:
             torch.cuda.synchronize()
         rows = [(getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0)), ev.count)
-                for ev in prof.key_averages()]
+                for ev in _device_events(prof)]
         kernels = sum(n for t, n in rows if t > 0)
         total = sum(t for t, _ in rows)
         if kernels and kernels % calls == 0:
@@ -882,7 +905,7 @@ def _table4_row(kid, sig, dtype, tile, args, launch, lib, comp):
         extra = (f" | torch composite (2 matmuls) "
                  f"{time_ms(lambda: comp(*args)):.4f} ms")
     if kid == "jacobi3d":
-        row["device_us"] = device_us(lambda: fn(*args, tile=tile), calls=50)
+        row["device_us"] = device_us(lambda: fn(*args, tile=tile))
         extra = f" | device {row['device_us']:.2f} us per launch"
     print(f"[kernels] {kid} {dtype} "
           f"{'x'.join(str(v) for v in TABLE4_SHAPES[kid].values())} "
@@ -996,8 +1019,7 @@ def phase_ranking(dev):
             fn = launch[(kid, p.get("variant"))]
             meas.append(time_ms(lambda: fn(p["tile"], *args), warmup=1))
             if kid in DEVICE_RANKED:
-                dev_ms.append(device_us(lambda: fn(p["tile"], *args),
-                                        calls=50) / 1e3)
+                dev_ms.append(device_us(lambda: fn(p["tile"], *args)) / 1e3)
             pred.append(float(t_pred) * 1e3)
             names.append(f"{p.get('variant', kid)}/{p['tile']}")
         pick = int(np.argmin(pred))
@@ -1046,7 +1068,7 @@ def phase_ranking(dev):
             q, k, v = args
             lib_us = device_us(lambda: torch.nn.functional
                                .scaled_dot_product_attention(
-                                   q, k, v, is_causal=True), calls=50)
+                                   q, k, v, is_causal=True))
             rows_out[-1]["library_device_us"] = lib_us
             print(f"[ranking] {kid} {shape}: SDPA {lib_us:.2f} us device "
                   f"time per call (the yardstick)", flush=True)
@@ -1075,7 +1097,33 @@ def phase_ranking(dev):
 # ---------------------------------------------------------------------------
 
 
-def phase_check(dev):
+CHECK_TOL = 2e-3
+
+
+@contextlib.contextmanager
+def router_margins():
+    """Record, for each call of the port's MoE top-k inside the block,
+    the smallest router margin over its tokens: the k-th largest
+    probability less the (k+1)-th (a near tie routes either way under
+    float rounding).  Yields the list of margins."""
+    from repro_torch.models import moe
+    margins, top_k = [], moe._top_k
+
+    def recording(probs, k):
+        vals, idx = top_k(probs, probs.shape[-1])
+        margins.append((vals[..., k - 1] - vals[..., k]).min().item())
+        return vals[..., :k], idx[..., :k]
+
+    moe._top_k = recording
+    try:
+        yield margins
+    finally:
+        moe._top_k = top_k
+
+
+def _check_config(dev, arch: str) -> None:
+    """``arch``'s smoke config in float32: prefill logits and 8 greedy
+    tokens of the tuned CUDA path against the plain path on the CPU."""
     import torch
     from repro_torch.configs import get_smoke
     from repro_torch.core.target import use_target
@@ -1084,16 +1132,19 @@ def phase_check(dev):
     from repro_torch.models.layers import use_tuned_layers
     from repro_torch.models.params import Param
 
-    cfg = dataclasses.replace(get_smoke("gemma-7b"), dtype="float32")
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
     model = build_model(cfg)
     p_cpu = model.init(seed=0, device="cpu")
     p_dev = map_params(lambda p: Param(p.value.to(dev), p.dims), p_cpu)
     prefill, decode = make_serve_fns(model)
-    tokens = torch.randint(0, cfg.vocab, (2, 32),
-                           generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 32), generator=g)}
+    if cfg.frontend == "frames":
+        batch["frames"] = torch.randn((2, cfg.enc_seq, cfg.d_model),
+                                      generator=g).to(torch.bfloat16)
 
-    def run(params, toks):
-        logits, cache = prefill(params, {"tokens": toks})
+    def run(params, inputs):
+        logits, cache = prefill(params, inputs)
         first = logits
         tok = logits[:, -1:].argmax(-1)
         out = [tok]
@@ -1104,16 +1155,28 @@ def phase_check(dev):
         return first, torch.cat(out, 1)
 
     with torch.inference_mode(), use_tuned_layers(), use_target("h100"):
-        l_dev, t_dev = run(p_dev, tokens.to(dev))
-        l_cpu, t_cpu = run(p_cpu, tokens)
+        with router_margins() as margins:
+            l_dev, t_dev = run(p_dev, {k: v.to(dev)
+                                       for k, v in batch.items()})
+        l_cpu, t_cpu = run(p_cpu, batch)
     err = (l_dev.float().cpu() - l_cpu.float()).abs().max().item()
-    ok = torch.isfinite(l_dev).all().item() and err <= 2e-3
+    ok = torch.isfinite(l_dev).all().item() and err <= CHECK_TOL
     same = torch.equal(t_dev.cpu(), t_cpu)
-    print(f"[check] gemma-smoke f32, tuned CUDA path vs plain CPU path: "
-          f"prefill logits max|err| {err:.3g} (tol 2e-3), greedy tokens "
-          f"identical over 8 steps: {same}")
+    margin = (f"; smallest top-{cfg.top_k} router margin "
+              f"{min(margins):.3g}" if margins else "")
+    print(f"[check] {cfg.name} f32, tuned CUDA path vs plain CPU path: "
+          f"prefill logits max|err| {err:.3g} (tol {CHECK_TOL:g}), greedy "
+          f"tokens identical over 8 steps: {same}{margin}", flush=True)
     if not ok or not same:
-        fail("the card's tuned path disagrees with the plain path")
+        fail(f"{cfg.name}: the card's tuned path disagrees with the plain "
+             f"path{margin}")
+
+
+def phase_check(dev):
+    """Every arch's smoke config (gemma's first) through `_check_config`."""
+    from repro_torch.configs import ARCHS
+    for arch in ["gemma-7b"] + [a for a in ARCHS if a != "gemma-7b"]:
+        _check_config(dev, arch)
 
 
 # ---------------------------------------------------------------------------
@@ -1183,6 +1246,65 @@ def _tool(*args, timeout: float = 600) -> str:
     return out.stdout
 
 
+def _instance_fns(dev, kid: str, sig: dict, params: dict):
+    """One serving instance on the card: (launch, plain, library call or
+    None, bytes, operations) for ``kid`` at ``sig`` with a pick's
+    ``params``, on operands drawn from a seeded generator (the matmul's
+    and the MLP's weights scaled by fan-in^-1/2, so a dot's terms do not
+    grow with its length, as the card tests draw them).  Bytes count
+    each input read once and each output written once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import mlp_matmul as mlp
+    from repro_torch.kernels import rms_norm as rn
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    dt = getattr(torch, sig["dtype"])
+    eb = torch.empty((), dtype=dt).element_size()
+    randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev)
+                                   * scale).to(dt)
+    tile, vid = params["tile"], params.get("variant")
+    if kid == "matmul":
+        m, n, k = sig["m"], sig["n"], sig["k"]
+        a, b = randn(m, k), randn(k, n, scale=k ** -0.5)
+        return (lambda: mm.matmul_cuda(a, b, tile=tile),
+                lambda: mm.matmul_plain(a, b), lambda: torch.matmul(a, b),
+                eb * (m * k + k * n + m * n), 2.0 * m * n * k)
+    if kid == "rms_norm":
+        m, d = sig["m"], sig["d"]
+        x = randn(m, d)
+        g = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        gd = g.to(dt)
+        return (lambda: rn.rms_norm_cuda(x, g, tile=tile),
+                lambda: rn.rms_norm_plain(x, g),
+                lambda: F.rms_norm(x, (d,), gd, 1e-6),
+                eb * 2.0 * m * d + 4.0 * d, 4.0 * m * d)
+    if kid == "flash_attention":
+        b, h, d, sq, skv = sig["b"], sig["h"], sig["d"], sig["sq"], sig["skv"]
+        causal = sig["causal"]
+        q, k, v = randn(b, h, sq, d), randn(b, h, skv, d), randn(b, h, skv, d)
+        fn = fa.flash_cuda if vid == "flash" else fa.blocked_cuda
+        pairs = (b * h * sq * (sq + 1) / 2 if causal and sq == skv
+                 else b * h * sq * skv)           # unmasked (row, col)
+        return (lambda: fn(q, k, v, causal, tile=tile),
+                lambda: fa.attention_plain(q, k, v, causal),
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=causal),
+                eb * 2.0 * b * h * (sq + skv) * d, 4.0 * pairs * d)
+    if kid == "mlp_matmul":
+        m, d, f = sig["m"], sig["d"], sig["f"]
+        args = (randn(m, d), randn(d, f, scale=d ** -0.5),
+                randn(d, f, scale=d ** -0.5), sig["act"])
+        fn = {"fused": mlp.fused_cuda, "stream": mlp.stream_cuda,
+              "split": mlp.split_cuda}[vid]
+        return (lambda: fn(*args, tile=tile), lambda: mlp.mlp_plain(*args),
+                None, eb * (m * d + 2.0 * d * f + m * f), 4.0 * m * d * f)
+    raise KeyError(kid)
+
+
 def _pretuned_call(dev, kid: str, sig: dict, params: dict):
     """Launch ``kid`` on the card at ``sig`` with a record's ``params``
     and return (kernel output, plain output)."""
@@ -1190,51 +1312,22 @@ def _pretuned_call(dev, kid: str, sig: dict, params: dict):
     from repro_torch.kernels import api
     from repro_torch.kernels import atax as ax
     from repro_torch.kernels import bicg as bc
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import jacobi3d as jc
-    from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import matvec as mv
-    from repro_torch.kernels import mlp_matmul as mlp
-    from repro_torch.kernels import rms_norm as rn
     from repro_torch.kernels import stencil2d as st
 
+    if kid in SERVE_OPS:
+        launch, plain, *_ = _instance_fns(dev, kid, sig, params)
+        return launch(), plain()
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    dt = getattr(torch, sig["dtype"])
-    randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev)
-                                   * scale).to(dt)
-    tile, vid = params["tile"], params.get("variant")
-    if kid == "matmul":
-        # the [kernels] phase's operands: B scaled by k^-1/2, so a dot's
-        # terms do not grow with k (as the card tests draw them)
-        a, b = randn(sig["m"], sig["k"]), randn(sig["k"], sig["n"],
-                                                scale=sig["k"] ** -0.5)
-        return mm.matmul_cuda(a, b, tile=tile), mm.matmul_plain(a, b)
-    if kid == "rms_norm":
-        args = (randn(sig["m"], sig["d"]),
-                1 + 0.1 * torch.randn(sig["d"], generator=gen, device=dev))
-        return rn.rms_norm_cuda(*args, tile=tile), rn.rms_norm_plain(*args)
-    if kid == "flash_attention":
-        b, h, d = sig["b"], sig["h"], sig["d"]
-        q, k, v = (randn(b, h, sig["sq"], d), randn(b, h, sig["skv"], d),
-                   randn(b, h, sig["skv"], d))
-        fn = fa.flash_cuda if vid == "flash" else fa.blocked_cuda
-        return (fn(q, k, v, sig["causal"], tile=tile),
-                fa.attention_plain(q, k, v, sig["causal"]))
-    if kid == "mlp_matmul":
-        m, d, f = sig["m"], sig["d"], sig["f"]
-        args = (randn(m, d), randn(d, f, scale=d ** -0.5),
-                randn(d, f, scale=d ** -0.5), sig["act"])
-        fn = {"fused": mlp.fused_cuda, "stream": mlp.stream_cuda,
-              "split": mlp.split_cuda}[vid]
-        return fn(*args, tile=tile), mlp.mlp_plain(*args)
     cuda, plain = {"matvec": (mv.matvec_cuda, mv.matvec_plain),
                    "atax": (ax.atax_cuda, ax.atax_plain),
                    "bicg": (bc.bicg_cuda, bc.bicg_plain),
                    "jacobi3d": (jc.jacobi3d_cuda, jc.jacobi3d_plain),
                    "stencil2d": (st.stencil2d_cuda, st.stencil2d_plain)}[kid]
     args = api.get_spec(kid).make_inputs(gen, **sig)
-    return cuda(*args, tile=tile), plain(*args)
+    return cuda(*args, tile=params["tile"]), plain(*args)
 
 
 def phase_pretuned(dev):
@@ -1490,6 +1583,271 @@ def phase_service(reports, jsonl: str):
     return l_s
 
 
+# ---------------------------------------------------------------------------
+# phase 4d: the other model families
+# ---------------------------------------------------------------------------
+
+# the other configs' request: (batch, prompt_len, gen)
+FAMILY_REQUEST = (2, 64, 8)
+# depth cuts, so that a config's bf16 weights take at most 40 GB, half
+# of the card: width is never cut
+FAMILY_DEPTH = {"moonshot-v1-16b-a3b": 24, "chameleon-34b": 24,
+                "qwen1.5-110b": 12}
+FAMILY_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+
+
+def _serve_family(arch: str, cfg, requests):
+    """``cfg`` served through ``repro_torch.launch.serve --tuned-ops
+    --pretune --assert-frozen`` for each (batch, prompt_len, gen) of
+    ``requests``, with the launch counters set to 0 before and read
+    after.  Returns (reports, launches)."""
+    import gc
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+
+    label = cfg.name
+    reports = []
+    kernels.reset_launch_counts()           # the path starts here
+    for batch, plen, gen in requests:
+        t0 = time.perf_counter()
+        rep = serve.main(["--arch", arch, "--batch", str(batch),
+                          "--prompt-len", str(plen), "--gen", str(gen),
+                          "--tuned-ops", "--pretune", "--assert-frozen"],
+                         cfg=cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        toks = torch.tensor(rep["tokens"])
+        st = rep["dispatch"]
+        if not rep["logits_finite"] or not rep["device"].startswith("cuda"):
+            fail(f"[families] {label} {batch}x{plen}: device "
+                 f"{rep['device']}, finite logits {rep['logits_finite']}")
+        if toks.shape != (batch, gen + 1) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab:
+            fail(f"[families] {label}: bad tokens {tuple(toks.shape)}")
+        if st["frozen"] != st["total"] or st["live"] or st["fallback"] \
+                or rep["runtime_tunes"]:
+            fail(f"[families] {label}: {st}, {rep['runtime_tunes']} "
+                 f"runtime tunes")
+        print(f"[families] {label} {batch}x{plen}+{gen}: prefill "
+              f"{rep['prefill_ms']:.1f} ms, {rep['ms_per_token']:.2f} "
+              f"ms/token, wall {time.perf_counter() - t0:.1f} s; "
+              f"{len(rep['instances'])} unique instances, "
+              f"{st['frozen']}/{st['total']} frozen, {st['live']} live, "
+              f"{st['fallback']} fallback, {rep['runtime_tunes']} runtime "
+              f"tunes; first tokens {rep['tokens'][0][:8]}", flush=True)
+        reports.append(rep)
+    launches = kernels.launch_counts()       # ... and ends here
+    print(f"[families] {label} CUDA launches: "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    _require_picks_launched(f"[families] {label}", reports, launches)
+    return reports, launches
+
+
+def _require_picks_launched(what: str, reports, launches) -> None:
+    """Fatal unless every kernel family the serving instances picked
+    launched on the path (each pick's wrapper counts under its variant's
+    name or the kernel's, the gated MLP's also under its family's)."""
+    from repro_torch.kernels import mlp_matmul as mlp
+    counter = {"fused": (mlp.GATED_TILES, mlp._GATED_COUNTER),
+               "stream": (mlp.STREAM_TILES, mlp._STREAM_COUNTER)}
+    selected = set()
+    for rep in reports:
+        for inst in rep["instances"]:
+            p = inst["params"]
+            selected.add(p.get("variant", inst["kernel"]))
+            if inst["kernel"] == "mlp_matmul" and p["variant"] in counter:
+                table, names = counter[p["variant"]]
+                selected.add(names[table[p["tile"]][5]])
+    missing = sorted(k for k in selected if launches.get(k, 0) == 0)
+    if missing:
+        fail(f"{what}: kernels picked for the path never launched: "
+             f"{missing}")
+
+
+def _moe_byte_floor(cfg) -> float:
+    """Bytes one MoE decode step must read for its experts: every
+    routed expert's three matrices in every MoE layer (the capacity of
+    at least 32 slots meets every expert each step)."""
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    e = max(cfg.n_experts, cfg.pad_experts_to)
+    return 2.0 * n_moe * e * 3 * cfg.d_model * cfg.d_ff_expert
+
+
+def _profile_moe_decode(dev, cfg, batch: int, prompt_len: int,
+                        steps: int = 4) -> dict:
+    """`torch.profiler` over ``steps`` decode steps of ``cfg`` at the
+    first request's shape: device busy ms per step beside the experts'
+    byte floor, the idle share, device time by kernel."""
+    import torch
+    from repro_torch.distributed import make_serve_fns
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import use_tuned_layers
+
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    prefill, decode = make_serve_fns(model)
+    tokens = torch.zeros((batch, prompt_len), dtype=torch.long, device=dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode(), use_tuned_layers():
+        _, cache = prefill(params, {"tokens": tokens})
+        tok = tokens[:, :1]
+        _, cache = decode(params, cache, tok)        # warm
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                _, cache = decode(params, cache, tok)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    del params, cache
+    torch.cuda.empty_cache()
+    rows = _device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    if busy <= 0:
+        fail("[families] the profiler recorded no device time")
+    floor = _moe_byte_floor(cfg)
+    floor_ms = floor / HBM_BYTES_PER_S * 1e3
+    print(f"[families] {cfg.name} decode batch {batch}: {steps} steps in "
+          f"{wall_ms:.1f} ms wall ({wall_ms / steps:.2f} ms/step), device "
+          f"busy {busy / steps:.2f} ms/step, idle share "
+          f"{1 - busy / wall_ms:.3f}; the experts' byte floor "
+          f"{floor / 1e9:.2f} GB/step = {floor_ms:.2f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s", flush=True)
+    for ms, key, n in rows[:14]:
+        print(f"[families]   {ms / steps:8.3f} ms/step  "
+              f"{100 * ms / busy:5.1f}%  x{n // steps:<4d} {key[:90]}")
+    return {"busy_ms_per_step": busy / steps, "wall_ms_per_step":
+            wall_ms / steps, "floor_ms": floor_ms}
+
+
+def _hold_instances(dev, instances: dict) -> list:
+    """Each unique (kernel, signature) -> pick: launched on the card,
+    held against its plain version (bf16 2e-2, f32 2e-4), timed (CUDA
+    events, and device time per call by `torch.profiler`) beside that
+    version, its bound and its one-call library equivalent."""
+    import torch
+    rows = []
+    for (kid, sig_items), (params, configs) in instances.items():
+        sig = dict(sig_items)
+        launch, plain, lib, nbytes, flops = _instance_fns(dev, kid, sig,
+                                                          params)
+        got, want = launch(), plain()
+        torch.cuda.synchronize()
+        tol = FAMILY_TOL[sig["dtype"]]
+        try:
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+        except AssertionError as e:
+            fail(f"[families] {kid} {sig} {params} disagrees with its "
+                 f"plain version: {str(e).splitlines()[0:4]}")
+        err = (got.float() - want.float()).abs().max().item()
+        del got, want
+        b_ms, b_by = bound(nbytes, flops, sig["dtype"])
+        row = dict(kernel=kid, signature=sig, params=params,
+                   configs=sorted(configs), max_abs_err=err,
+                   ms=time_ms(launch), plain_ms=time_ms(plain),
+                   bound_ms=b_ms, bound_by=b_by,
+                   library_ms=time_ms(lib) if lib is not None else None,
+                   device_us=device_us(launch),
+                   library_device_us=(device_us(lib) if lib is not None
+                                      else None))
+        rows.append(row)
+        shape = ",".join(f"{k}={v}" for k, v in sig.items()
+                         if k != "dtype")
+        tag = f"{params.get('variant', kid)}/{params['tile']}"
+        print(f"[families] {kid} {sig['dtype']} {shape} -> {tag}: "
+              f"max|err| {err:.3g} | kernel {row['ms']:.4f} ms, device "
+              f"{row['device_us']:.2f} us | plain {row['plain_ms']:.4f} ms "
+              f"| bound {b_ms:.4f} ms ({b_by}, "
+              f"{100e3 * b_ms / row['device_us']:.0f}% of device time) | "
+              f"library "
+              + (f"{row['library_ms']:.4f} ms, device "
+                 f"{row['library_device_us']:.2f} us" if lib is not None
+                 else "none") + f" | {', '.join(row['configs'])}",
+              flush=True)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_families(dev, gemma_reports) -> dict:
+    """The other model families at published width: qwen2-moe-a2.7b at
+    its full depth for both REQUESTS and a profiled decode, then each
+    other config for FAMILY_REQUEST (depth cut per FAMILY_DEPTH), every
+    config's dispatches frozen; then every unique instance of the ten
+    configs (gemma-7b's from [serve]) launched on its H100 pick and held
+    against its plain version.  Returns {"launches": qwen2-moe's path's
+    counts, "profile": ..., "rows": [...]}."""
+    from repro_torch.configs import ARCHS, get_config
+
+    t_phase = time.perf_counter()
+    instances = {}
+
+    def collect(reports, name):
+        for rep in reports:
+            for inst in rep["instances"]:
+                key = (inst["kernel"], tuple(sorted(
+                    inst["signature"].items())))
+                instances.setdefault(key, (inst["params"], set()))[1].add(
+                    name)
+
+    collect(gemma_reports, "gemma-7b")
+    out = {}
+    for arch in ["qwen2-moe-a2.7b"] + [a for a in ARCHS if a not in (
+            "qwen2-moe-a2.7b", "gemma-7b")]:
+        full = get_config(arch)
+        n = FAMILY_DEPTH.get(arch, full.n_layers)
+        cfg = dataclasses.replace(full, n_layers=n)
+        cut = "no depth cut" if n == full.n_layers else "depth cut"
+        print(f"[families] {arch} at full width: d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads x {cfg.hd} (kv {cfg.n_kv}), d_ff "
+              f"{cfg.d_ff_expert if cfg.family == 'moe' else cfg.d_ff}"
+              + (f" x {cfg.n_experts} experts top-{cfg.top_k} + "
+                 f"{cfg.n_shared} shared" if cfg.family == "moe" else "")
+              + f", vocab {cfg.vocab}, {n} of {full.n_layers} layers "
+              f"({cut}), {cfg.num_params() * 2 / 1e9:.1f} GB of "
+              f"{cfg.dtype} weights from seed 0", flush=True)
+        if arch == "qwen2-moe-a2.7b":
+            reports, launches = _serve_family(arch, cfg, REQUESTS)
+            for op, names in (("rms_norm", ("rms_norm",)),
+                              ("flash_attention", ("flash", "blocked")),
+                              ("mlp_matmul", ("fused", "stream", "split")),
+                              ("matmul", ("matmul",))):
+                if not any(launches[k] for k in names):
+                    fail(f"[families] {arch}: {op} launched no CUDA "
+                         f"kernel")
+            out["launches"] = launches
+            batch, plen, _ = REQUESTS[0]
+            out["profile"] = _profile_moe_decode(dev, cfg, batch, plen)
+        else:
+            reports, _ = _serve_family(arch, cfg, (FAMILY_REQUEST,))
+        collect(reports, arch)
+    whisper = get_config("whisper-tiny")
+    if not any(k == "flash_attention" and not dict(sig)["causal"]
+               and dict(sig)["sq"] == whisper.enc_seq
+               for k, sig in instances):
+        fail("[families] whisper's non-causal encoder attention is not "
+             "among the instances")
+    print(f"[families] {len(instances)} unique instances over the ten "
+          f"configs, each on its H100 pick:", flush=True)
+    out["rows"] = _hold_instances(dev, instances)
+    # on device time: a wrapper's CUDA-event time under 0.05 ms is
+    # mostly the host's
+    slow = [r for r in out["rows"]
+            if (r["library_device_us"] is not None
+                and r["device_us"] > r["library_device_us"])
+            or 1e3 * r["bound_ms"] < 0.5 * r["device_us"]]
+    print(f"[families] {len(slow)} of {len(out['rows'])} picks slower "
+          f"than their library call or under half of their bound on "
+          f"device time: "
+          + "; ".join(f"{r['kernel']} {r['params']['tile']} "
+                      f"{r['signature']}" for r in slow))
+    print(f"[families] phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
 def phase_profile(dev, batch: int = 4, prompt_len: int = 64,
                   steps: int = 4):
     """Where a decode step's time goes: `torch.profiler` over ``steps``
@@ -1577,7 +1935,7 @@ def _table4_device_us(dev) -> dict:
             args = api.get_spec(kid).make_inputs(gen, **sig)
             tile = tc.lookup_or_tune(kid, spec="h100", db=tc.TuningDatabase(),
                                      **sig)[api.TILE_AXIS]
-            us = device_us(lambda: fn(*args, tile=tile), calls=50)
+            us = device_us(lambda: fn(*args, tile=tile))
             out[(kid, dtype)] = us
             print(f"[profile] {kid} {dtype} "
                   f"{'x'.join(str(v) for v in TABLE4_SHAPES[kid].values())} "
@@ -1601,10 +1959,20 @@ PROFILED = {"B1": ("gemv_kernel", "wgmma_kernel", "splitk_reduce_kernel"),
                    "stream_gemv_kernel")}
 
 
+def _device_events(prof):
+    """The device-side events of a profile (kernels, copies, sets).  A
+    CPU op's row repeats, as its self device time, the time of the
+    kernels it launched: summing it beside theirs counts them twice."""
+    import torch
+    return [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def _device_rows(prof):
-    """(device ms, kernel name, launches) of a profile, largest first."""
+    """(device ms, kernel name, launches) of a profile's device-side
+    events, largest first."""
     rows = []
-    for ev in prof.key_averages():
+    for ev in _device_events(prof):
         dt = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
         if dt > 0:
@@ -1944,9 +2312,9 @@ def phase_extend(dev, card: str):
         err = (got.float() - want.float()).abs().max().item()
         with use_target("h100"):
             ms = time_ms(lambda: ops.mega_matmul(a, b))
-            dev_us = device_us(lambda: ops.mega_matmul(a, b), calls=50)
+            dev_us = device_us(lambda: ops.mega_matmul(a, b))
         lib_ms = time_ms(lambda: torch.matmul(a, b))
-        lib_us = device_us(lambda: torch.matmul(a, b), calls=50)
+        lib_us = device_us(lambda: torch.matmul(a, b))
         b_ms, b_by = bound(2.0 * 3 * 2048 ** 2, 2.0 * 2048 ** 3, "bfloat16")
         print(f"[extend] mega_matmul 2048^3 bf16 under h100: space = the "
               f"GEMM tile table, pick {chosen}, launched through "
@@ -2019,8 +2387,7 @@ def phase_extend_kernels(dev) -> dict:
                 c_err = (composite().float()
                          - plain(u).float()).abs().max().item()
                 base.update(composite_ms=time_ms(composite),
-                            composite_device_us=device_us(composite,
-                                                          calls=50))
+                            composite_device_us=device_us(composite))
                 other = (f"torch composite (conv2d + boundary copy, 3 "
                          f"calls) {base['composite_ms']:.4f} ms, device "
                          f"{base['composite_device_us']:.2f} us, max|err| "
@@ -2030,7 +2397,7 @@ def phase_extend_kernels(dev) -> dict:
                     return torch.add(b, a, alpha=2.0)
                 base.update(library_ms=time_ms(lambda: lib(*args)),
                             library_device_us=device_us(
-                                lambda: lib(*args), calls=50))
+                                lambda: lib(*args)))
                 other = (f"library torch.add(b, a, alpha=2) "
                          f"{base['library_ms']:.4f} ms, device "
                          f"{base['library_device_us']:.2f} us")
@@ -2040,8 +2407,7 @@ def phase_extend_kernels(dev) -> dict:
                             f"8192x8192 {dtype} tile {tile}")
                 row = dict(base, max_abs_err=err,
                            ms=time_ms(lambda: fn(*args, tile=tile)),
-                           device_us=device_us(lambda: fn(*args, tile=tile),
-                                               calls=50),
+                           device_us=device_us(lambda: fn(*args, tile=tile)),
                            shape=f"8192x8192 {dtype} tile {tile}")
                 print(f"[extend] {name} {row['shape']}: max|err| {err:.3g} "
                       f"(tol {tol:g} abs + rel) | kernel {row['ms']:.4f} "
@@ -2421,6 +2787,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         jsonl, deploy_launches = phase_deploy(reports, launches, work)
         service_launches = phase_service(reports, jsonl)
+    families = phase_families(dev, reports)
     profile = phase_profile(dev)
     for (kid, dtype), us in profile["table4"].items():
         if dtype == "float32":
@@ -2431,21 +2798,7 @@ def main() -> None:
     rows.update(phase_extend_kernels(dev))
     sass = phase_extract(rows, ranking, profile)
 
-    from repro_torch.kernels import mlp_matmul as mlp
-    counter = {"fused": (mlp.GATED_TILES, mlp._GATED_COUNTER),
-               "stream": (mlp.STREAM_TILES, mlp._STREAM_COUNTER)}
-    selected = {}
-    for rep in reports:
-        for inst in rep["instances"]:
-            p = inst["params"]
-            selected[p.get("variant", inst["kernel"])] = True
-            if inst["kernel"] == "mlp_matmul" and p["variant"] in counter:
-                # the family the pick launches
-                table, names = counter[p["variant"]]
-                selected[names[table[p["tile"]][5]]] = True
-    missing = [k for k in selected if launches.get(k, 0) == 0]
-    if missing:
-        fail(f"kernels picked for the main path never launched: {missing}")
+    _require_picks_launched("the main path", reports, launches)
     for op, names in (("matmul", ("matmul",)),
                       ("the decode matmul's GEMV tiles", ("gemm_gemv",)),
                       ("the prefill matmul's wgmma tiles", ("gemm_wgmma",)),
@@ -2496,6 +2849,9 @@ def main() -> None:
                 "replaces": replaces,
                 "launches": counts[COUNTER.get(name, name)],
                 "path": path,
+                **({"families_launches":
+                    families["launches"][COUNTER.get(name, name)]}
+                   if name in SERVE_KERNELS else {}),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -536,10 +536,14 @@ class GraphTuner:
         model = build_model(cfg)
         params = model.init(seed=0, device="meta")
         prefill, decode_step = make_serve_fns(model)
-        tokens = torch.zeros((batch, prompt_len), dtype=torch.long,
-                             device="meta")
+        inputs = {"tokens": torch.zeros((batch, prompt_len),
+                                        dtype=torch.long, device="meta")}
+        if cfg.frontend == "frames":
+            inputs["frames"] = torch.zeros(
+                (batch, cfg.enc_seq, cfg.d_model),
+                dtype=getattr(torch, cfg.dtype), device="meta")
         with use_tuned_layers(), api.collect_dispatches() as col:
-            _, cache = prefill(params, {"tokens": tokens})
+            _, cache = prefill(params, inputs)
             if decode:
                 tok = torch.zeros((batch, 1), dtype=torch.long,
                                   device="meta")

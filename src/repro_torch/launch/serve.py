@@ -3,6 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b \\
         --tuned-ops --pretune --assert-frozen
 
+Any of the ten archs of `repro_torch.configs.ARCHS` serves (``--smoke``
+for its reduced sibling); whisper-tiny's prompt comes with stub frame
+embeddings (B, enc_seq, d_model), as the reference's does.
+
 Runs on the CUDA card unless ``--device cpu`` is given (then every
 kernel runs its plain PyTorch version).  With ``--tuned-ops`` the
 layers dispatch RMSNorm, prefill attention and the gated MLP through
@@ -177,11 +181,17 @@ def main(argv: Optional[Sequence[str]] = None, *,
     gen.manual_seed(args.seed)
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=device)
+    batch = {"tokens": tokens}
+    if cfg.frontend == "frames":
+        # the stub audio frontend's frame embeddings
+        batch["frames"] = torch.randn(
+            (args.batch, cfg.enc_seq, cfg.d_model), generator=gen,
+            device=device).to(torch.bfloat16)
 
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": tokens})
+        logits, cache = prefill(params, batch)
         _sync(device)
         t_prefill = time.perf_counter() - t0
         t_first = time.perf_counter() - t_start

@@ -1,4 +1,4 @@
-"""Shared neural layers of the dense LM (functions over Param trees).
+"""Shared neural layers (functions over Param trees).
 
 Everything computes in the model's compute type (bf16 by default) with
 f32 norms, rope and softmax, as the reference does.
@@ -6,10 +6,10 @@ f32 norms, rope and softmax, as the reference does.
 Tuned-op routing (DESIGN.md §15): when tuned layers are enabled —
 ``use_tuned_layers()`` / ``set_tuned_layers(True)`` / env
 ``REPRO_TUNED_LAYERS=1`` — ``rms_norm``, the gated ``mlp`` (front half
-and down-projection) and full-causal prefill ``attention`` dispatch
-through `repro_torch.kernels.ops`, i.e. through the statically ranked
-CUDA kernels on the card.  Disabled (the default), every layer runs its
-plain PyTorch path.  Decode attention and the QKV / output / lm-head
+and down-projection) and unwindowed prefill ``attention`` (causal, or
+bidirectional in an encoder) dispatch through `repro_torch.kernels.ops`,
+i.e. through the statically ranked CUDA kernels on the card.  Disabled
+(the default), every layer runs its plain PyTorch path.  Decode attention and the QKV / output / lm-head
 projections are plain PyTorch either way, as the reference leaves them
 to XLA.
 """
@@ -229,10 +229,16 @@ def _attention_tuned(q, k, v, causal: bool):
 
 def attention(p: Dict, x: torch.Tensor, cfg: AttnConfig, shd: Sharder,
               positions: Optional[torch.Tensor] = None,
-              return_kv: bool = False):
-    """Full-sequence (prefill) attention.  x: (B, S, D)."""
+              return_kv: bool = False,
+              window_override: Optional[int] = None):
+    """Full-sequence (prefill) attention.  x: (B, S, D).
+
+    ``window_override`` replaces ``cfg.window`` for this call (the
+    hybrid family's per-layer windows, where "full" is the sequence
+    length, never 0 — so those layers keep the plain masked path, as
+    the reference's traced windows do)."""
     b, s, d = x.shape
-    window = cfg.window
+    window = cfg.window if window_override is None else window_override
     # the tuned kernel implements exactly the standard prefill mask:
     # positions = arange, full causal (or fully bidirectional)
     tuned = tuned_layers_enabled() and positions is None and window == 0
@@ -268,15 +274,20 @@ def attention(p: Dict, x: torch.Tensor, cfg: AttnConfig, shd: Sharder,
 
 def attention_decode(p: Dict, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: int, cfg: AttnConfig,
-                     shd: Sharder, window_override: Optional[int] = None):
+                     shd: Sharder, window_override: Optional[int] = None,
+                     rolling: bool = False):
     """One-token decode.  x: (B, 1, D); cache_k/v: (B, S_cache, KV, hd)
     views of the layer's cache, written in place at this step's slot
     (the reference returns new caches; in place saves a cache copy per
     layer and step); ``pos``: the current position; ``window_override``
-    a per-call attention window (0 or None: the config's)."""
+    a per-call attention window (None: the config's; 0: none).
+
+    ``rolling=True`` treats the cache as a mod-S_cache ring buffer
+    (windowed layers / capped long-context decode); the effective
+    attention span is ``min(window, S_cache)``."""
     b = x.shape[0]
     s_cache = cache_k.shape[1]
-    window = window_override or cfg.window
+    window = cfg.window if window_override is None else window_override
     positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
     if cfg.kv_repeat > 1:
@@ -287,13 +298,20 @@ def attention_decode(p: Dict, x: torch.Tensor, cache_k: torch.Tensor,
     # to the prompt (what serving's prefill builds) keeps overwriting
     # its last entry.  Reproduce the clamp so greedy tokens agree; a
     # plain slice assignment would go out of range instead.
-    slot = min(pos, s_cache - 1)
+    slot = pos % s_cache if rolling else min(pos, s_cache - 1)
     cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
     cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
     idx = torch.arange(s_cache, device=x.device)
-    ok = idx <= pos
-    if window > 0:
-        ok &= (pos - idx) < window
+    if rolling:
+        # ring buffer: entry i holds absolute position p = i (mod S_c),
+        # valid if it was written (p <= pos) and inside the window
+        age = (pos - idx) % s_cache
+        span = min(window if window > 0 else s_cache, s_cache)
+        ok = (age < span) & (age <= pos)
+    else:
+        ok = idx <= pos
+        if window > 0:
+            ok &= (pos - idx) < window
     bias = torch.where(ok, 0.0, -1e30).float()[None, :]
     scale = 1.0 / math.sqrt(cfg.head_dim)
     out = _sdpa(q, cache_k, cache_v, bias, scale).to(x.dtype)

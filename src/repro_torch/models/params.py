@@ -11,7 +11,8 @@ The reference keeps f32 masters and casts matrices to the compute type
 at each use.  The port casts once when parameters are made or loaded —
 matrices to the compute type, norm gains (vectors per layer) kept in
 f32 — which gives the same values the reference computes with, and
-halves the resident weights of a bf16 model.
+halves the resident weights of a bf16 model.  The MoE router (its last
+dim is ``experts``) stays f32 too: the reference routes in f32.
 """
 from __future__ import annotations
 
@@ -21,8 +22,8 @@ import torch
 
 from repro_torch.kernels.common import resolve_device
 
-__all__ = ["Param", "param", "map_params", "from_numpy_tree",
-           "resolve_device"]
+__all__ = ["Param", "param", "map_params", "stack_dims",
+           "from_numpy_tree", "resolve_device"]
 
 
 class Param:
@@ -48,8 +49,10 @@ class Param:
 
 def _store_dtype(shape: Sequence[int], dims: Sequence[Optional[str]],
                  dtype: torch.dtype) -> torch.dtype:
-    """Matrices in the compute type, gains in f32 — judged per layer: a
-    stacked (layers, d) gain is a vector."""
+    """Matrices in the compute type, gains and the router in f32 —
+    judged per layer: a stacked (layers, d) gain is a vector."""
+    if dims and dims[-1] == "experts":
+        return torch.float32
     rank = len(shape) - (1 if dims and dims[0] == "layers" else 0)
     return dtype if rank >= 2 else torch.float32
 
@@ -88,6 +91,12 @@ def map_params(fn: Callable[[Param], Any], tree):
     return {k: map_params(fn, v) for k, v in tree.items()}
 
 
+def stack_dims(tree, axis_name: str = "layers"):
+    """Prepend the stacking dim name to every Param of a per-layer tree
+    whose values were stacked along a new leading dim."""
+    return map_params(lambda p: Param(p.value, (axis_name,) + p.dims), tree)
+
+
 def from_numpy_tree(tree, *, dtype: torch.dtype = torch.float32,
                     device=None):
     """The reference's parameter tree -> the port's.
@@ -96,8 +105,10 @@ def from_numpy_tree(tree, *, dtype: torch.dtype = torch.float32,
     dims: an object with ``.value`` and ``.dims`` (the reference's
     ``Param`` after ``np.asarray`` on its value) or a ``(array, dims)``
     pair.  Matrices are cast once to ``dtype`` (the model's compute
-    type), 1-D gains stay f32, everything lands on ``device`` (default:
-    the CUDA card)."""
+    type), 1-D gains and the MoE router stay f32, everything lands on
+    ``device`` (default: the CUDA card).  Every family's tree crosses
+    as is: stacked layers, a dense prefix stack, MoE experts, SSD
+    blocks, encoder and decoder stacks."""
     dev = resolve_device(device)
 
     def conv(leaf):

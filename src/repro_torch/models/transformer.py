@@ -1,68 +1,123 @@
-"""Decoder-only LM, dense family, serving path (prefill + decode).
+"""Decoder-only LM covering the dense / moe / ssm / hybrid families
+(serving path: prefill + decode).
 
 The reference scans one stacked layer body with ``lax.scan``; the port
 keeps the stacked (n_layers, ...) parameters and loops over layers in
-Python, slicing layer ``i``'s weights as views.
+Python, slicing layer ``i``'s weights as views.  Per-layer
+heterogeneity is the reference's: hymba's sliding-vs-global windows
+are per-layer ints (`hybrid_windows`), moonshot's leading dense layers
+a small ``prefix_blocks`` stack with its own ``k_pre``/``v_pre`` cache.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from repro_torch.distributed.sharding import Sharder
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (AttnConfig, attention,
+from repro_torch.models.layers import (AttnConfig, _rms, attention,
                                        attention_decode, init_attention,
                                        init_mlp, mlp, rms_norm)
+from repro_torch.models.moe import init_moe, moe_layer
 from repro_torch.models.params import Param, param, resolve_device
+from repro_torch.models.ssd import (SsdConfig, init_ssd, ssd_block,
+                                    ssd_decode)
 
-__all__ = ["attn_config", "init_lm", "lm_logits", "lm_prefill",
-           "lm_decode_step", "init_lm_cache"]
+__all__ = ["attn_config", "ssd_config", "init_lm", "lm_logits", "lm_prefill",
+           "lm_decode_step", "init_lm_cache", "hybrid_windows"]
 
 
 def attn_config(cfg: ModelConfig) -> AttnConfig:
     return AttnConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
         head_dim=cfg.hd, qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
-        rope_theta=cfg.rope_theta, kv_repeat=cfg.kv_repeat, window=0)
+        rope_theta=cfg.rope_theta, kv_repeat=cfg.kv_repeat,
+        window=0)  # per-layer windows flow through window_override
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"repro_torch serves the dense family only; {cfg.name} is "
-            f"{cfg.family!r}")
+def ssd_config(cfg: ModelConfig) -> SsdConfig:
+    return SsdConfig(d_model=cfg.d_model, ssm_state=cfg.ssm_state,
+                     ssm_conv=cfg.ssm_conv, expand=cfg.ssm_expand,
+                     head_dim=cfg.ssm_head_dim, chunk=cfg.ssm_chunk)
+
+
+def hybrid_windows(cfg: ModelConfig, seq_len: int,
+                   n_layers: int) -> List[int]:
+    """Per-layer attention windows.  A window >= seq_len acts as full
+    causal attention: full is encoded as seq_len, never as 0, as the
+    reference's traced windows are — so a windowed family's attention
+    keeps the plain masked path on every layer, global ones included."""
+    full = max(int(seq_len), 1)
+    if cfg.family != "hybrid" or cfg.swa_window <= 0:
+        return [full] * n_layers
+    glb = {0, n_layers // 2, n_layers - 1}
+    return [full if i in glb else min(cfg.swa_window, full)
+            for i in range(n_layers)]
+
+
+def _n_main(cfg: ModelConfig) -> int:
+    """Layers of the main stack (a MoE config's dense prefix apart)."""
+    return (cfg.n_layers - cfg.first_dense_layers if cfg.family == "moe"
+            else cfg.n_layers)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_blocks(cfg: ModelConfig, n: int, moe: bool, kw: Dict) -> Dict:
+    """One stack of ``n`` layers, (n, ...) per weight."""
+    d = cfg.d_model
+    gain = lambda: param((n, d), ("layers", "embed"), init="ones", **kw)
+    blk: Dict = {"ln1": gain()}
+    fam = cfg.family
+    if fam in ("dense", "moe", "hybrid"):
+        blk["attn"] = init_attention(attn_config(cfg), n_layers=n, **kw)
+        blk["ln2"] = gain()
+        if moe:
+            blk["moe"] = init_moe(d, cfg.d_ff_expert, cfg.n_experts,
+                                  cfg.n_shared, cfg.act,
+                                  pad_to=cfg.pad_experts_to, n_layers=n,
+                                  **kw)
+        else:
+            blk["mlp"] = init_mlp(d, cfg.d_ff, cfg.act, n_layers=n, **kw)
+    if fam in ("ssm", "hybrid"):
+        blk["ssd"] = init_ssd(ssd_config(cfg), n_layers=n, **kw)
+    if fam == "hybrid":
+        for name in ("norm_a", "norm_m", "beta_a", "beta_m"):
+            blk[name] = gain()
+    return blk
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict:
     """Random parameters (a ``torch.Generator`` seeded with ``seed``),
     reference layouts and init scales, matrices in ``cfg.dtype``.  On
     the ``meta`` device nothing is allocated (graph enumeration)."""
-    _check_dense(cfg)
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a "
+                         f"decoder-only LM")
     dev = resolve_device(device)
-    dtype = getattr(torch, cfg.dtype)
     gen = None
     if dev.type != "meta":
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-    kw = dict(dtype=dtype, device=dev, generator=gen)
-    n, d = cfg.n_layers, cfg.d_model
-    blocks = {
-        "ln1": param((n, d), ("layers", "embed"), init="ones", **kw),
-        "attn": init_attention(attn_config(cfg), n_layers=n, **kw),
-        "ln2": param((n, d), ("layers", "embed"), init="ones", **kw),
-        "mlp": init_mlp(d, cfg.d_ff, cfg.act, n_layers=n, **kw),
-    }
-    return {
+    kw = dict(dtype=getattr(torch, cfg.dtype), device=dev, generator=gen)
+    d = cfg.d_model
+    p = {
         "embed": param((cfg.vocab, d), ("vocab", "embed"), init="embed",
                        **kw),
         "final_norm": param((d,), ("embed",), init="ones", **kw),
         "lm_head": param((d, cfg.vocab), ("embed", "vocab"),
                          scale=1.0 / math.sqrt(d), **kw),
-        "blocks": blocks,
     }
+    if cfg.family == "moe" and cfg.first_dense_layers:
+        p["prefix_blocks"] = _init_blocks(cfg, cfg.first_dense_layers,
+                                          False, kw)
+    p["blocks"] = _init_blocks(cfg, _n_main(cfg), cfg.family == "moe", kw)
+    return p
 
 
 def _layer(tree, i: int):
@@ -72,19 +127,97 @@ def _layer(tree, i: int):
     return {k: _layer(v, i) for k, v in tree.items()}
 
 
+# ---------------------------------------------------------------------------
+# blocks (prefill path)
+# ---------------------------------------------------------------------------
+
+
+def _full_attention(cfg: ModelConfig) -> bool:
+    """True when every layer runs full (unwindowed) attention: the
+    per-layer window is then dropped, so the static ``window == 0``
+    gate routes attention through the tuned kernel."""
+    return cfg.family != "hybrid" or cfg.swa_window <= 0
+
+
+def _hybrid_mix(blk: Dict, a: torch.Tensor, m: torch.Tensor, dtype):
+    """Hymba's parallel heads: the normed attention and SSD outputs,
+    each with its gain, averaged."""
+    return 0.5 * (_rms(a, blk["norm_a"].value)
+                  * blk["beta_a"].value.to(dtype)
+                  + _rms(m, blk["norm_m"].value)
+                  * blk["beta_m"].value.to(dtype))
+
+
+def _moe(blk: Dict, x: torch.Tensor, cfg: ModelConfig, shd: Sharder):
+    return moe_layer(blk["moe"], x, n_experts=cfg.n_experts,
+                     top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                     act=cfg.act, shd=shd, pad_to=cfg.pad_experts_to,
+                     dispatch=cfg.moe_dispatch)
+
+
 def _block_apply(blk: Dict, h: torch.Tensor, cfg: ModelConfig,
-                 shd: Sharder, collect_kv: bool = False):
-    """One layer; returns (h, kv) — kv is None unless ``collect_kv``."""
+                 shd: Sharder, collect_kv: bool = False, *,
+                 window: Optional[int] = None, moe: bool = False):
+    """One layer; returns (h, aux_loss, (kv, ssm_state)) — aux is None
+    unless ``moe``, the last two None unless ``collect_kv`` (prefill
+    handoff)."""
     acfg = attn_config(cfg)
+    if _full_attention(cfg):
+        window = None               # static full attention (cfg.window=0)
+    aux = kv = sstate = None
+    fam = cfg.family
     x = rms_norm(h, blk["ln1"])
-    kv = None
+    if fam == "ssm":
+        if collect_kv:
+            y, sstate = ssd_block(blk["ssd"], x, ssd_config(cfg), shd,
+                                  return_state=True)
+        else:
+            y = ssd_block(blk["ssd"], x, ssd_config(cfg), shd)
+        return h + y, aux, (kv, sstate)
     if collect_kv:
-        a, kv = attention(blk["attn"], x, acfg, shd, return_kv=True)
+        a, kv = attention(blk["attn"], x, acfg, shd, return_kv=True,
+                          window_override=window)
     else:
-        a = attention(blk["attn"], x, acfg, shd)
-    h = h + a
+        a = attention(blk["attn"], x, acfg, shd, window_override=window)
+    if fam == "hybrid":
+        if collect_kv:
+            m, sstate = ssd_block(blk["ssd"], x, ssd_config(cfg), shd,
+                                  return_state=True)
+        else:
+            m = ssd_block(blk["ssd"], x, ssd_config(cfg), shd)
+        h = h + _hybrid_mix(blk, a, m, h.dtype)
+    else:
+        h = h + a
     x2 = rms_norm(h, blk["ln2"])
-    return h + mlp(blk["mlp"], x2, cfg.act, shd), kv
+    if moe:
+        y, aux = _moe(blk, x2, cfg, shd)
+    else:
+        y = mlp(blk["mlp"], x2, cfg.act, shd)
+    return h + y, aux, (kv, sstate)
+
+
+def _run_blocks(blocks: Dict, h: torch.Tensor, windows: List[int],
+                cfg: ModelConfig, shd: Sharder, moe: bool, aux_total,
+                collect_kv: bool = False):
+    """Every layer of one stack.  Returns (h, aux_total, (kvs, states)):
+    with ``collect_kv``, K/V stacked (L, B, S, KV, hd) and the SSM
+    states stacked (L, ...), each None where the family has none."""
+    ks, vs, ssm, conv = [], [], [], []
+    for i, win in enumerate(windows):
+        h, aux, (kv, st) = _block_apply(_layer(blocks, i), h, cfg, shd,
+                                        collect_kv, window=win, moe=moe)
+        if aux is not None:
+            aux_total = aux_total + aux
+        if kv is not None:
+            ks.append(kv[0])
+            vs.append(kv[1])
+        if st is not None:
+            ssm.append(st["ssm"])
+            conv.append(st["conv"])
+    kvs = (torch.stack(ks), torch.stack(vs)) if ks else None
+    states = ({"ssm": torch.stack(ssm), "conv": torch.stack(conv)}
+              if ssm else None)
+    return h, aux_total, (kvs, states)
 
 
 def _embed(params, tokens, shd: Sharder, dtype) -> torch.Tensor:
@@ -99,75 +232,167 @@ def _head(params, h: torch.Tensor) -> torch.Tensor:
 
 
 def lm_logits(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
-              shd: Sharder, collect_kv: bool = False):
-    """Forward pass.  tokens: (B, S) -> logits (B, S, V) [, (K, V)
-    stacked (L, B, S, KV, hd) when ``collect_kv``]."""
-    _check_dense(cfg)
-    h = _embed(params, tokens, shd, getattr(torch, cfg.dtype))
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        h, kv = _block_apply(_layer(params["blocks"], i), h, cfg, shd,
-                             collect_kv)
-        if collect_kv:
-            ks.append(kv[0])
-            vs.append(kv[1])
+              shd: Sharder, collect_kv: bool = False,
+              inputs_embeds: Optional[torch.Tensor] = None):
+    """Forward pass.  tokens: (B, S) -> (logits (B, S, V), aux loss)
+    [, (prefix (kvs, states), main (kvs, states)) when ``collect_kv``]."""
+    dtype = getattr(torch, cfg.dtype)
+    h = (inputs_embeds.to(dtype) if inputs_embeds is not None
+         else _embed(params, tokens, shd, dtype))
+    s = h.shape[1]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    pre = None
+    if "prefix_blocks" in params:
+        h, aux, pre = _run_blocks(params["prefix_blocks"], h,
+                                  [s] * cfg.first_dense_layers, cfg, shd,
+                                  False, aux, collect_kv)
+    h, aux, main = _run_blocks(params["blocks"], h,
+                               hybrid_windows(cfg, s, _n_main(cfg)), cfg,
+                               shd, cfg.family == "moe", aux, collect_kv)
     logits = shd.act(_head(params, h), ("batch", "seq", "vocab"))
     if collect_kv:
-        return logits, (torch.stack(ks), torch.stack(vs))
-    return logits
+        return logits, aux, (pre, main)
+    return logits, aux
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def _cache_len(cfg: ModelConfig, seq_len: int) -> int:
+    if cfg.family == "hybrid":
+        return min(seq_len, cfg.decode_cache_cap)
+    return seq_len
 
 
 def init_lm_cache(cfg: ModelConfig, batch: int, seq_len: int,
                   dtype=None, device=None) -> Dict:
-    """Linear KV cache per layer; ``pos`` is a host-side int."""
+    """Decode cache: ring/linear KV per attention layer + SSM states
+    (the state in float32, the conv window in ``dtype``); ``pos`` is a
+    host-side int."""
     dtype = dtype or getattr(torch, cfg.dtype)
+    zeros = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt,
+                                                device=device)
+    cache: Dict = {"pos": 0}
+    sc = _cache_len(cfg, seq_len)
     kv, hd = cfg.n_kv * max(cfg.kv_repeat, 1), cfg.hd
-    shape = (cfg.n_layers, batch, seq_len, kv, hd)
-    return {"pos": 0,
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.family in ("dense", "moe", "hybrid"):
+        cache["k"] = zeros((_n_main(cfg), batch, sc, kv, hd))
+        cache["v"] = zeros((_n_main(cfg), batch, sc, kv, hd))
+        if cfg.first_dense_layers:
+            pre = (cfg.first_dense_layers, batch, sc, kv, hd)
+            cache["k_pre"], cache["v_pre"] = zeros(pre), zeros(pre)
+    if cfg.family in ("ssm", "hybrid"):
+        sc_ = ssd_config(cfg)
+        cache["ssm"] = zeros((cfg.n_layers, batch, sc_.n_heads,
+                              sc_.ssm_state, sc_.head_dim), torch.float32)
+        cache["conv"] = zeros((cfg.n_layers, batch, sc_.ssm_conv - 1,
+                               sc_.conv_dim))
+    return cache
+
+
+def _block_decode(blk: Dict, h: torch.Tensor, win: int, ck, cv, sstate,
+                  pos: int, cfg: ModelConfig, shd: Sharder, moe: bool):
+    """One layer of one decode step; K/V are written in place.  Returns
+    (h, ssm_state)."""
+    fam = cfg.family
+    x = rms_norm(h, blk["ln1"])
+    if fam == "ssm":
+        y, sstate = ssd_decode(blk["ssd"], x, sstate, ssd_config(cfg), shd)
+        return h + y, sstate
+    a, _ = attention_decode(blk["attn"], x, ck, cv, pos, attn_config(cfg),
+                            shd, window_override=win,
+                            rolling=(fam == "hybrid"))
+    if fam == "hybrid":
+        m, sstate = ssd_decode(blk["ssd"], x, sstate, ssd_config(cfg), shd)
+        h = h + _hybrid_mix(blk, a, m, h.dtype)
+    else:
+        h = h + a
+    x2 = rms_norm(h, blk["ln2"])
+    y = _moe(blk, x2, cfg, shd)[0] if moe else mlp(blk["mlp"], x2,
+                                                     cfg.act, shd)
+    return h + y, sstate
+
+
+def _decode_stack(blocks: Dict, h: torch.Tensor, windows: List[int],
+                  cache: Dict, kname: str, vname: str, pos: int,
+                  cfg: ModelConfig, shd: Sharder, moe: bool,
+                  states: bool = False):
+    k, v = cache.get(kname), cache.get(vname)
+    for i, win in enumerate(windows):
+        sstate = ({"ssm": cache["ssm"][i], "conv": cache["conv"][i]}
+                  if states else None)
+        h, sstate = _block_decode(
+            _layer(blocks, i), h, win, None if k is None else k[i],
+            None if v is None else v[i], sstate, pos, cfg, shd, moe)
+        if states:
+            cache["ssm"][i] = sstate["ssm"]
+            cache["conv"][i] = sstate["conv"]
+    return h
 
 
 def lm_decode_step(params: Dict, cache: Dict, token: torch.Tensor,
                    cfg: ModelConfig, shd: Sharder):
     """One decode step.  token: (B, 1) -> (logits (B, 1, V), cache).
-    The cache's K/V tensors are updated in place; the returned dict
-    carries the advanced position."""
-    _check_dense(cfg)
-    acfg = attn_config(cfg)
+    The cache's K/V and SSM tensors are updated in place; the returned
+    dict carries the advanced position."""
     pos = cache["pos"]
-    # The reference's decode scan hands every dense layer the window
+    h = _embed(params, token, shd, getattr(torch, cfg.dtype))
+    # The reference's decode scan hands every attention layer the window
     # "full = S_cache" as a traced value, which attention_decode applies
     # as a sliding window ((pos - slot) < S_cache): once pos reaches the
-    # cache length the oldest slots drop out.  Keep it for parity.
-    window = cache["k"].shape[2]
-    h = _embed(params, token, shd, getattr(torch, cfg.dtype))
-    for i in range(cfg.n_layers):
-        blk = _layer(params["blocks"], i)
-        x = rms_norm(h, blk["ln1"])
-        a, _ = attention_decode(blk["attn"], x, cache["k"][i],
-                                cache["v"][i], pos, acfg, shd,
-                                window_override=window)
-        h = h + a
-        x2 = rms_norm(h, blk["ln2"])
-        h = h + mlp(blk["mlp"], x2, cfg.act, shd)
+    # cache length the oldest slots drop out.  Kept for parity.
+    sc = max(cache["k"].shape[2] if "k" in cache else 0, 1)
+    if "prefix_blocks" in params:
+        h = _decode_stack(params["prefix_blocks"], h,
+                          [sc] * cfg.first_dense_layers, cache, "k_pre",
+                          "v_pre", pos, cfg, shd, moe=False)
+    h = _decode_stack(params["blocks"], h,
+                      hybrid_windows(cfg, sc, _n_main(cfg)), cache, "k",
+                      "v", pos, cfg, shd, moe=(cfg.family == "moe"),
+                      states="ssm" in cache)
     return _head(params, h), {**cache, "pos": pos + 1}
 
 
 def lm_prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
-               shd: Sharder, max_len: Optional[int] = None):
-    """Prefill: full forward collecting per-layer KV -> (logits, cache)
-    ready for ``lm_decode_step`` at position s.  ``max_len`` sizes the
-    cache (default: exactly the prompt length, as serving uses it)."""
-    b, s = tokens.shape
-    logits, (k, v) = lm_logits(params, tokens, cfg, shd, collect_kv=True)
-    sc = max(s, max_len or 0)
-    dtype = getattr(torch, cfg.dtype)
-    if sc == s:
-        cache = {"pos": s, "k": k.to(dtype), "v": v.to(dtype)}
-    else:
-        cache = init_lm_cache(cfg, b, sc, dtype, device=tokens.device)
-        cache["k"][:, :, :s] = k
-        cache["v"][:, :, :s] = v
-        cache["pos"] = s
+               shd: Sharder, max_len: Optional[int] = None,
+               inputs_embeds: Optional[torch.Tensor] = None):
+    """Prefill: full forward collecting per-layer KV + SSM states ->
+    (logits, cache) ready for ``lm_decode_step`` at position s.
+    ``max_len`` sizes the cache (default: exactly the prompt length, as
+    serving uses it)."""
+    b, s = (tokens.shape if inputs_embeds is None
+            else inputs_embeds.shape[:2])
+    logits, _aux, (pre, main) = lm_logits(params, tokens, cfg, shd,
+                                          collect_kv=True,
+                                          inputs_embeds=inputs_embeds)
+    cache = init_lm_cache(cfg, b, max(s, max_len or 0),
+                          device=logits.device)
+
+    def fill_kv(kvs, kname, vname):
+        for name, x in ((kname, kvs[0]), (vname, kvs[1])):
+            sc = cache[name].shape[2]
+            x = x.to(cache[name].dtype)
+            if sc == s:
+                cache[name] = x
+            elif sc > s:
+                cache[name][:, :, :s] = x
+            else:
+                # capped ring cache: position p lives at slot p % sc; the
+                # last sc positions land at roll(linear tail, s % sc)
+                cache[name] = torch.roll(x[:, :, -sc:], s % sc, dims=2)
+
+    kvs, states = main
+    if kvs is not None and "k" in cache:
+        fill_kv(kvs, "k", "v")
+    if states is not None and "ssm" in cache:
+        cache["ssm"] = states["ssm"].to(cache["ssm"].dtype)
+        cache["conv"] = states["conv"].to(cache["conv"].dtype)
+    if pre is not None and pre[0] is not None and "k_pre" in cache:
+        # the prefix cache is filled like the main one; the reference
+        # stores it prompt-long whatever ``max_len`` is, so past a
+        # prompt-long cache its decode overwrites the prefix's last slot
+        fill_kv(pre[0], "k_pre", "v_pre")
+    cache["pos"] = s
     return logits, cache
