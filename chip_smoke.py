@@ -141,7 +141,25 @@ Phases, each fatal on failure (exit code != 0, no result line):
              step and prefill of 4 x 64 + 32 traced on ``meta`` tensors
              (`core.mix.trace_fn`), priced by the H100 roofline beside
              [profile]'s device busy time and the bytes floor, fatal if
-             the step reads less than one copy of the weights.
+             the step reads less than one copy of the weights;
+10. train  — the training path (`repro_torch.launch.train`; plain
+             PyTorch under autograd, the tuned kernels having no
+             backward): gemma-smoke, qwen2-moe-smoke and whisper-smoke in
+             float32, three `make_train_step` steps (2 microbatches,
+             remat full) on the card against the CPU from the same
+             parameters and batches (losses 1e-5 relative, parameters
+             1e-4); gemma-7b at its published width, 4 of 28 layers
+             (2.68 B parameters: f32 masters, gradients and two moments
+             at 16 B a parameter fit 80 GB at 4 layers, not at 28),
+             ``launch.train.main`` for 8 steps of 8 x 256 tokens in bf16
+             over f32 masters, every loss and grad norm finite, ms/step,
+             tokens/s and peak memory beside the floor (the model FLOPs
+             with remat's recompute at the bf16 peak, plus 32 B a
+             parameter of optimizer traffic at 3.35 TB/s); gemma-smoke in
+             bf16 through ``--checkpoint-dir`` with a fault after the
+             first checkpoint, whose final parameters must equal an
+             uninterrupted run's bit for bit; the launch counters set to
+             0 before and read after (0 hand-written kernel launches).
 
 Phase 2 also holds the Table IV kernels against their plain versions at
 the tuner's sizes (above the 50 MB L2), jacobi3d on its static pick (a
@@ -2749,6 +2767,290 @@ def phase_extract(rows: dict, ranking: list, profile: dict) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training on one card
+# ---------------------------------------------------------------------------
+
+# the CPU tests' tolerances (tests/test_torch_train.py): the metrics
+# (loss, grad norm) within 1e-5 relative, every parameter within 1e-4
+# (a tenth of one AdamW step at peak lr 1e-3)
+TRAIN_OPT = dict(peak_lr=1e-3, warmup_steps=2, decay_steps=50)
+TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL = 1e-5, 1e-4
+TRAIN_CHECK = ("gemma-7b", "qwen2-moe-a2.7b", "whisper-tiny")
+# gemma-7b at its published width, 4 of its 28 layers: f32 masters,
+# gradients and two moments are 16 B a parameter
+TRAIN_LAYERS = 4
+
+
+def _train_check(dev, arch: str) -> None:
+    """``arch``'s smoke config in float32, three steps of
+    `make_train_step` (microbatches 2, remat full) from the same
+    parameters and batches on the card and on the CPU."""
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.distributed import TrainStepConfig, make_train_step
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import build_model, map_params
+    from repro_torch.models.params import Param, tree_leaves
+    from repro_torch.optim import AdamWConfig, init_adamw
+
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32",
+                              remat="full")
+    model = build_model(cfg)
+    p_cpu = model.init(seed=0, device="cpu", param_dtype=torch.float32)
+    p_dev = map_params(lambda p: Param(p.value.to(dev, copy=True), p.dims),
+                       p_cpu)
+    o_cpu, o_dev = init_adamw(p_cpu), init_adamw(p_dev)
+    step = make_train_step(model, AdamWConfig(**TRAIN_OPT),
+                           step_cfg=TrainStepConfig(microbatches=2))
+    stream = TokenStream(DataConfig(vocab=cfg.vocab, global_batch=4,
+                                    seq_len=32))
+    batch_cpu = make_batch_fn(cfg, stream, 0, torch.device("cpu"))
+    batch_dev = make_batch_fn(cfg, stream, 0, dev)
+    losses, norms = [], []
+    for s in range(3):
+        p_cpu, o_cpu, m_cpu = step(p_cpu, o_cpu, batch_cpu(s))
+        p_dev, o_dev, m_dev = step(p_dev, o_dev, batch_dev(s))
+        losses.append((float(m_dev["loss"]), float(m_cpu["loss"])))
+        norms.append((float(m_dev["grad_norm"]), float(m_cpu["grad_norm"])))
+    loss_err = max(abs(a - b) / abs(b) for a, b in losses)
+    # the clip and AdamW's first steps hide a gradient's scale from the
+    # losses and parameters; its norm shows it
+    norm_err = max(abs(a - b) / abs(b) for a, b in norms)
+    param_err = max(
+        (a.value.cpu() - b.value).abs().max().item()
+        for (_, a), (_, b) in zip(tree_leaves(p_dev), tree_leaves(p_cpu)))
+    print(f"[train] check {cfg.name} f32, 3 steps x 2 microbatches, remat "
+          f"full, card vs CPU: losses "
+          f"{[round(a, 6) for a, _ in losses]} (rel err {loss_err:.3g}, "
+          f"tol {TRAIN_LOSS_RTOL:g}), grad norms "
+          f"{[round(a, 6) for a, _ in norms]} (rel err {norm_err:.3g}, "
+          f"tol {TRAIN_LOSS_RTOL:g}), final params max|err| "
+          f"{param_err:.3g} (tol {TRAIN_PARAM_ATOL:g})", flush=True)
+    if (loss_err > TRAIN_LOSS_RTOL or norm_err > TRAIN_LOSS_RTOL
+            or param_err > TRAIN_PARAM_ATOL):
+        fail(f"[train] {cfg.name}: the card's training steps disagree "
+             f"with the CPU's")
+
+
+def _train_full_width(dev, card: str) -> dict:
+    """gemma-7b at its published width, depth cut to TRAIN_LAYERS,
+    through `launch.train.main`: 8 steps of 8 x 256 tokens, bf16 compute
+    over f32 masters, remat full.  Prints the run beside its floor."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+
+    full = get_config("gemma-7b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS, remat="full")
+    n = cfg.num_params()
+    print(f"[train] gemma-7b at full width: d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads x {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}; {cfg.n_layers} of {full.n_layers} layers = "
+          f"{n / 1e9:.3f} B parameters (f32 masters + grads + 2 moments: "
+          f"{16 * n / 1e9:.1f} GB; {16 * full.num_params() / 1e9:.1f} GB "
+          f"at {full.n_layers} layers); device memory in use before: "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB", flush=True)
+    batch, seq, steps = 8, 256, 8
+    rep = train.main(["--arch", "gemma-7b", "--batch", str(batch),
+                      "--seq", str(seq), "--steps", str(steps),
+                      "--log-every", "1"], cfg=cfg)
+    for i, (loss, gn, ms) in enumerate(zip(rep["losses"], rep["grad_norms"],
+                                           rep["step_ms"])):
+        print(f"[train]   step {i + 1}: loss {loss:.4f}, grad norm "
+              f"{gn:.4f}, {ms:.1f} ms", flush=True)
+    finite = all(map(lambda x: x == x and abs(x) != float("inf"),
+                     rep["losses"] + rep["grad_norms"]))
+    if len(rep["losses"]) != steps or not finite:
+        fail("[train] gemma-7b: a loss or grad norm is not finite")
+    flops = _train_step_flops(cfg, rep["state"]["params"], batch, seq)
+    t_flops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_opt = 32.0 * n / HBM_BYTES_PER_S * 1e3
+    floor = t_flops + t_opt
+    # model FLOPs with the recompute (8ND over every parameter, the
+    # embedding's gather and the lm_head outside remat included): a side
+    # number, not the floor
+    flops_8nd = build_model(cfg).model_flops(
+        ShapeSpec("train", seq, batch, "train")) * 8 / 6
+    ms = rep["ms_per_step"]
+    print(f"[train] gemma-7b {batch} x {seq}, {cfg.n_layers} layers "
+          f"({card}): {ms:.2f} ms/step (median of steps 3-{steps}), "
+          f"{rep['tokens_per_s']:.0f} tokens/s, peak "
+          f"{(rep['peak_bytes'] or 0) / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated) | floor {floor:.2f} ms = "
+          f"the step's products, {flops / 1e12:.2f} TFLOP (8ND on the "
+          f"remat layers' matrices + 6ND on the lm_head + causal "
+          f"attention, no embedding) at bf16 peak {t_flops:.2f} ms + 32 B "
+          f"x {n / 1e9:.3f} B params of optimizer traffic at 3.35 TB/s "
+          f"{t_opt:.2f} ms; step at {ms / floor:.2f}x the floor "
+          f"(model_flops x 8/6 = {flops_8nd / 1e12:.2f} TFLOP, "
+          f"{flops_8nd / PEAK_FLOPS['bfloat16'] * 1e3:.2f} ms at the "
+          f"peak, for reference)", flush=True)
+    out = {k: rep[k] for k in ("losses", "grad_norms", "step_ms",
+                               "ms_per_step", "tokens_per_s", "peak_bytes")}
+    out.update(floor_ms=floor, flops=flops, flops_8nd=flops_8nd, params=n)
+    out.update(_train_profile(dev, cfg, rep["state"], batch, seq, t_flops,
+                              t_opt))
+    del rep
+    return out
+
+
+def _train_step_flops(cfg, params, batch: int, seq: int) -> float:
+    """The matrix products one training step runs on a dense model under
+    full remat, read off its parameters: forward, recompute and two
+    backward products (8 FLOPs a token) on every stacked layer matrix,
+    forward and two backward (6) on the lm_head, which sits outside
+    remat, and the causal half of the attention scores and values in
+    the same four passes.  The embedding is a gather; norms are no
+    products."""
+    tokens = batch * seq
+    layer = sum(p.value.numel() for _, p in _param_items(params["blocks"])
+                if p.value.dim() >= 3)
+    scores = 8.0 * cfg.n_layers * batch * cfg.n_heads * seq * seq * cfg.hd
+    return (8.0 * layer * tokens + 6.0 * params["lm_head"].value.numel()
+            * tokens + scores)
+
+
+def _is_gemm(kernel: str) -> bool:
+    k = kernel.lower()
+    return any(t in k for t in ("gemm", "nvjet", "xmma", "cutlass"))
+
+
+def _train_profile(dev, cfg, state, batch: int, seq: int, t_flops: float,
+                   t_opt: float, steps: int = 2) -> dict:
+    """Where a full-width training step's time goes: `torch.profiler`
+    over ``steps`` more steps from the trained state (device busy time,
+    idle share, the matrix products' share, time by kernel), then
+    `adamw_update` alone on the card (CUDA events) beside its bytes
+    bound."""
+    import torch
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.distributed import make_train_step
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_update
+
+    opt_cfg = AdamWConfig(peak_lr=3e-3, warmup_steps=0, decay_steps=8)
+    step = make_train_step(build_model(cfg), opt_cfg)
+    make_batch = make_batch_fn(cfg, TokenStream(DataConfig(
+        vocab=cfg.vocab, global_batch=batch, seq_len=seq)), 0, dev)
+    p, o = state["params"], state["opt"]
+    p, o, _ = step(p, o, make_batch(8))                   # warm
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for s in range(steps):
+            p, o, _ = step(p, o, make_batch(9 + s))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    rows = _device_rows(prof)
+    busy = sum(r[0] for r in rows) / steps
+    if busy <= 0:
+        fail("[train] the profiler recorded no device time")
+    gemm = sum(ms for ms, key, _ in rows if _is_gemm(key)) / steps
+    print(f"[train] profile, {steps} steps: {wall:.2f} ms/step wall, "
+          f"device busy {busy:.2f} ms/step, idle share "
+          f"{1 - busy / wall:.3f}; matrix products {gemm:.2f} ms/step "
+          f"({100 * gemm / busy:.1f} % of busy; bound at the bf16 peak "
+          f"{t_flops:.2f} ms)", flush=True)
+    for ms, key, n in rows[:12]:
+        print(f"[train]   {ms / steps:8.3f} ms/step  "
+              f"{100 * ms / steps / busy:5.1f}%  x{n // steps:<5d} "
+              f"{key[:90]}", flush=True)
+    del prof
+    grads = {}
+    for path, leaf in tree_leaves(p):
+        node = grads
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = torch.full_like(leaf.value, 1e-3)
+    opt_ms = time_ms(lambda: adamw_update(p, grads, o, opt_cfg),
+                     warmup=1, budget_ms=300.0)
+    share = 100 * opt_ms / busy
+    print(f"[train] adamw_update alone: {opt_ms:.2f} ms ({share:.1f} % of "
+          f"the step's busy time; bound {t_opt:.2f} ms, 32 B a parameter "
+          f"at 3.35 TB/s: {t_opt / opt_ms:.2f} of it)", flush=True)
+    del grads
+    return {"profile_wall_ms": wall, "busy_ms": busy, "gemm_ms": gemm,
+            "adamw_ms": opt_ms}
+
+
+def _train_fault_resume() -> None:
+    """gemma-smoke in bf16 through ``--checkpoint-dir``: an
+    uninterrupted run, and one whose fault fires once after the first
+    checkpoint; the final parameters must be equal bit for bit."""
+    import tempfile
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.runtime import FaultSchedule, scheduled_fault
+
+    argv = ["--arch", "gemma-7b", "--smoke", "--steps", "8", "--batch",
+            "4", "--seq", "64", "--checkpoint-every", "3", "--log-every",
+            "0"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as work:
+        clean = train.main(argv + ["--checkpoint-dir",
+                                   os.path.join(work, "clean")])
+        # the hook's 5th call (before step 4) fires once, after the
+        # checkpoint of step 3: step 3 runs again from it, 9 steps in all
+        faulted = train.main(
+            argv + ["--checkpoint-dir", os.path.join(work, "faulted")],
+            inject_fault=scheduled_fault(FaultSchedule(after=5, every=0)))
+    diffs = [(path, (a.value.float() - b.value.float()).abs().max().item())
+             for (path, a), (_, b) in zip(
+                 tree_leaves(clean["state"]["params"]),
+                 tree_leaves(faulted["state"]["params"]))
+             if not torch.equal(a.value, b.value)]
+    print(f"[train] fault and resume, gemma-smoke bf16, 8 steps, "
+          f"checkpoints every 3: {len(faulted['losses'])} steps run "
+          f"(one restart), final parameters equal bit for bit: "
+          f"{not diffs}" + (f"; differing leaves {diffs}" if diffs else ""),
+          flush=True)
+    if faulted["steps"] != 8 or len(faulted["losses"]) != 9 or diffs:
+        fail("[train] the resumed run does not reproduce the "
+             "uninterrupted run")
+
+
+def phase_train(dev, card: str) -> dict:
+    """The training path (`repro_torch.launch.train`): the card against
+    the CPU on three smoke configs, gemma-7b at full width, and a fault
+    with a restart; launch counters set to 0 before and read after (the
+    tuned kernels have no backward, so training launches none)."""
+    import gc
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models.layers import use_tuned_layers
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    # the serving phases switch tuned layers on for the process; a train
+    # step refuses them (no backward kernels)
+    with use_tuned_layers(False):
+        for arch in TRAIN_CHECK:
+            _train_check(dev, arch)
+        full = _train_full_width(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _train_fault_resume()
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    print(f"[train] hand-written kernel launches on the training path: "
+          f"{sum(launches.values())} {launches}", flush=True)
+    if launches:
+        fail("[train] the training path launched tuned kernels, which "
+             "have no backward")
+    print(f"[train] phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return full
+
+
 def _param_items(tree, prefix: str = ""):
     from repro_torch.models.params import Param
     for k, v in tree.items():
@@ -2797,6 +3099,7 @@ def main() -> None:
     ext_launches = phase_extend(dev, card)
     rows.update(phase_extend_kernels(dev))
     sass = phase_extract(rows, ranking, profile)
+    phase_train(dev, card)
 
     _require_picks_launched("the main path", reports, launches)
     for op, names in (("matmul", ("matmul",)),

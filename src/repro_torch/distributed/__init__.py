@@ -1,3 +1,10 @@
-"""Single-device stand-ins for the reference's distribution layer."""
-from repro_torch.distributed.sharding import Sharder
-from repro_torch.distributed.train import make_serve_fns
+"""The reference's distribution layer on one device: the sharding rule
+tables and resolver, the one-device `Sharder`, the training step and
+the serving functions.  Meshes wait for ROADMAP A8b."""
+from repro_torch.distributed.sharding import (ACT_RULES, CACHE_RULES,
+                                              CACHE_RULES_SEQSHARD, Rules,
+                                              Sharder, WEIGHT_RULES,
+                                              logical_spec)
+from repro_torch.distributed.train import (TrainStepConfig, make_serve_fns,
+                                           make_train_step,
+                                           recommended_microbatches)

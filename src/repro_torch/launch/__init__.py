@@ -1,2 +1,3 @@
-"""Launchers: the serving entry point,
-``python -m repro_torch.launch.serve``."""
+"""Launchers: the serving entry point, ``python -m
+repro_torch.launch.serve``, and the training entry point, ``python -m
+repro_torch.launch.train``."""

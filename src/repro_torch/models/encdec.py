@@ -1,17 +1,20 @@
-"""Encoder-decoder LM (whisper-tiny backbone), serving path.
+"""Encoder-decoder LM (whisper-tiny backbone): the training loss
+(`encdec_loss`) and the serving path.
 
 The audio frontend is a stub, as in the reference: callers give
 precomputed frame embeddings (B, enc_seq, d_model); the conv stem
 (`conv_frontend`) exists for completeness.  The backbone is real:
 bidirectional encoder (its attention through the tuned kernel,
 non-causal), causal decoder with cross-attention (plain, as the
-reference leaves it to XLA), a Python loop over each stack's layers.
-RMSNorm replaces Whisper's LayerNorm, as in the reference.
+reference leaves it to XLA), a Python loop over each stack's layers,
+each layer rematerialised under autograd as ``cfg.remat`` says
+(`transformer.remat`).  RMSNorm replaces Whisper's LayerNorm, as in
+the reference.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,10 +25,12 @@ from repro_torch.models.layers import (AttnConfig, _sdpa, attention,
                                        attention_decode, init_attention,
                                        init_mlp, mlp, rms_norm)
 from repro_torch.models.params import param, resolve_device
-from repro_torch.models.transformer import _layer
+from repro_torch.models.transformer import (_unstack,
+                                            next_token_nll, remat)
 
 __all__ = ["init_encdec", "encdec_prefill", "encdec_decode_step",
-           "init_encdec_cache", "conv_frontend", "encode"]
+           "init_encdec_cache", "conv_frontend", "encode", "encdec_logits",
+           "encdec_loss"]
 
 
 def _acfg(cfg: ModelConfig, causal: bool) -> AttnConfig:
@@ -64,15 +69,17 @@ def conv_frontend(params: Dict, mel: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_encdec(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict:
+def init_encdec(cfg: ModelConfig, *, seed: int = 0, device=None,
+                param_dtype: Optional[torch.dtype] = None) -> Dict:
     """Random parameters, reference layouts and init scales; each stack
-    (n_layers, ...) per weight."""
+    (n_layers, ...) per weight; ``param_dtype`` as `init_lm`'s."""
     dev = resolve_device(device)
     gen = None
     if dev.type != "meta":
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-    kw = dict(dtype=getattr(torch, cfg.dtype), device=dev, generator=gen)
+    kw = dict(dtype=param_dtype or getattr(torch, cfg.dtype), device=dev,
+              generator=gen)
     d = cfg.d_model
 
     def gain(n):
@@ -137,41 +144,45 @@ def encode(params: Dict, frames: torch.Tensor, cfg: ModelConfig,
     h = h + params["enc_pos"].value.to(h.dtype)[None, :h.shape[1]]
     h = shd.act(h, ("batch", "residual_seq", "embed"))
     acfg = _acfg(cfg, causal=False)
-    for i in range(cfg.enc_layers):
-        blk = _layer(params["enc_blocks"], i)
-        h = h + attention(blk["attn"], rms_norm(h, blk["ln1"]), acfg, shd)
-        h = h + mlp(blk["mlp"], rms_norm(h, blk["ln2"]), cfg.act, shd)
+    for blk in _unstack(params["enc_blocks"], cfg.enc_layers):
+        def layer(hh, blk=blk):
+            hh = hh + attention(blk["attn"], rms_norm(hh, blk["ln1"]), acfg,
+                                shd)
+            return hh + mlp(blk["mlp"], rms_norm(hh, blk["ln2"]), cfg.act,
+                            shd)
+        h = remat(layer, cfg)(h)
     return rms_norm(h, params["enc_norm"])
 
 
 def _decode_stack(params, h, enc_out, cfg: ModelConfig, shd: Sharder,
                   collect_kv: bool = False):
     """The decoder over a prompt; with ``collect_kv`` also returns the
-    self-attention K/V and the cross K/V, each stacked (L, ...)."""
+    self-attention K/V and the cross K/V, each stacked (L, ...).
+    Under autograd each layer is rematerialised (`remat`)."""
     acfg = _acfg(cfg, causal=True)
-    ks, vs, eks, evs = [], [], [], []
-    for i in range(cfg.n_layers):
-        blk = _layer(params["dec_blocks"], i)
-        a_in = rms_norm(h, blk["ln1"])
+
+    def layer(hh, blk):
+        a_in = rms_norm(hh, blk["ln1"])
         if collect_kv:
-            a, (k, v) = attention(blk["attn"], a_in, acfg, shd,
-                                  return_kv=True)
-            ks.append(k)
-            vs.append(v)
+            a, kv = attention(blk["attn"], a_in, acfg, shd, return_kv=True)
         else:
-            a = attention(blk["attn"], a_in, acfg, shd)
-        h = h + a
-        x_in = rms_norm(h, blk["ln_x"])
+            a, kv = attention(blk["attn"], a_in, acfg, shd), None
+        hh = hh + a
         ek, ev = _cross_kv(blk["xattn"], enc_out)
+        hh = hh + _cross_attention(blk["xattn"], rms_norm(hh, blk["ln_x"]),
+                                   ek, ev, cfg)
+        hh = hh + mlp(blk["mlp"], rms_norm(hh, blk["ln2"]), cfg.act, shd)
+        return hh, kv, (ek, ev)
+
+    ys = []
+    for blk in _unstack(params["dec_blocks"], cfg.n_layers):
+        h, kv, ekv = remat(lambda hh, blk=blk: layer(hh, blk), cfg)(h)
         if collect_kv:
-            eks.append(ek)
-            evs.append(ev)
-        h = h + _cross_attention(blk["xattn"], x_in, ek, ev, cfg)
-        h = h + mlp(blk["mlp"], rms_norm(h, blk["ln2"]), cfg.act, shd)
+            ys.append(kv + ekv)
     if not collect_kv:
         return h, None
-    st = torch.stack
-    return h, ((st(ks), st(vs)), (st(eks), st(evs)))
+    k, v, ek, ev = (torch.stack(t) for t in zip(*ys))
+    return h, ((k, v), (ek, ev))
 
 
 def _head(params, h: torch.Tensor, shd: Sharder) -> torch.Tensor:
@@ -189,6 +200,18 @@ def encdec_logits(params: Dict, frames: torch.Tensor, tokens: torch.Tensor,
     h, ys = _decode_stack(params, h, enc_out, cfg, shd, collect_kv)
     logits = _head(params, h, shd)
     return (logits, ys) if collect_kv else logits
+
+
+def encdec_loss(params: Dict, batch: Dict, cfg: ModelConfig, shd: Sharder
+                ) -> Tuple[torch.Tensor, Dict]:
+    """The decoder's next-token cross entropy (f32 logsumexp) given the
+    batch's ``frames``; no aux loss."""
+    tokens = batch["tokens"]
+    logits = encdec_logits(params, batch["frames"], tokens, cfg, shd)
+    nll = next_token_nll(logits, tokens)
+    return nll, {"nll": nll, "loss": nll,
+                 "aux": torch.zeros((), dtype=torch.float32,
+                                    device=nll.device)}
 
 
 # ---------------------------------------------------------------------------
@@ -231,8 +254,7 @@ def encdec_decode_step(params: Dict, cache: Dict, token: torch.Tensor,
     pos = cache["pos"]
     h = params["embed"].value.to(dtype)[token]
     acfg = _acfg(cfg, causal=True)
-    for i in range(cfg.n_layers):
-        blk = _layer(params["dec_blocks"], i)
+    for i, blk in enumerate(_unstack(params["dec_blocks"], cfg.n_layers)):
         a, _ = attention_decode(blk["attn"], rms_norm(h, blk["ln1"]),
                                 cache["k"][i], cache["v"][i], pos, acfg,
                                 shd)

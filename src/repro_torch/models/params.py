@@ -13,17 +13,26 @@ matrices to the compute type, norm gains (vectors per layer) kept in
 f32 — which gives the same values the reference computes with, and
 halves the resident weights of a bf16 model.  The MoE router (its last
 dim is ``experts``) stays f32 too: the reference routes in f32.
+Training keeps the reference's f32 masters instead (``param_dtype=
+torch.float32`` through `Model.init`): every layer casts at each use,
+so the compute type is unchanged and AdamW updates the masters.
+
+Trees are nested dicts; `tree_leaves` walks them in the reference's
+flatten order (dict keys sorted), which the optimizer's norm and the
+checkpoint's names follow.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, Iterator, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.common import resolve_device
 
 __all__ = ["Param", "param", "map_params", "stack_dims",
-           "from_numpy_tree", "resolve_device"]
+           "from_numpy_tree", "resolve_device", "tree_leaves",
+           "tree_param_count", "tree_param_bytes"]
 
 
 class Param:
@@ -97,24 +106,58 @@ def stack_dims(tree, axis_name: str = "layers"):
     return map_params(lambda p: Param(p.value, (axis_name,) + p.dims), tree)
 
 
+def tree_leaves(tree, path: Tuple[str, ...] = ()
+                ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    """(key path, leaf) of a nested dict, keys sorted at every level —
+    the reference's ``jax.tree.leaves`` order.  A leaf is a `Param` or
+    anything that is not a dict (a tensor, an int)."""
+    if not isinstance(tree, dict):
+        yield path, tree
+        return
+    for k in sorted(tree):
+        yield from tree_leaves(tree[k], path + (k,))
+
+
+def _leaf_tensors(tree):
+    for _, leaf in tree_leaves(tree):
+        v = leaf.value if isinstance(leaf, Param) else leaf
+        if hasattr(v, "shape"):
+            yield v
+
+
+def tree_param_count(tree) -> int:
+    return int(sum(v.numel() for v in _leaf_tensors(tree)))
+
+
+def tree_param_bytes(tree) -> int:
+    return int(sum(v.numel() * v.element_size()
+                   for v in _leaf_tensors(tree)))
+
+
 def from_numpy_tree(tree, *, dtype: torch.dtype = torch.float32,
                     device=None):
-    """The reference's parameter tree -> the port's.
+    """The reference's parameter (or optimizer-state) tree -> the port's.
 
     ``tree`` is a nested dict whose leaves carry a numpy array and its
     dims: an object with ``.value`` and ``.dims`` (the reference's
     ``Param`` after ``np.asarray`` on its value) or a ``(array, dims)``
     pair.  Matrices are cast once to ``dtype`` (the model's compute
-    type), 1-D gains and the MoE router stay f32, everything lands on
-    ``device`` (default: the CUDA card).  Every family's tree crosses
-    as is: stacked layers, a dense prefix stack, MoE experts, SSD
-    blocks, encoder and decoder stacks."""
+    type; float32, the default, keeps the reference's f32 masters), 1-D
+    gains and the MoE router stay f32, everything lands on ``device``
+    (default: the CUDA card).  A bare numpy array or number (the
+    optimizer's ``count``) crosses as a tensor of its own type, so
+    AdamW's state — ``m`` and ``v`` as Param-shaped f32 trees, plus
+    ``count`` — crosses with the default ``dtype``.  Every family's
+    tree crosses as is: stacked layers, a dense prefix stack, MoE
+    experts, SSD blocks, encoder and decoder stacks."""
     dev = resolve_device(device)
 
     def conv(leaf):
+        if isinstance(leaf, (np.ndarray, np.generic, int, float)):
+            return torch.from_numpy(np.array(leaf)).to(dev)
         arr, dims = ((leaf.value, leaf.dims) if hasattr(leaf, "dims")
                      else leaf)
-        t = torch.from_numpy(arr.copy())
+        t = torch.from_numpy(np.array(arr))
         return Param(t.to(device=dev,
                           dtype=_store_dtype(t.shape, dims, dtype)), dims)
 

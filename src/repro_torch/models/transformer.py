@@ -1,5 +1,5 @@
-"""Decoder-only LM covering the dense / moe / ssm / hybrid families
-(serving path: prefill + decode).
+"""Decoder-only LM covering the dense / moe / ssm / hybrid families:
+the training loss (`lm_loss`) and the serving path (prefill + decode).
 
 The reference scans one stacked layer body with ``lax.scan``; the port
 keeps the stacked (n_layers, ...) parameters and loops over layers in
@@ -7,11 +7,17 @@ Python, slicing layer ``i``'s weights as views.  Per-layer
 heterogeneity is the reference's: hymba's sliding-vs-global windows
 are per-layer ints (`hybrid_windows`), moonshot's leading dense layers
 a small ``prefix_blocks`` stack with its own ``k_pre``/``v_pre`` cache.
+
+Under autograd each layer is rematerialised as ``cfg.remat`` says
+(`remat`), as the reference wraps its scan body in ``jax.checkpoint``:
+``full`` keeps only the layer's input, ``dots`` also the matrix
+products' outputs.  Serving runs without grad and takes none of it.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -25,8 +31,9 @@ from repro_torch.models.params import Param, param, resolve_device
 from repro_torch.models.ssd import (SsdConfig, init_ssd, ssd_block,
                                     ssd_decode)
 
-__all__ = ["attn_config", "ssd_config", "init_lm", "lm_logits", "lm_prefill",
-           "lm_decode_step", "init_lm_cache", "hybrid_windows"]
+__all__ = ["attn_config", "ssd_config", "init_lm", "lm_logits", "lm_loss",
+           "lm_prefill", "lm_decode_step", "init_lm_cache", "hybrid_windows",
+           "remat"]
 
 
 def attn_config(cfg: ModelConfig) -> AttnConfig:
@@ -92,9 +99,11 @@ def _init_blocks(cfg: ModelConfig, n: int, moe: bool, kw: Dict) -> Dict:
     return blk
 
 
-def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict:
+def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
+            param_dtype: Optional[torch.dtype] = None) -> Dict:
     """Random parameters (a ``torch.Generator`` seeded with ``seed``),
-    reference layouts and init scales, matrices in ``cfg.dtype``.  On
+    reference layouts and init scales, matrices in ``cfg.dtype`` — or
+    in ``param_dtype`` (training's f32 masters: every leaf f32).  On
     the ``meta`` device nothing is allocated (graph enumeration)."""
     if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a "
@@ -104,7 +113,8 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict:
     if dev.type != "meta":
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-    kw = dict(dtype=getattr(torch, cfg.dtype), device=dev, generator=gen)
+    kw = dict(dtype=param_dtype or getattr(torch, cfg.dtype), device=dev,
+              generator=gen)
     d = cfg.d_model
     p = {
         "embed": param((cfg.vocab, d), ("vocab", "embed"), init="embed",
@@ -120,11 +130,14 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict:
     return p
 
 
-def _layer(tree, i: int):
-    """Layer ``i``'s slice of a stacked block tree (views)."""
+def _unstack(tree, n: int) -> List[Dict]:
+    """Every layer's slice of a stacked block tree, by one ``unbind``
+    per weight: its backward stacks the layers' gradients once, where
+    ``n`` indexings would each add a full-stack buffer."""
     if isinstance(tree, Param):
-        return Param(tree.value[i], tree.dims[1:])
-    return {k: _layer(v, i) for k, v in tree.items()}
+        return [Param(v, tree.dims[1:]) for v in tree.value.unbind(0)]
+    per = {k: _unstack(v, n) for k, v in tree.items()}
+    return [{k: per[k][i] for k in per} for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -196,16 +209,50 @@ def _block_apply(blk: Dict, h: torch.Tensor, cfg: ModelConfig,
     return h + y, aux, (kv, sstate)
 
 
+# the matrix products a ``dots`` layer keeps for its backward (einsum
+# lowers to these), as the reference's ``dots_saveable`` keeps its dots
+_MATMULS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default,
+                      torch.ops.aten.baddbmm.default))
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` (one layer) rematerialised in its backward per
+    ``cfg.remat``: ``none`` keeps every activation, ``full`` only the
+    inputs, ``dots`` also the matrix products' outputs.  Without grad
+    (serving) ``fn`` runs as is."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}: none | full | dots")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def _run_blocks(blocks: Dict, h: torch.Tensor, windows: List[int],
                 cfg: ModelConfig, shd: Sharder, moe: bool, aux_total,
                 collect_kv: bool = False):
     """Every layer of one stack.  Returns (h, aux_total, (kvs, states)):
     with ``collect_kv``, K/V stacked (L, B, S, KV, hd) and the SSM
-    states stacked (L, ...), each None where the family has none."""
+    states stacked (L, ...), each None where the family has none.
+    Under autograd each layer is rematerialised (`remat`)."""
     ks, vs, ssm, conv = [], [], [], []
-    for i, win in enumerate(windows):
-        h, aux, (kv, st) = _block_apply(_layer(blocks, i), h, cfg, shd,
-                                        collect_kv, window=win, moe=moe)
+    for blk, win in zip(_unstack(blocks, len(windows)), windows):
+        def layer(hh, blk=blk, win=win):
+            return _block_apply(blk, hh, cfg, shd, collect_kv, window=win,
+                                moe=moe)
+        h, aux, (kv, st) = remat(layer, cfg)(h)
         if aux is not None:
             aux_total = aux_total + aux
         if kv is not None:
@@ -253,6 +300,29 @@ def lm_logits(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     if collect_kv:
         return logits, aux, (pre, main)
     return logits, aux
+
+
+def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor
+                   ) -> torch.Tensor:
+    """Mean next-token cross entropy: f32 logsumexp over
+    ``logits[:, :-1]`` against ``tokens[:, 1:]``."""
+    lf = logits[:, :-1].float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, tokens[:, 1:, None].long())[..., 0]
+    return (lse - gold).mean()
+
+
+def lm_loss(params: Dict, batch: Dict, cfg: ModelConfig, shd: Sharder
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross entropy (f32 logsumexp), plus 0.01 x the MoE aux
+    loss.  The full sequence is forwarded; the last position has no
+    target and is sliced off the logits."""
+    tokens = batch["tokens"]
+    logits, aux = lm_logits(params, tokens, cfg, shd,
+                            inputs_embeds=batch.get("frames"))
+    nll = next_token_nll(logits, tokens)
+    loss = nll + 0.01 * aux
+    return loss, {"nll": nll, "aux": aux, "loss": loss}
 
 
 # ---------------------------------------------------------------------------
@@ -320,11 +390,12 @@ def _decode_stack(blocks: Dict, h: torch.Tensor, windows: List[int],
                   cfg: ModelConfig, shd: Sharder, moe: bool,
                   states: bool = False):
     k, v = cache.get(kname), cache.get(vname)
-    for i, win in enumerate(windows):
+    for i, (blk, win) in enumerate(zip(_unstack(blocks, len(windows)),
+                                       windows)):
         sstate = ({"ssm": cache["ssm"][i], "conv": cache["conv"][i]}
                   if states else None)
         h, sstate = _block_decode(
-            _layer(blocks, i), h, win, None if k is None else k[i],
+            blk, h, win, None if k is None else k[i],
             None if v is None else v[i], sstate, pos, cfg, shd, moe)
         if states:
             cache["ssm"][i] = sstate["ssm"]

@@ -4,10 +4,10 @@
   ``tuning_cache`` package, the kernel modules and every ported
   ``core.*`` and ``models.*`` module, and every public name of its
   config registry (which has no ``__all__``), is in the port's, or is
-  listed in `UNPORTED` with its reason: a TPU-only name, a name whose
-  module waits for a later item of ROADMAP Queue A (A8, training and
-  distribution), or a JAX-only front end with its torch counterpart
-  named; ``*_pallas`` entry points are skipped, their counterparts
+  listed in `UNPORTED` with its reason: a TPU-only name, a name that
+  waits for the mesh slice (ROADMAP A8b: sharding on a device mesh and
+  pod-gradient compression), or a JAX-only front end with its torch
+  counterpart named; ``*_pallas`` entry points are skipped, their counterparts
   being the port's ``*_cuda`` wrappers.
 * Under ``tpu-v5e`` a problem factory registered with `register` gives
   the reference's records; the default path leaves the reference's
@@ -42,12 +42,14 @@ UNPORTED = {
     "tpu_compiler_params": "TPU-only: Pallas TPU compiler parameters",
     "mix_from_jaxpr": "takes a jaxpr; the torch counterpart is "
                       "repro_torch.core.mix.mix_from_graph over trace_fn",
-    "lm_loss": "A8: training",
-    "encdec_loss": "A8: training",
-    "batch_shapes": "A8: training",
-    "param_shardings": "A8: sharded parameters",
-    "tree_param_count": "A8: training and distribution",
-    "tree_param_bytes": "A8: training and distribution",
+    "param_shardings": "A8b: NamedShardings of a Param tree on a mesh",
+    "named_sharding": "A8b: a NamedSharding on a device mesh",
+    "tree_shardings": "A8b: NamedShardings of a shape tree on a mesh",
+    "ef_compress_grads": "A8b: int8 error-feedback pod-gradient "
+                         "compression (distributed/compression.py)",
+    "make_production_mesh": "A8b: the production mesh (launch/mesh.py)",
+    "mesh_num_chips": "A8b: the production mesh (launch/mesh.py)",
+    "ici_links": "A8b: the production mesh (launch/mesh.py)",
 }
 MODULES = ["tuning_cache.registry", "tuning_cache", "kernels.matmul",
            "kernels.matvec", "kernels.atax", "kernels.bicg",
@@ -60,7 +62,9 @@ MODULES = ["tuning_cache.registry", "tuning_cache", "kernels.matmul",
            "core.roofline", "core.search", "core.target", "configs",
            "models.config", "models.layers", "models.model",
            "models.params", "models.transformer", "models.moe",
-           "models.ssd", "models.encdec"]
+           "models.ssd", "models.encdec", "optim.adamw", "data.pipeline",
+           "checkpoint.manager", "runtime.fault", "distributed.train",
+           "distributed.sharding"]
 
 
 def _public(mod):

@@ -79,7 +79,7 @@ def _block_mixes(dtype):
     pt = from_numpy_tree(tree, dtype=getattr(torch, dtype), device="cpu")
     got = mix_of_fn(
         lambda b, x: transformer._block_apply(b, x, cfg, Sharder(None))[0],
-        transformer._layer(pt["blocks"], 0),
+        transformer._unstack(pt["blocks"], cfg.n_layers)[0],
         torch.from_numpy(h).to(getattr(torch, dtype)))
     return got, want
 
