@@ -159,7 +159,27 @@ Phases, each fatal on failure (exit code != 0, no result line):
              bf16 through ``--checkpoint-dir`` with a fault after the
              first checkpoint, whose final parameters must equal an
              uninterrupted run's bit for bit; the launch counters set to
-             0 before and read after (0 hand-written kernel launches).
+             0 before and read after (0 hand-written kernel launches);
+11. mesh   — the device mesh (`launch.mesh`, DTensor): (a) an NCCL
+             world of every visible card, one process each, on a
+             (data, model) = (1, cards) mesh: gemma-7b at published
+             width, 4 of 28 layers, 3 steps of 8 x 256 tokens through
+             ``launch.train.main --mesh-shape``, held to the unmeshed
+             step on the same card (losses and grad norms 1e-5
+             relative, final parameters 1e-4), with the census of leaf
+             placements, the collectives by kind per step of the step
+             loop (``CommDebugMode``), ms/step beside the unmeshed one,
+             peak memory; each rank sets its launch counters to 0
+             before each run and reads them after (0 hand-written
+             kernel launches: training runs no kernel); (b), four gloo
+             ranks sharing the card, is left out (DTensor's all-gather
+             over gloo on CUDA tensors hangs there; the CPU tests run
+             four-rank gloo worlds); (c) ``python -m
+             repro_torch.launch.dryrun --arch gemma-7b --shape
+             train_4k`` on pod256 and pod512 in a subprocess (a fake
+             process group, meta tensors: nothing runs on the card),
+             each record's per-device argument bytes, flops, collective
+             bytes and H100 roofline terms printed.
 
 Phase 2 also holds the Table IV kernels against their plain versions at
 the tuner's sizes (above the 50 MB L2), jacobi3d on its static pick (a
@@ -3051,6 +3071,156 @@ def phase_train(dev, card: str) -> dict:
     return full
 
 
+MESH_STEPS = 3
+
+
+def _mesh_census(params) -> dict:
+    """{placements: leaves} of a Param tree on a mesh."""
+    from collections import Counter
+    from repro_torch.models.params import tree_leaves
+    return dict(Counter(str(tuple(leaf.value.placements))
+                        for _, leaf in tree_leaves(params)))
+
+
+def _mesh_rank_nccl(rank: int, world: int) -> dict:
+    """One rank of phase (a): gemma-7b at full width, TRAIN_LAYERS
+    layers, meshed over every card, then the unmeshed step on this card
+    (rank 0's report is the phase's).  Each rank counts its own kernel
+    launches around each run; rank 0 compares the two runs' final
+    parameters."""
+    import gc
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.params import tree_leaves
+
+    cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=TRAIN_LAYERS,
+                              remat="full")
+    argv = ["--arch", "gemma-7b", "--batch", "8", "--seq", "256",
+            "--steps", str(MESH_STEPS), "--log-every", "0"]
+    launched = lambda: {k: v for k, v in kernels.launch_counts().items()
+                        if v}
+    comm = CommDebugMode()
+    kernels.reset_launch_counts()           # the meshed path starts here
+    rep = train.main(argv + ["--mesh-shape", f"1,{world}"], cfg=cfg,
+                     around_steps=comm)
+    out = {k: rep[k] for k in ("losses", "grad_norms", "step_ms",
+                               "ms_per_step", "peak_bytes", "mesh")}
+    out["launches"] = {"meshed": launched()}    # ... and ends here
+    out["census"] = _mesh_census(rep["state"]["params"])
+    out["collectives"] = {str(k): v / MESH_STEPS for k, v in
+                          comm.get_comm_counts().items()}
+    # every rank joins each gather; rank 0 keeps the host copies
+    final = {}
+    for path, leaf in tree_leaves(rep["state"]["params"]):
+        whole = leaf.value.full_tensor()
+        if rank == 0:
+            final[path] = whole.cpu()
+        del whole
+    del rep, leaf           # nothing of the meshed run stays on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        kernels.reset_launch_counts()       # the unmeshed path starts here
+        plain = train.main(argv, cfg=cfg)
+        out["launches"]["unmeshed"] = launched()    # ... and ends here
+        out["plain"] = {k: plain[k] for k in ("losses", "grad_norms",
+                                              "ms_per_step", "peak_bytes")}
+        out["param_err"] = max(
+            (leaf.value - final[path].to(leaf.value.device)).abs().max()
+            .item() for path, leaf in tree_leaves(plain["state"]["params"]))
+        del plain
+    return out
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_mesh(card: str) -> None:
+    """The mesh tier: (a) NCCL over every visible card, its launch
+    counters read in each rank, (c) the dry-run (meta tensors: nothing
+    runs on the card).  (b), four gloo ranks sharing the card,
+    is left out: DTensor's all-gather over gloo on CUDA tensors hangs
+    there (PERF.md §6); the CPU tests run those worlds."""
+    import gc
+    import tempfile
+    import torch
+    from repro_torch.launch.mesh import spawn_world
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+
+    # (a)
+    ranks = spawn_world(_mesh_rank_nccl, cards, backend="nccl",
+                        timeout=600)
+    a = ranks[0]
+    plain = a["plain"]
+    loss_err = max(_rel(x, y) for x, y in zip(a["losses"], plain["losses"]))
+    norm_err = max(_rel(x, y) for x, y in zip(a["grad_norms"],
+                                              plain["grad_norms"]))
+    print(f"[mesh] (a) NCCL, {cards} card(s), mesh {a['mesh']}: gemma-7b "
+          f"{TRAIN_LAYERS} of 28 layers, {MESH_STEPS} steps of 8 x 256: "
+          f"losses {[round(x, 5) for x in a['losses']]} vs unmeshed "
+          f"{[round(x, 5) for x in plain['losses']]} (rel err "
+          f"{loss_err:.3g}), grad norms rel err {norm_err:.3g} (tol "
+          f"{TRAIN_LOSS_RTOL:g}), final params max|err| "
+          f"{a['param_err']:.3g} (tol {TRAIN_PARAM_ATOL:g}); leaf "
+          f"placements {a['census']}; collectives per step (the step "
+          f"loop alone) {a['collectives']}", flush=True)
+    print(f"[mesh] (a) {a['ms_per_step']:.2f} ms/step meshed vs "
+          f"{plain['ms_per_step']:.2f} ms/step unmeshed (median past the "
+          f"first two steps; the difference is DTensor's host cost), peak "
+          f"{(a['peak_bytes'] or 0) / 1e9:.2f} GB meshed, "
+          f"{(plain['peak_bytes'] or 0) / 1e9:.2f} GB unmeshed "
+          f"({card})", flush=True)
+    if (loss_err > TRAIN_LOSS_RTOL or norm_err > TRAIN_LOSS_RTOL
+            or a["param_err"] > TRAIN_PARAM_ATOL):
+        fail("[mesh] (a) the meshed step disagrees with the unmeshed one")
+    launches = [r["launches"] for r in ranks]
+    print(f"[mesh] (a) hand-written kernel launches, counted in each rank "
+          f"around its runs: {launches}", flush=True)
+    if any(n for r in launches for run in r.values() for n in run.values()):
+        fail(f"[mesh] (a) the training path launched tuned kernels: "
+             f"{launches}")
+
+    # (c)
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as out_dir:
+        t_c = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "gemma-7b", "--shape", "train_4k", "--multi-pod", "--out-dir",
+             out_dir], capture_output=True, text=True, timeout=900,
+            env=dict(os.environ, PYTHONPATH=SRC))
+        if run.returncode != 0:
+            fail(f"[mesh] (c) the dry-run exited {run.returncode}: "
+                 f"{(run.stdout + run.stderr)[-2000:]}")
+        for tag in ("pod256", "pod512"):
+            with open(os.path.join(out_dir,
+                                   f"gemma-7b_train_4k_{tag}.json")) as f:
+                r = json.load(f)
+            roof = r["roofline"]
+            print(f"[mesh] (c) dry-run gemma-7b train_4k {tag} (analysis, "
+                  f"H100 terms): {r['chips']} ranks, {r['microbatches']} "
+                  f"microbatches, arg bytes/device "
+                  f"{r['arg_bytes_per_device']}, flops/device "
+                  f"{r['flops']:.4e}, bytes/device "
+                  f"{r['bytes_accessed']:.4e}, collective bytes "
+                  f"{r['collective_bytes']:.4e} {r['collectives_by_kind']}, "
+                  f"t_compute {roof['t_compute']:.4f} s, t_memory "
+                  f"{roof['t_memory']:.4f} s, t_collective "
+                  f"{roof['t_collective']:.4f} s ({roof['dominant']}), "
+                  f"traced in {r['lower_s']} s", flush=True)
+        print(f"[mesh] (c) took {time.perf_counter() - t_c:.1f} s",
+              flush=True)
+    print(f"[mesh] phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def _param_items(tree, prefix: str = ""):
     from repro_torch.models.params import Param
     for k, v in tree.items():
@@ -3100,6 +3270,7 @@ def main() -> None:
     rows.update(phase_extend_kernels(dev))
     sass = phase_extract(rows, ranking, profile)
     phase_train(dev, card)
+    phase_mesh(card)
 
     _require_picks_launched("the main path", reports, launches)
     for op, names in (("matmul", ("matmul",)),

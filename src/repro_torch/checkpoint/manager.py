@@ -23,9 +23,12 @@ the previous one is written (bounded memory).  Every leaf is copied to
 the host in `save`'s caller before it returns, so the next step's
 in-place update cannot reach a snapshot being written.
 
-Restore returns host (CPU) tensors unless given a ``device``; restoring
-onto a mesh (elastic resharding) waits for the mesh slice (ROADMAP
-A8b).
+On a mesh a save gathers every DTensor leaf whole to the host on every
+rank (a collective, so every rank calls `save`); only rank 0 writes.
+Restore returns host (CPU) tensors unless given a ``device``, or, with
+a ``mesh``, places every Param leaf (parameters and Adam moments) on it
+by `named_sharding` of its dims under ``rules`` — whatever mesh the
+checkpoint was saved from, which is the elastic part.
 """
 from __future__ import annotations
 
@@ -40,7 +43,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import Rules, WEIGHT_RULES
+from repro_torch.distributed.sharding import (Rules, WEIGHT_RULES,
+                                              named_sharding, place)
 from repro_torch.models.params import Param, tree_leaves
 
 __all__ = ["CheckpointManager"]
@@ -52,10 +56,23 @@ def _keystr(path: Tuple[str, ...]) -> str:
     return "".join(f"[{k!r}]" for k in path)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _writer() -> bool:
+    """Rank 0 of a process group, or the only process."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_host(x) -> Tuple[str, np.ndarray, str]:
     """(kind, host array, dtype name) of one leaf, a tensor or an int;
     a tensor is copied even when it already lives on the CPU."""
     if isinstance(x, torch.Tensor):
+        if _is_dtensor(x):
+            x = x.full_tensor()
         t = x.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return "tensor", t.view(torch.int16).numpy().view(np.uint16), \
@@ -136,6 +153,8 @@ class CheckpointManager:
         """tree: e.g. {"params": ..., "opt": ..., "step": int}.  Returns
         once every leaf has been copied to the host."""
         names, arrays, manifest = _flatten_with_names(tree)
+        if not _writer():
+            return
         payload = (step, names, arrays, manifest, extra_meta or {})
         if self.async_save:
             if self._error:
@@ -191,15 +210,21 @@ class CheckpointManager:
     # -- restore ---------------------------------------------------------------
     def restore(self, step: Optional[int] = None, mesh=None,
                 rules: Rules = WEIGHT_RULES, device=None) -> Dict[str, Any]:
-        """Load a checkpoint: tensors on the host, or on ``device``."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "restoring onto a mesh (elastic resharding) waits for the "
-                "mesh slice (ROADMAP A8b)")
+        """Load a checkpoint: tensors on the host, or on ``device``, or
+        with ``mesh`` each Param leaf placed on the mesh by its dims
+        (other tensors on the mesh's device, whole)."""
+        import torch.distributed as dist
+        if dist.is_initialized():
+            # every rank reads what rank 0 has written
+            self.wait()
+            dist.barrier()
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        if mesh is not None:
+            device = device or (mesh.device_type if mesh.device_type !=
+                                "cuda" else torch.cuda.current_device())
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)["leaves"]
@@ -209,8 +234,13 @@ class CheckpointManager:
                 node = tree
                 for k in entry["path"][:-1]:
                     node = node.setdefault(k, {})
-                node[entry["path"][-1]] = _from_host(
-                    entry, npz[entry["name"]], device or "cpu")
+                leaf = _from_host(entry, npz[entry["name"]],
+                                  device or "cpu")
+                if mesh is not None and isinstance(leaf, Param):
+                    leaf = Param(place(leaf.value, named_sharding(
+                        leaf.dims, tuple(leaf.shape), rules, mesh)),
+                        leaf.dims)
+                node[entry["path"][-1]] = leaf
         return tree
 
     def meta(self, step: int) -> Dict:

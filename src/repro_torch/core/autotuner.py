@@ -54,6 +54,8 @@ import math
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import logging
+
 import numpy as np
 
 from repro_torch.core.hw import HopperSpec, require_tpu, resolve_target
@@ -66,6 +68,8 @@ from repro_torch.core.predict import (CostModel, default_hopper_model,
 from repro_torch.core.search import (ExhaustiveSearch, Params, SearchResult,
                                      SearchSpace, StaticPrunedSearch, _Base)
 from repro_torch.core.target import use_target
+
+_log = logging.getLogger(__name__)
 
 __all__ = [
     "KernelStaticInfo", "TunableKernel", "TuningReport",
@@ -503,8 +507,132 @@ class KernelTuner:
         return report
 
 
+@dataclasses.dataclass(frozen=True)
+class LoweredStep:
+    """The port's counterpart of a compiled step for `GraphTuner`: the
+    per-device instruction mix and collective stats of a traced step
+    (`repro_torch.launch.dryrun.lower_step`)."""
+
+    mix: InstructionMix
+    collectives: Any            # repro_torch.core.hlo.CollectiveStats
+    comm_debug_counts: Dict[str, int] = dataclasses.field(
+        default_factory=dict)   # CommDebugMode's, by collective
+
+
 class GraphTuner:
-    """Graph-level static tuning of a serving config (DESIGN.md §15)."""
+    """Static (compile-only) tuner for graph-level knobs.
+
+    ``lower_fn(params)`` returns either the reference's interface — an
+    object whose ``.compile()`` result has ``.cost_analysis()`` and
+    ``.as_text()`` (a ``jax.stages.Lowered``) — or the port's own
+    `LoweredStep` (a traced step's mix and collectives, from
+    `repro_torch.launch.dryrun.lower_step`).  Each candidate is scored
+    with the 3-term roofline under ``spec``: a `TpuSpec` (the
+    reference's terms, bit for bit) or the H100 (its NVLink collective
+    term).  No device execution.
+
+    ``db`` + ``cache_signature`` opt into the tuning database: because
+    ``lower_fn`` is an opaque callable, the caller must supply the
+    signature kwargs (arch name, batch, seq, ...) that make the result
+    reusable.  A cached hit skips every lowering and returns ``(params,
+    terms, [])`` with terms rebuilt as a `RooflineTerms` (or ``None`` if
+    the stored record cannot be rebuilt); history is not cached.
+    """
+
+    def __init__(self, space: SearchSpace,
+                 lower_fn: Callable[[Params], Any],
+                 chips: int, model_flops: float,
+                 spec=None, ici_links: Optional[int] = None,
+                 db: Any = None,
+                 cache_signature: Optional[Dict[str, Any]] = None):
+        self.space = space
+        self.lower_fn = lower_fn
+        self.chips = chips
+        self.model_flops = model_flops
+        spec = resolve_target(spec)
+        if isinstance(spec, HopperSpec):
+            self.spec = spec
+            default_links = spec.nvlink_links
+        else:
+            self.spec = require_tpu(spec, type(self).__name__)
+            default_links = self.spec.ici_links
+        self.ici_links = default_links if ici_links is None else ici_links
+        self.db = db
+        self.cache_signature = cache_signature
+
+    def score(self, p: Params) -> Tuple[float, Any]:
+        from repro_torch.core.roofline import roofline_from_artifacts
+        lowered = self.lower_fn(p)
+        if isinstance(lowered, LoweredStep):
+            terms = roofline_from_artifacts(
+                name=str(p), cost={}, hlo_text=None, chips=self.chips,
+                model_flops=self.model_flops, spec=self.spec,
+                ici_links=self.ici_links, collectives=lowered.collectives,
+                mix=lowered.mix)
+        else:
+            compiled = lowered.compile()
+            cost = compiled.cost_analysis() or {}
+            text = compiled.as_text()
+            terms = roofline_from_artifacts(
+                name=str(p), cost=cost, hlo_text=text, chips=self.chips,
+                model_flops=self.model_flops, spec=self.spec,
+                ici_links=self.ici_links)
+        t = max(terms.t_compute, terms.t_memory, terms.t_collective)
+        return t, terms
+
+    def _cache_key(self):
+        if self.db is None or self.cache_signature is None:
+            return None
+        from repro_torch.tuning_cache import make_key
+        return make_key(
+            "graph", spec=self.spec, mode="graph",
+            chips=self.chips, model_flops=self.model_flops,
+            ici_links=self.ici_links,
+            axes={k: list(map(str, v)) for k, v in self.space.axes.items()},
+            **self.cache_signature)
+
+    def tune(self) -> Tuple[Params, Any, List[Tuple[Params, float]]]:
+        key = self._cache_key()
+        if key is not None:
+            rec = self.db.lookup(key)
+            if rec is not None:
+                terms = rec.extras.get("terms")
+                if isinstance(terms, dict):
+                    # rebuild the dataclass so hit and miss return the
+                    # same type (callers access .t_compute etc.)
+                    from repro_torch.core.roofline import RooflineTerms
+                    try:
+                        terms = RooflineTerms(**terms)
+                    except TypeError:
+                        terms = None
+                return dict(rec.params), terms, []
+        hist: List[Tuple[Params, float]] = []
+        best_p, best_t, best_terms = None, math.inf, None
+        for p in self.space.enumerate():
+            try:
+                t, terms = self.score(p)
+            except (ValueError, TypeError, LookupError, RuntimeError,
+                    ArithmeticError, AssertionError) as e:
+                # an infeasible candidate (unshardable layout, a lowering
+                # that fails): scored +inf, never wins; logged so a
+                # sharding that always loses is diagnosable
+                _log.debug("GraphTuner: candidate %s infeasible: %s",
+                           p, e, exc_info=True)
+                hist.append((p, math.inf))
+                continue
+            hist.append((p, t))
+            if t < best_t:
+                best_p, best_t, best_terms = p, t, terms
+        if key is not None and best_p is not None:
+            from repro_torch.tuning_cache import TuningRecord
+            from repro_torch.tuning_cache.store import now_unix
+            terms_d = (dataclasses.asdict(best_terms)
+                       if dataclasses.is_dataclass(best_terms) else None)
+            self.db.put(TuningRecord(
+                key=key, params=dict(best_p), predicted_s=float(best_t),
+                space_size=self.space.size, source="graph",
+                created_unix=now_unix(), extras={"terms": terms_d}))
+        return best_p, best_terms, hist
 
     @classmethod
     def tune_config(cls, cfg, *, batch: int = 2, prompt_len: int = 64,

@@ -343,6 +343,13 @@ class HopperSpec:
     # MFLOP (residuals +0.51, -0.54, -0.30 us), about one MMA every 64
     # cycles at 1.98 GHz.
     mma_warp_flops: float = 1.26e11
+    # NVLink 4 on the SXM5 part (H100 datasheet): 900 GB/s over 18
+    # links, the two directions summed, i.e. 50 GB/s per link — the
+    # collective roofline term's t_x = bytes / (links x per-link rate).
+    # Class attributes, not dataclass fields: the spec's fingerprint,
+    # and with it every H100 tuning key, stays what it was.
+    nvlink_links = 18
+    nvlink_bw_per_link = 900e9 / 18
 
 
 H100_SXM = HopperSpec()

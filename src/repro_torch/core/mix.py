@@ -190,7 +190,15 @@ _T_SCATTER = {"scatter", "scatter_add", "scatter_reduce", "index_put",
 _T_SKIP = {"empty", "empty_like", "empty_strided", "new_empty",
            "new_empty_strided", "resize", "set", "_local_scalar_dense",
            "is_same_size", "_has_compatible_shallow_copy_type",
-           "record_stream", "sym_size", "sym_stride", "sym_numel"}
+           "record_stream", "sym_size", "sym_stride", "sym_numel",
+           "wait_tensor"}
+
+# a DTensor's collectives as a traced rank sees them (the functional
+# collectives); as in the HLO mix, each moves its output through HBM
+_T_COLLECTIVE = {"all_reduce": "all-reduce",
+                 "all_gather_into_tensor": "all-gather",
+                 "reduce_scatter_tensor": "reduce-scatter",
+                 "all_to_all_single": "all-to-all"}
 
 _Shape = Tuple[Tuple[int, ...], str]
 
@@ -234,13 +242,15 @@ def _shapes(tree) -> Tuple[_Shape, ...]:
                  for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
 
 
-def _recorder(ops: List[TracedOp]):
+def _recorder(ops: List[TracedOp], move: bool = True):
     """A dispatch mode that runs every aten op on ``meta`` tensors (real
     inputs and factory devices are moved there first) and appends it to
-    ``ops``."""
+    ``ops``.  With ``move=False`` nothing is moved: ops on ``meta``
+    tensors are recorded, the rest (a device mesh's own bookkeeping on
+    host tensors) run as they are, unrecorded."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
-    from torch.utils._pytree import tree_map
+    from torch.utils._pytree import tree_leaves, tree_map
 
     meta = torch.device("meta")
 
@@ -251,8 +261,31 @@ def _recorder(ops: List[TracedOp]):
 
     composite = torch._C.DispatchKey.CompositeImplicitAutograd
 
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.distributed.tensor import DTensor
+
     class _Recorder(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                # a DTensor op runs as its local ops and collectives on
+                # each rank's shards, which come back here one by one:
+                # the trace is the per-device program
+                return NotImplemented
+            if any(issubclass(t, FakeTensor) for t in types):
+                # DTensor's shape propagation on the global shapes: not
+                # part of any device's program
+                return func(*args, **(kwargs or {}))
+            if not move:
+                kwargs = kwargs or {}
+                out = func(*args, **kwargs)
+                if any(t.device.type == "meta" for t in tree_leaves(
+                        (args, kwargs, out)) if isinstance(t, torch.Tensor)):
+                    ops.append(TracedOp(
+                        name=func.overloadpacket.__name__,
+                        inputs=_shapes((args, kwargs)), outputs=_shapes(out),
+                        attrs=tuple(sorted((k, v) for k, v in kwargs.items()
+                                           if isinstance(v, str)))))
+                return out
             args, kwargs = tree_map(to_meta, (args, kwargs or {}))
             if kwargs.get("device") is not None:
                 kwargs["device"] = meta
@@ -294,20 +327,32 @@ class _LeafSink:
         return out
 
 
+def _trace(fn, args, kwargs, move: bool) -> TorchGraph:
+    from repro_torch.kernels import api
+    ops: List[TracedOp] = []
+    tok = api._COLLECT.set(_LeafSink(ops))
+    try:
+        with _recorder(ops, move=move):
+            fn(*args, **kwargs)
+    finally:
+        api._COLLECT.reset(tok)
+    return TorchGraph(ops)
+
+
+def trace_meta_fn(fn, *args, **kwargs) -> TorchGraph:
+    """`trace_fn` for a call whose tensors are already ``meta`` — DTensors
+    with ``meta`` shards on a (fake) device mesh — recording only the ops
+    on ``meta`` tensors: each DTensor op as the local ops and
+    collectives of this rank's shards, the per-device program."""
+    return _trace(fn, args, kwargs, move=False)
+
+
 def trace_fn(fn, *args, **kwargs) -> TorchGraph:
     """Record the aten ops ``fn(*args, **kwargs)`` dispatches, with no
     execution: every op runs on ``meta`` tensors (tensor arguments on
     another device are moved there as they are used), and each tuned op
     (`repro_torch.kernels.api`) is recorded as one leaf."""
-    from repro_torch.kernels import api
-    ops: List[TracedOp] = []
-    tok = api._COLLECT.set(_LeafSink(ops))
-    try:
-        with _recorder(ops):
-            fn(*args, **kwargs)
-    finally:
-        api._COLLECT.reset(tok)
-    return TorchGraph(ops)
+    return _trace(fn, args, kwargs, move=True)
 
 
 def _elems(shapes) -> float:
@@ -403,6 +448,9 @@ def mix_from_graph(graph: TorchGraph, *, spec=None) -> InstructionMix:
             mix.vmem_bytes += out_b
         elif name in _T_VIEW:
             mix.reg_ops += 1
+        elif name in _T_COLLECTIVE:
+            mix.hbm_bytes += out_b
+            mix.mem_ops += out_e
         elif name in _T_MEM or name in _T_SCATTER:
             mix.hbm_bytes += out_b + (in_b if name in _T_SCATTER else 0.0)
             mix.mem_ops += out_e

@@ -22,11 +22,11 @@ compute term prices each class at its own rate::
               + trans_flops / sfu_rate
     memory  = hbm_bytes / hbm_bw
 
-and ``cost`` may be the dict a torch trace yields (`core.mix`'s
-``"flops"`` / ``"bytes accessed"`` keys).  The spec states no link
-bandwidth, so a module spread over several cards (``chips > 1``) or
-carrying collective bytes raises: that term waits for the port's
-distributed tier (ROADMAP A8).
+    collective = collective_bytes / (links * nvlink_bw_per_link)
+
+with NVLink 4's 18 links at the datasheet's 50 GB/s each, and ``cost``
+may be the dict a torch trace yields (`core.mix`'s ``"flops"`` /
+``"bytes accessed"`` keys).
 """
 from __future__ import annotations
 
@@ -87,14 +87,15 @@ def roofline_from_artifacts(name: str,
     over ``cost_analysis`` — XLA's analysis counts while bodies once,
     undercounting scan-over-layers / microbatch loops by their trip
     counts.  ``spec`` — chip to model (``None`` = default target): a
-    `TpuSpec`, or the H100's `HopperSpec` (one card only); ``ici_links``
-    — links per chip (``None`` = from the spec's ICI topology: 2D torus
-    4, 3D torus 6; unused on the H100).
+    `TpuSpec`, or the H100's `HopperSpec`; ``ici_links`` — links per
+    chip (``None`` = from the spec's ICI topology: 2D torus 4, 3D torus
+    6; on the H100 its 18 NVLink links).
     """
     spec = resolve_target(spec)
     if isinstance(spec, HopperSpec):
         return _hopper_terms(name, cost, hlo_text, chips, model_flops,
-                             spec, flops_are_global, collectives, mix, note)
+                             spec, flops_are_global, collectives, mix, note,
+                             links=ici_links)
     spec = require_tpu(spec, "roofline_from_artifacts")
     if ici_links is None:
         ici_links = spec.ici_links
@@ -147,14 +148,12 @@ def roofline_from_artifacts(name: str,
 
 def _hopper_terms(name, cost, hlo_text, chips, model_flops,
                   spec: HopperSpec, flops_are_global, collectives, mix,
-                  note) -> RooflineTerms:
-    """The three terms on one H100: each instruction class at its own
-    rate, device memory at the HBM rate, no collective term."""
-    if chips != 1:
-        raise ValueError(
-            f"roofline_from_artifacts: {spec.name} states no link "
-            f"bandwidth, so a module over {chips} cards has no collective "
-            f"term; the port's distributed tier (ROADMAP A8) adds it")
+                  note, links: Optional[int] = None) -> RooflineTerms:
+    """The three terms on H100s: each instruction class at its own rate,
+    device memory at the HBM rate, collective bytes over the card's
+    NVLink links (``links``, default all 18, at the datasheet's per-link
+    rate).  Like the reference's, every term is per device: an SPMD
+    step runs the same program on each card."""
     if mix is None and hlo_text is not None:
         mod = parse_hlo(hlo_text)
         mix = module_mix(mod)
@@ -162,11 +161,6 @@ def _hopper_terms(name, cost, hlo_text, chips, model_flops,
             collectives = collective_stats(mod)
     if collectives is None:
         collectives = CollectiveStats({}, {}, 0.0, [])
-    if collectives.total_bytes > 0:
-        raise ValueError(
-            f"roofline_from_artifacts: {collectives.total_bytes:.0f} "
-            f"collective bytes, and {spec.name} states no link bandwidth "
-            f"(ROADMAP A8)")
     if mix is not None:
         flops = mix.mxu_flops
         nbytes = mix.hbm_bytes
@@ -176,19 +170,26 @@ def _hopper_terms(name, cost, hlo_text, chips, model_flops,
     else:
         flops = float(cost.get("flops", 0.0) or 0.0)
         nbytes = float(cost.get("bytes accessed", 0.0) or 0.0)
+        if flops_are_global:
+            flops /= chips
+            nbytes /= chips
         t_c = flops / spec.bf16_tensor_flops
+    cbytes = collectives.total_bytes
     t_m = nbytes / spec.hbm_bw
-    terms = {"compute": t_c, "memory": t_m, "collective": 0.0}
+    t_x = cbytes / (spec.nvlink_bw_per_link
+                    * (spec.nvlink_links if links is None else links))
+    terms = {"compute": t_c, "memory": t_m, "collective": t_x}
     dominant = max(terms, key=terms.get)
-    t_useful = model_flops / spec.bf16_tensor_flops
+    t_useful = (model_flops / chips) / spec.bf16_tensor_flops
     return RooflineTerms(
         name=name, chips=chips,
-        hlo_flops=flops, hlo_bytes=nbytes, collective_bytes=0.0,
+        hlo_flops=flops, hlo_bytes=nbytes, collective_bytes=cbytes,
         model_flops=model_flops,
-        t_compute=t_c, t_memory=t_m, t_collective=0.0,
-        dominant=dominant, useful_ratio=model_flops / max(flops, 1.0),
-        roofline_frac=t_useful / max(t_c, t_m, 1e-30),
-        note=note, collectives_by_kind={})
+        t_compute=t_c, t_memory=t_m, t_collective=t_x,
+        dominant=dominant,
+        useful_ratio=model_flops / max(flops * chips, 1.0),
+        roofline_frac=t_useful / max(t_c, t_m, t_x, 1e-30),
+        note=note, collectives_by_kind=dict(collectives.by_kind_bytes))
 
 
 def format_roofline_row(r: RooflineTerms) -> str:

@@ -22,10 +22,11 @@ import torch.nn.functional as F
 from repro_torch.distributed.sharding import Sharder
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (AttnConfig, _sdpa, attention,
-                                       attention_decode, init_attention,
-                                       init_mlp, mlp, rms_norm)
+                                       attention_decode, head_proj,
+                                       init_attention, init_mlp, mlp,
+                                       rms_norm)
 from repro_torch.models.params import param, resolve_device
-from repro_torch.models.transformer import (_unstack,
+from repro_torch.models.transformer import (_unstack, embed_lookup,
                                             next_token_nll, remat)
 
 __all__ = ["init_encdec", "encdec_prefill", "encdec_decode_step",
@@ -118,18 +119,17 @@ def init_encdec(cfg: ModelConfig, *, seed: int = 0, device=None,
 
 
 def _cross_kv(p: Dict, ctx: torch.Tensor):
-    k = torch.einsum("bsd,dhk->bshk", ctx, p["wk"].value.to(ctx.dtype))
-    v = torch.einsum("bsd,dhk->bshk", ctx, p["wv"].value.to(ctx.dtype))
+    k = head_proj("bsd,dhk->bshk", ctx, p["wk"])
+    v = head_proj("bsd,dhk->bshk", ctx, p["wv"])
     return k, v
 
 
 def _cross_attention(p: Dict, x: torch.Tensor, ek: torch.Tensor,
                      ev: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].value.to(x.dtype))
+    q = head_proj("bsd,dhk->bshk", x, p["wq"])
     out = _sdpa(q, ek, ev, torch.zeros((), device=x.device),
                 1.0 / math.sqrt(cfg.hd))
-    return torch.einsum("bshk,hkd->bsd", out.to(x.dtype),
-                        p["wo"].value.to(x.dtype))
+    return head_proj("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -195,7 +195,8 @@ def _head(params, h: torch.Tensor, shd: Sharder) -> torch.Tensor:
 def encdec_logits(params: Dict, frames: torch.Tensor, tokens: torch.Tensor,
                   cfg: ModelConfig, shd: Sharder, collect_kv: bool = False):
     enc_out = encode(params, frames, cfg, shd)
-    h = params["embed"].value.to(getattr(torch, cfg.dtype))[tokens]
+    h = embed_lookup(params["embed"].value, tokens, shd,
+                     getattr(torch, cfg.dtype))
     h = shd.act(h, ("batch", "residual_seq", "embed"))
     h, ys = _decode_stack(params, h, enc_out, cfg, shd, collect_kv)
     logits = _head(params, h, shd)
@@ -252,7 +253,7 @@ def encdec_decode_step(params: Dict, cache: Dict, token: torch.Tensor,
     """One decode step; the self-attention K/V are written in place."""
     dtype = getattr(torch, cfg.dtype)
     pos = cache["pos"]
-    h = params["embed"].value.to(dtype)[token]
+    h = embed_lookup(params["embed"].value, token, shd, dtype)
     acfg = _acfg(cfg, causal=True)
     for i, blk in enumerate(_unstack(params["dec_blocks"], cfg.n_layers)):
         a, _ = attention_decode(blk["attn"], rms_norm(h, blk["ln1"]),

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import os
 from contextvars import ContextVar
@@ -25,7 +26,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import Sharder
+from repro_torch.distributed.sharding import (Sharder, local, per_shard,
+                                              settle)
 from repro_torch.models.params import Param, param
 
 __all__ = ["rms_norm", "make_rope", "apply_rope", "init_attention",
@@ -85,9 +87,11 @@ def rms_norm(x: torch.Tensor, w: Param, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm with gamma stored directly (init ones); f32 math.  Tuned
     route: (tokens, D) rows through the ``rms_norm`` registry op."""
     if tuned_layers_enabled():
-        d = x.shape[-1]
-        out = _ops().rms_norm(x.reshape(-1, d), w.value, eps=eps)
-        return out.reshape(x.shape)
+        # on a mesh a tuned op sees whole operands (`local`), as the
+        # reference's Pallas calls do under GSPMD
+        return local(lambda xx, ww: _ops().rms_norm(
+            xx.reshape(-1, xx.shape[-1]), ww, eps=eps).reshape(xx.shape),
+            x, w.value)
     return _rms(x, w.value, eps)
 
 
@@ -158,10 +162,29 @@ def init_attention(cfg: AttnConfig, *, n_layers: int, dtype, device,
     return p
 
 
+def head_proj(eq: str, x: torch.Tensor, w: Param) -> torch.Tensor:
+    """``einsum(eq, x, w)`` for a (d, heads, head_dim) or (heads,
+    head_dim, d) projection ``w``, cast to ``x``'s type.  On a mesh whose
+    rules left the heads whole (they do not divide the model dim, so
+    head_dim takes it), the product runs on each rank's batch shard with
+    the weight whole (`per_shard`): DTensor's own rule would shard the
+    flattened heads x head_dim columns, which no view can unflatten."""
+    v = w.value
+    heads = 1 if w.dims[-1] == "head_dim" else 0
+    if hasattr(v, "placements") and not any(
+            p.is_shard() and p.dim == heads for p in v.placements):
+        from torch.distributed.tensor import Replicate
+        pl = tuple(p if p.is_shard() and p.dim == 0 else Replicate()
+                   for p in x.placements)
+        return per_shard(lambda xx, ww: torch.einsum(eq, xx, ww.to(xx.dtype)),
+                         pl, x, v, whole=(1,))
+    return torch.einsum(eq, x, v.to(x.dtype))
+
+
 def _project_qkv(p: Dict, x: torch.Tensor, cfg: AttnConfig, positions):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].value.to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].value.to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].value.to(x.dtype))
+    q = head_proj("bsd,dhk->bshk", x, p["wq"])
+    k = head_proj("bsd,dhk->bshk", x, p["wk"])
+    v = head_proj("bsd,dhk->bshk", x, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"].value.to(x.dtype)
         k = k + p["bk"].value.to(x.dtype)
@@ -195,9 +218,18 @@ def _repeat_kv(k, h):
 
 def _sdpa(q, k, v, bias, scale):
     """q: (B,S,H,hd), k/v: (B,Sk,KV,hd) — dense attention, softmax in
-    f32, P.V in the value type."""
+    f32, P.V in the value type.  On a mesh the core runs on each rank's
+    (batch, heads) shards (`per_shard`): on a mesh of three dims
+    DTensor's rules for its batched products merge the two sharded dims
+    into a strided shard whose redistribution planner did not finish."""
     h = q.shape[2]
     k, v = _repeat_kv(k, h), _repeat_kv(v, h)
+    q = settle(q)           # a decode step's q may be a pending sum
+    return per_shard(functools.partial(_sdpa_core, scale=scale),
+                     getattr(q, "placements", None), q, k, v, bias)
+
+
+def _sdpa_core(q, k, v, bias, scale):
     logits = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * scale
     logits = logits + bias
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
@@ -223,8 +255,8 @@ def _attention_tuned(q, k, v, causal: bool):
     h = q.shape[2]
     k, v = _repeat_kv(k, h), _repeat_kv(v, h)
     t = lambda a: a.transpose(1, 2).contiguous()
-    out = _ops().flash_attention(t(q), t(k), t(v), causal)
-    return out.transpose(1, 2)
+    return local(lambda qq, kk, vv: _ops().flash_attention(
+        t(qq), t(kk), t(vv), causal).transpose(1, 2), q, k, v)
 
 
 def attention(p: Dict, x: torch.Tensor, cfg: AttnConfig, shd: Sharder,
@@ -260,7 +292,7 @@ def attention(p: Dict, x: torch.Tensor, cfg: AttnConfig, shd: Sharder,
         out = _sdpa_chunked(q, k, v, positions, positions, window,
                             scale, cfg.chunk_q)
     out = out.to(x.dtype)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].value.to(x.dtype))
+    y = head_proj("bshk,hkd->bsd", out, p["wo"])
     y = shd.act(y, ("batch", "residual_seq", "embed"))
     if return_kv:
         if cfg.kv_repeat > 1:
@@ -315,7 +347,7 @@ def attention_decode(p: Dict, x: torch.Tensor, cache_k: torch.Tensor,
     bias = torch.where(ok, 0.0, -1e30).float()[None, :]
     scale = 1.0 / math.sqrt(cfg.head_dim)
     out = _sdpa(q, cache_k, cache_v, bias, scale).to(x.dtype)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].value.to(x.dtype))
+    y = head_proj("bshk,hkd->bsd", out, p["wo"])
     return y, (cache_k, cache_v)
 
 
@@ -349,14 +381,14 @@ def mlp(p: Dict, x: torch.Tensor, act: str, shd: Sharder) -> torch.Tensor:
         # gated front half act(x@w_gate) * (x@w_up) as one registry op
         # (variant-arbitrated fused/stream/split), then the
         # down-projection through the tuned matmul.
-        x2 = x.reshape(b * s, d)
-        h = _ops().mlp_matmul(x2, p["w_gate"].value.to(x.dtype),
-                              p["w_up"].value.to(x.dtype),
-                              act.replace("_glu", ""))
+        # (on a mesh each op sees whole operands: `local`)
+        h = local(lambda xx, wg, wu: _ops().mlp_matmul(
+            xx.reshape(b * s, d), wg, wu, act.replace("_glu", "")),
+            x, p["w_gate"].value.to(x.dtype), p["w_up"].value.to(x.dtype))
         h = shd.act(h.reshape(b, s, -1), ("batch", "seq", "mlp"))
         f = h.shape[-1]
-        y = _ops().matmul(h.reshape(b * s, f),
-                          p["w_down"].value.to(x.dtype))
+        y = local(lambda hh, wd: _ops().matmul(hh.reshape(b * s, f), wd),
+                  h, p["w_down"].value.to(x.dtype))
         return shd.act(y.reshape(b, s, d), ("batch", "residual_seq",
                                             "embed"))
     up = torch.einsum("bsd,df->bsf", x, p["w_up"].value.to(x.dtype))

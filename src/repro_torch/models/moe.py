@@ -26,12 +26,13 @@ semantics, kept.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import Sharder
+from repro_torch.distributed.sharding import Sharder, local
 from repro_torch.models.layers import _ACTS, init_mlp, mlp
 from repro_torch.models.params import param
 
@@ -126,22 +127,17 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_layer(p: Dict, x: torch.Tensor, *, n_experts: int, top_k: int,
-              capacity_factor: float, act: str, shd: Sharder,
-              router_dtype=torch.float32, pad_to: int = 0,
-              dispatch: str = "flat") -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (y, aux_loss).
-
-    ``dispatch='flat'``: one capacity over all B*S tokens.
-    ``dispatch='grouped'``: a capacity per sequence, each sequence
-    scattered into its own (E, C, D) buffer."""
+def _route(x, router, wg, wu, wd, *, n_experts: int, top_k: int,
+           capacity_factor: float, act: str, router_dtype, pad_to: int,
+           dispatch: str):
+    """Routing, dispatch, the experts and the combine: (y, aux)."""
     b, s, d = x.shape
     t = b * s
     e = n_experts
     e_pad = max(e, pad_to) if pad_to else e
 
     logits = torch.einsum("bsd,de->bse", x.to(router_dtype),
-                          p["router"].value.to(router_dtype))
+                          router.to(router_dtype))
     probs = torch.softmax(logits, dim=-1)                     # (B, S, E)
     top_p, top_i = _top_k(probs, top_k)                       # (B, S, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
@@ -154,9 +150,7 @@ def moe_layer(p: Dict, x: torch.Tensor, *, n_experts: int, top_k: int,
         device=x.device))
     aux = e * torch.sum(me * ce)
 
-    wg = p["w_gate"].value.to(x.dtype)
-    wu = p["w_up"].value.to(x.dtype)
-    wd = p["w_down"].value.to(x.dtype)
+    wg, wu, wd = wg.to(x.dtype), wu.to(x.dtype), wd.to(x.dtype)
 
     if dispatch == "grouped":
         cap = moe_capacity(s, e, top_k, capacity_factor)
@@ -176,6 +170,29 @@ def moe_layer(p: Dict, x: torch.Tensor, *, n_experts: int, top_k: int,
         y = _combine(out_buf.reshape(e_pad * cap, d), slot, keep,
                      top_p.reshape(t, top_k), e_pad * cap).reshape(b, s, d)
 
+    return y, aux
+
+
+def moe_layer(p: Dict, x: torch.Tensor, *, n_experts: int, top_k: int,
+              capacity_factor: float, act: str, shd: Sharder,
+              router_dtype=torch.float32, pad_to: int = 0,
+              dispatch: str = "flat") -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (y, aux_loss).
+
+    ``dispatch='flat'``: one capacity over all B*S tokens.
+    ``dispatch='grouped'``: a capacity per sequence, each sequence
+    scattered into its own (E, C, D) buffer."""
+    # on a mesh the routing runs on whole operands on every rank
+    # (`local`: an all-gather of the tokens and the experts): the flat
+    # capacity counts over every token of the batch, and DTensor has no
+    # rule for the dispatch's scatter_add_ and index_copy_
+    y, aux = local(
+        functools.partial(_route, n_experts=n_experts, top_k=top_k,
+                          capacity_factor=capacity_factor, act=act,
+                          router_dtype=router_dtype, pad_to=pad_to,
+                          dispatch=dispatch),
+        x, p["router"].value, p["w_gate"].value, p["w_up"].value,
+        p["w_down"].value)
     if "shared" in p:
         y = y + mlp(p["shared"], x, act, shd)
 

@@ -17,6 +17,10 @@ Training keeps the reference's f32 masters instead (``param_dtype=
 torch.float32`` through `Model.init`): every layer casts at each use,
 so the compute type is unchanged and AdamW updates the masters.
 
+On a mesh, `param_shardings` resolves every Param's `NamedSharding` by
+the weight rules and `device_put` places a tree by them: each value
+becomes a DTensor with the rule's placements.
+
 Trees are nested dicts; `tree_leaves` walks them in the reference's
 flatten order (dict keys sorted), which the optimizer's norm and the
 checkpoint's names follow.
@@ -31,8 +35,9 @@ import torch
 from repro_torch.kernels.common import resolve_device
 
 __all__ = ["Param", "param", "map_params", "stack_dims",
-           "from_numpy_tree", "resolve_device", "tree_leaves",
-           "tree_param_count", "tree_param_bytes"]
+           "param_shardings", "device_put", "from_numpy_tree",
+           "resolve_device", "tree_leaves", "tree_param_count",
+           "tree_param_bytes"]
 
 
 class Param:
@@ -104,6 +109,28 @@ def stack_dims(tree, axis_name: str = "layers"):
     """Prepend the stacking dim name to every Param of a per-layer tree
     whose values were stacked along a new leading dim."""
     return map_params(lambda p: Param(p.value, (axis_name,) + p.dims), tree)
+
+
+def param_shardings(tree, mesh, rules=None):
+    """Param tree -> `NamedSharding` tree (``rules`` default: the weight
+    rules)."""
+    from repro_torch.distributed.sharding import WEIGHT_RULES, \
+        named_sharding
+    rules = WEIGHT_RULES if rules is None else rules
+    return map_params(
+        lambda p: named_sharding(p.dims, tuple(p.value.shape), rules, mesh),
+        tree)
+
+
+def device_put(tree, shardings):
+    """A Param tree on the mesh, leaf by leaf by its `NamedSharding`
+    (the counterpart of ``jax.device_put(params, param_shardings(...))``).
+    A host leaf holds the whole value on every rank, and each rank keeps
+    its shard of it; a DTensor leaf is redistributed."""
+    from repro_torch.distributed.sharding import place
+    if isinstance(tree, Param):
+        return Param(place(tree.value, shardings), tree.dims)
+    return {k: device_put(v, shardings[k]) for k, v in tree.items()}
 
 
 def tree_leaves(tree, path: Tuple[str, ...] = ()

@@ -24,8 +24,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import Sharder
-from repro_torch.models.params import param
+from repro_torch.distributed.sharding import Sharder, per_shard
+from repro_torch.models.params import Param, param
 
 __all__ = ["SsdConfig", "init_ssd", "ssd_block", "ssd_decode",
            "init_ssd_state", "xc_skip"]
@@ -164,7 +164,35 @@ def ssd_block(p: Dict, x: torch.Tensor, cfg: SsdConfig, shd: Sharder,
     """Full-sequence SSD block.  x: (B, S, D) -> (B, S, D).
 
     ``return_state=True`` additionally returns the decode handoff state
-    {"ssm": (B,H,N,P), "conv": (B,k-1,C)} after the last position."""
+    {"ssm": (B,H,N,P), "conv": (B,k-1,C)} after the last position.
+
+    On a mesh the block runs on each rank's batch shard with its weights
+    whole (`per_shard`): ``w_in`` packs [z, x, B, C, dt] along the dim
+    the rules shard, so its slices would cut across shards, and DTensor
+    merges the sharded batch with the sequence into strided shards whose
+    redistribution planner does not finish.  The weights' gradients
+    come back partial over the batch shards and are reduced to the
+    weights' layout."""
+    names = sorted(p)
+
+    def body(xx, *vals):
+        q = {k: Param(v, p[k].dims) for k, v in zip(names, vals)}
+        out, state = _ssd_block(q, xx, cfg, return_state)
+        return (out,) if state is None else (out, state["ssm"],
+                                             state["conv"])
+
+    res = per_shard(body, shd.batch_placements(x), x,
+                    *(p[k].value for k in names),
+                    whole=range(1, len(names) + 1))
+    out = shd.act(res[0], ("batch", "residual_seq", "embed"))
+    if return_state:
+        return out, {"ssm": res[1], "conv": res[2]}
+    return out
+
+
+def _ssd_block(p: Dict, x: torch.Tensor, cfg: SsdConfig,
+               return_state: bool):
+    """The block on local tensors: (out, state or None)."""
     from repro_torch.models.layers import _rms
     bsz, t, _ = x.shape
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.n_heads
@@ -175,7 +203,6 @@ def ssd_block(p: Dict, x: torch.Tensor, cfg: SsdConfig, shd: Sharder,
     b_in = xbc[..., di:di + n]
     c_in = xbc[..., di + n:]
     xh = xin.reshape(bsz, t, h, cfg.head_dim)
-    xh = shd.act(xh, ("batch", "seq", "ssm_inner", None))
     a = -torch.exp(p["a_log"].value.float())               # (H,)
     dtp = F.softplus(dt.float() + p["dt_bias"].value.float())
     y, (_a_scan, s_scan) = _ssd_chunked(xh, dtp, a, b_in, c_in, cfg)
@@ -183,15 +210,14 @@ def ssd_block(p: Dict, x: torch.Tensor, cfg: SsdConfig, shd: Sharder,
     y = y.reshape(bsz, t, di).to(x.dtype)
     y = _rms(y * F.silu(z), p["norm_w"].value)
     out = torch.einsum("bse,ed->bsd", y, p["w_out"].value.to(x.dtype))
-    out = shd.act(out, ("batch", "residual_seq", "embed"))
-    if return_state:
-        k = cfg.ssm_conv
-        pad = max(0, (k - 1) - t)
-        tail = xbc_raw[:, max(0, t - (k - 1)):, :]
-        if pad:
-            tail = F.pad(tail, (0, 0, pad, 0))
-        return out, {"ssm": s_scan[:, -1], "conv": tail}
-    return out
+    if not return_state:
+        return out, None
+    k = cfg.ssm_conv
+    pad = max(0, (k - 1) - t)
+    tail = xbc_raw[:, max(0, t - (k - 1)):, :]
+    if pad:
+        tail = F.pad(tail, (0, 0, pad, 0))
+    return out, {"ssm": s_scan[:, -1], "conv": tail}
 
 
 def init_ssd_state(bsz: int, cfg: SsdConfig, dtype=torch.float32,
@@ -208,7 +234,24 @@ def init_ssd_state(bsz: int, cfg: SsdConfig, dtype=torch.float32,
 
 def ssd_decode(p: Dict, x: torch.Tensor, state: Dict, cfg: SsdConfig,
                shd: Sharder) -> Tuple[torch.Tensor, Dict]:
-    """One-token decode.  x: (B, 1, D)."""
+    """One-token decode.  x: (B, 1, D).  On a mesh, as `ssd_block`, on
+    each rank's batch shard with the weights whole."""
+    names = sorted(p)
+
+    def body(xx, ssm, conv, *vals):
+        q = {k: Param(v, p[k].dims) for k, v in zip(names, vals)}
+        out, st = _ssd_decode(q, xx, {"ssm": ssm, "conv": conv}, cfg)
+        return out, st["ssm"], st["conv"]
+
+    out, ssm, conv = per_shard(body, shd.batch_placements(x), x,
+                               state["ssm"], state["conv"],
+                               *(p[k].value for k in names),
+                               whole=range(3, len(names) + 3))
+    return out, {"ssm": ssm, "conv": conv}
+
+
+def _ssd_decode(p: Dict, x: torch.Tensor, state: Dict, cfg: SsdConfig
+                ) -> Tuple[torch.Tensor, Dict]:
     from repro_torch.models.layers import _rms
     bsz = x.shape[0]
     di, n = cfg.d_inner, cfg.ssm_state

@@ -21,7 +21,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import Sharder
+from repro_torch.distributed.sharding import Sharder, per_shard, settle
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (AttnConfig, _rms, attention,
                                        attention_decode, init_attention,
@@ -267,8 +267,20 @@ def _run_blocks(blocks: Dict, h: torch.Tensor, windows: List[int],
     return h, aux_total, (kvs, states)
 
 
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, shd: Sharder,
+                 dtype) -> torch.Tensor:
+    """``table[tokens]`` in ``dtype``.  On a mesh the lookup runs on each
+    rank's batch shard with the table whole (`per_shard`: an all-gather
+    of the table, its gradient reduced back to the table's layout):
+    DTensor's rules for indexing a vocab- and embed-sharded table differ
+    between torch releases (indexing fails on 2.11, the embedding op's
+    backward on 2.13)."""
+    return per_shard(lambda t, w: w.to(dtype)[t],
+                     shd.batch_placements(tokens), tokens, table, whole=(1,))
+
+
 def _embed(params, tokens, shd: Sharder, dtype) -> torch.Tensor:
-    h = params["embed"].value.to(dtype)[tokens]
+    h = embed_lookup(params["embed"].value, tokens, shd, dtype)
     return shd.act(h, ("batch", "residual_seq", "embed"))
 
 
@@ -308,7 +320,10 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor
     ``logits[:, :-1]`` against ``tokens[:, 1:]``."""
     lf = logits[:, :-1].float()
     lse = torch.logsumexp(lf, dim=-1)
-    gold = lf.gather(-1, tokens[:, 1:, None].long())[..., 0]
+    # on a vocab-sharded mesh the gather is a masked partial sum over the
+    # vocab shards: reduced here (an all-reduce of one value per
+    # position), before the view that would drop it
+    gold = settle(lf.gather(-1, tokens[:, 1:, None].long()))[..., 0]
     return (lse - gold).mean()
 
 

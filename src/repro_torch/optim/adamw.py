@@ -8,7 +8,9 @@ the same order.  `adamw_update` updates parameters and moments in place
 under ``torch.no_grad()`` — the counterpart of the reference donating
 both to its jitted step — and returns them with the metrics.  Every
 scalar stays a tensor on the state's device: a step never waits for
-the card.
+the card.  On a mesh parameters, gradients and moments are DTensors of
+one layout per leaf, updated in place shard by shard; the norm is
+reduced over the whole mesh.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import settle
 from repro_torch.models.params import Param, map_params, tree_leaves
 
 __all__ = ["AdamWConfig", "init_adamw", "adamw_update", "global_norm"]
@@ -55,16 +58,19 @@ def _values(tree):
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves (in flatten order) of each leaf's f32
-    sum of squares."""
+    sum of squares.  A DTensor leaf's sum is reduced over its shards
+    (`settle`), so a gradient sharded over the mesh is normed whole."""
     total = 0
     for v in _values(tree):
-        total = total + torch.sum(torch.square(v.float()))
+        total = total + settle(torch.sum(torch.square(v.float())))
     return torch.sqrt(torch.as_tensor(total))
 
 
 def init_adamw(params) -> Dict:
-    zeros = lambda p: Param(torch.zeros(p.shape, dtype=torch.float32,
-                                        device=p.value.device), p.dims)
+    """Zero f32 moments shaped (and, on a mesh, laid out) as the
+    parameters; ``count`` a plain int32 scalar."""
+    zeros = lambda p: Param(torch.zeros_like(p.value, dtype=torch.float32),
+                            p.dims)
     dev = next(iter(_values(params))).device
     return {"m": map_params(zeros, params), "v": map_params(zeros, params),
             "count": torch.zeros((), dtype=torch.int32, device=dev)}

@@ -74,6 +74,14 @@ def _device_of(state: Dict[str, Any]) -> torch.device:
     return torch.device("cpu")
 
 
+def _mesh_of(state: Dict[str, Any]):
+    from torch.distributed.tensor import DTensor
+    for _, leaf in tree_leaves(state.get("params", {})):
+        v = leaf.value if isinstance(leaf, Param) else leaf
+        return v.device_mesh if isinstance(v, DTensor) else None
+    return None
+
+
 def _wait_for(x) -> None:
     """Block until the card has computed ``x``."""
     if isinstance(x, torch.Tensor) and x.device.type == "cuda":
@@ -90,6 +98,11 @@ class TrainSupervisor:
     on_straggler: Optional[Callable[[int, float, float], None]] = None
 
     def _restore(self, state, step: int) -> Dict[str, Any]:
+        """The checkpoint where the state lives: on its device, or on
+        the mesh its DTensor parameters are laid out on."""
+        mesh = _mesh_of(state)
+        if mesh is not None:
+            return {**state, **self.manager.restore(step, mesh=mesh)}
         return {**state, **self.manager.restore(step,
                                                 device=_device_of(state))}
 
@@ -148,11 +161,13 @@ class TrainSupervisor:
                     raise RuntimeError(
                         f"exceeded max_restarts={self.policy.max_restarts}"
                     ) from e
+                # a save that has returned counts: the writer finishes
+                # it before the latest checkpoint is looked up
+                self.manager.wait()
                 latest = self.manager.latest_step()
                 if latest is None:
                     raise RuntimeError("fault before first checkpoint") \
                         from e
-                self.manager.wait()
                 state = self._restore(state, latest)
                 step = int(state["step"])
                 print(f"[supervisor] restart #{restarts} from step {step} "

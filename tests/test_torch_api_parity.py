@@ -4,10 +4,8 @@
   ``tuning_cache`` package, the kernel modules and every ported
   ``core.*`` and ``models.*`` module, and every public name of its
   config registry (which has no ``__all__``), is in the port's, or is
-  listed in `UNPORTED` with its reason: a TPU-only name, a name that
-  waits for the mesh slice (ROADMAP A8b: sharding on a device mesh and
-  pod-gradient compression), or a JAX-only front end with its torch
-  counterpart named; ``*_pallas`` entry points are skipped, their counterparts
+  listed in `UNPORTED` with its reason: a TPU-only name or a JAX-only
+  front end with its torch counterpart named; ``*_pallas`` entry points are skipped, their counterparts
   being the port's ``*_cuda`` wrappers.
 * Under ``tpu-v5e`` a problem factory registered with `register` gives
   the reference's records; the default path leaves the reference's
@@ -42,14 +40,6 @@ UNPORTED = {
     "tpu_compiler_params": "TPU-only: Pallas TPU compiler parameters",
     "mix_from_jaxpr": "takes a jaxpr; the torch counterpart is "
                       "repro_torch.core.mix.mix_from_graph over trace_fn",
-    "param_shardings": "A8b: NamedShardings of a Param tree on a mesh",
-    "named_sharding": "A8b: a NamedSharding on a device mesh",
-    "tree_shardings": "A8b: NamedShardings of a shape tree on a mesh",
-    "ef_compress_grads": "A8b: int8 error-feedback pod-gradient "
-                         "compression (distributed/compression.py)",
-    "make_production_mesh": "A8b: the production mesh (launch/mesh.py)",
-    "mesh_num_chips": "A8b: the production mesh (launch/mesh.py)",
-    "ici_links": "A8b: the production mesh (launch/mesh.py)",
 }
 MODULES = ["tuning_cache.registry", "tuning_cache", "kernels.matmul",
            "kernels.matvec", "kernels.atax", "kernels.bicg",
@@ -64,7 +54,8 @@ MODULES = ["tuning_cache.registry", "tuning_cache", "kernels.matmul",
            "models.params", "models.transformer", "models.moe",
            "models.ssd", "models.encdec", "optim.adamw", "data.pipeline",
            "checkpoint.manager", "runtime.fault", "distributed.train",
-           "distributed.sharding"]
+           "distributed.sharding", "distributed.compression",
+           "launch.mesh", "launch.specs"]
 
 
 def _public(mod):
@@ -93,6 +84,18 @@ def test_every_reference_name_is_ported_or_listed(module):
         assert hasattr(port, n), n
     # a listed name is listed because it is missing, not by habit
     assert not [n for n in UNPORTED if n in port.__all__]
+
+
+@pytest.mark.parametrize("package", ["distributed", "launch", "models"])
+def test_every_reference_package_reexport_is_in_the_port(package):
+    """The names the reference's packages bind (they have no
+    ``__all__``) are bound by the port's packages too."""
+    ref = importlib.import_module(f"repro.{package}")
+    port = importlib.import_module(f"repro_torch.{package}")
+    names = [n for n, v in vars(ref).items()
+             if not n.startswith("_") and not inspect.ismodule(v)
+             and not isinstance(v, __future__._Feature)]
+    assert names and [n for n in names if not hasattr(port, n)] == []
 
 
 @pytest.mark.parametrize("name", ["register", "unregister",

@@ -131,8 +131,21 @@ def test_bfloat16_leaves_round_trip_and_meshes_wait_for_a8b(tmp_path):
     assert torch.equal(back["params"]["w"].value, x)
     assert back["params"]["w"].dims == ("embed", None)
     assert back["step"] == 2
-    with pytest.raises(NotImplementedError, match="A8b"):
-        mgr.restore(2, mesh=object())
+    # the name predates the mesh slice: a restore onto a mesh (here one
+    # rank's) now places each Param leaf by the weight rules
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("gloo", init_method="tcp://localhost:0",
+                            rank=0, world_size=1)
+    try:
+        on_mesh = mgr.restore(2, mesh=make_mesh((1, 1), ("data", "model")))
+        w = on_mesh["params"]["w"]
+        assert isinstance(w.value, DTensor) and w.dims == ("embed", None)
+        assert torch.equal(w.value.full_tensor(), x)
+        assert on_mesh["step"] == 2
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(FileNotFoundError):
         CheckpointManager(str(tmp_path / "empty")).restore()
 
@@ -162,6 +175,27 @@ def test_supervisor_restarts_after_a_fault(tmp_path, fault, outcome):
     state = sup.run(step, state0, make_batch, num_steps=12)
     assert state["step"] == 12
     assert mgr.latest_step() in (10, 12)
+
+
+def test_a_fault_right_after_an_async_save_restarts_from_it(tmp_path,
+                                                           monkeypatch):
+    """The save of step 5 has returned but its writer is still busy when
+    the fault before step 6 fires: the restart waits for it."""
+    import time
+    write = CheckpointManager._write
+    monkeypatch.setattr(CheckpointManager, "_write", lambda self, *a: (
+        time.sleep(0.5), write(self, *a))[1])
+    _, params, opt, step, make_batch = _setup()
+    mgr = CheckpointManager(str(tmp_path), keep=3)
+    sup = TrainSupervisor(mgr, FaultPolicy(checkpoint_every=5),
+                          inject_fault=scheduled_fault(
+                              FaultSchedule(after=6, every=0)))
+    try:
+        state = sup.run(step, {"params": params, "opt": opt, "step": 0},
+                        make_batch, num_steps=7)
+    finally:
+        mgr.close()
+    assert state["step"] == 7 and mgr.latest_step() == 5
 
 
 def test_a_fault_before_the_first_checkpoint_is_fatal(tmp_path):

@@ -4,8 +4,9 @@ Under every TPU of `TPU_TABLE` the port's `roofline_from_artifacts`
 gives the reference's terms bit for bit — from HLO text, from a given
 mix, from a ``cost_analysis`` dict — and both refuse a Table I GPU.
 Under the H100 (`HopperSpec`) the terms are checked by hand arithmetic:
-each class at its own rate, device bytes at the HBM rate, no collective
-term, and a module over several cards refused (ROADMAP A8).
+each class at its own rate, device bytes at the HBM rate, and collective
+bytes over NVLink 4's 18 links at 50 GB/s each (the datasheet's 900
+GB/s), per card of a module over several cards.
 """
 import dataclasses
 
@@ -150,10 +151,23 @@ ENTRY %main (x: f32[1024]) -> f32[1024] {
   ROOT %ar = f32[1024] all-reduce(%x), replica_groups={{0,1}}, to_apply=%add
 }
 """
-    with pytest.raises(ValueError, match="A8"):
-        if what == "chips":
-            roofline.roofline_from_artifacts("x", {}, None, 2, 0.0,
+    # the test's name predates the H100's collective term: a module over
+    # several cards, or one carrying collective bytes, is now priced
+    if what == "chips":
+        r = roofline.roofline_from_artifacts(
+            "x", {"flops": 4e12, "bytes accessed": 2e9}, None, 2, 8e12,
+            spec=H100_SXM)
+        assert r.t_collective == 0.0
+        assert r.t_compute == 4e12 / 989e12
+        assert r.useful_ratio == 8e12 / (4e12 * 2)
+        assert r.roofline_frac == pytest.approx(
+            (8e12 / 2 / 989e12) / max(r.t_compute, r.t_memory), rel=1e-12)
+    else:
+        r = roofline.roofline_from_artifacts("x", {}, text, 1, 0.0,
                                              spec=H100_SXM)
-        else:
-            roofline.roofline_from_artifacts("x", {}, text, 1, 0.0,
-                                             spec=H100_SXM)
+        assert r.collective_bytes > 0
+        assert r.t_collective == r.collective_bytes / (18 * 50e9)
+        assert r.collectives_by_kind == {"all-reduce": r.collective_bytes}
+        r4 = roofline.roofline_from_artifacts("x", {}, text, 1, 0.0,
+                                              spec=H100_SXM, ici_links=4)
+        assert r4.t_collective == r.collective_bytes / (4 * 50e9)

@@ -1,0 +1,326 @@
+"""Shared machinery of the port's mesh tests.
+
+Rank functions run in every rank of a world spawned by
+`repro_torch.launch.mesh.spawn_world` (gloo, CPU) and return plain numpy
+data; they import neither JAX nor the reference.  `run_train_cases`
+runs a list of meshed train-step cases in the port's world and in the
+reference (a subprocess on 4 host devices, a (2, 1, 2) mesh with Auto
+axes) side by side, from the reference's initial parameters."""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORLD_TIMEOUT = 120
+MESH_AXES = ("pod", "data", "model")
+OPT = dict(peak_lr=1e-3, warmup_steps=2, decay_steps=50)
+BATCH, SEQ, STEPS = 4, 32, 2
+
+
+def load_params(model, npz_path):
+    """The reference's initial parameters (saved by key string) in the
+    port's tree, f32 masters on the CPU."""
+    from repro_torch.models import from_numpy_tree
+    from repro_torch.models.params import Param, tree_leaves
+    tmpl = model.abstract_params()
+    with np.load(npz_path) as npz:
+        flat = {key: npz[key] for key in npz.files}
+
+    def fill(node, path):
+        if isinstance(node, Param):
+            key = "".join(f"[{k!r}]" for k in path) + "[<flat index 0>]"
+            return (flat[key], node.dims)
+        return {k: fill(v, path + (k,)) for k, v in node.items()}
+    return from_numpy_tree(fill(tmpl, ()), device="cpu")
+
+
+def host_tree(params):
+    """{key string: numpy array} of a Param tree, DTensors gathered."""
+    from repro_torch.models.params import tree_leaves
+    out = {}
+    for path, leaf in tree_leaves(params):
+        v = leaf.value
+        if hasattr(v, "full_tensor"):
+            v = v.full_tensor()
+        out["".join(f"[{k!r}]" for k in path)] = v.detach().float().numpy()
+    return out
+
+
+def train_case(rank, world, case, npz_path, mesh_shape=(2, 1, 2)):
+    """Meshed train steps of one case: {"metrics": [...], "params":
+    {...}} after ``STEPS`` steps."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.distributed import TrainStepConfig, make_train_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model, device_put, param_shardings
+    from repro_torch.optim import AdamWConfig, init_adamw
+
+    mesh = make_mesh(mesh_shape, MESH_AXES[-len(mesh_shape):])
+    cfg = dataclasses.replace(get_smoke(case["arch"]), dtype=case["dtype"])
+    model = build_model(cfg)
+    params = load_params(model, npz_path)
+    params = device_put(params, param_shardings(params, mesh))
+    opt = init_adamw(params)
+    step = make_train_step(
+        model, AdamWConfig(**OPT), mesh=mesh,
+        step_cfg=TrainStepConfig(microbatches=case["mb"],
+                                 compress_pod_grads=case["compress"]))
+    stream = TokenStream(DataConfig(vocab=cfg.vocab, global_batch=BATCH,
+                                    seq_len=SEQ))
+    metrics = []
+    for s in range(case.get("steps", STEPS)):
+        b = {"tokens": torch.from_numpy(stream.make_batch(s)["tokens"])}
+        params, opt, m = step(params, opt, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+    residual = None
+    if "ef" in opt:
+        residual = {k: (v.full_tensor() if hasattr(v, "full_tensor")
+                        else v).numpy()
+                    for k, v in _flat(opt["ef"]["residual"]).items()}
+    return {"metrics": metrics, "params": host_tree(params),
+            "residual": residual}
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat(tree[k], path + (k,)))
+        return out
+    return {"".join(f"[{k!r}]" for k in path): tree}
+
+
+def train_cases(rank, world, cases, npz_paths):
+    torch.set_num_threads(1)    # four ranks share the CPU
+    return [train_case(rank, world, c, p) for c, p in zip(cases, npz_paths)]
+
+
+def checkpoint_case(rank, world, ckpt_dir):
+    """A state saved on a (2, 1, 2) mesh, restored onto (1, 2, 2) and onto
+    no mesh: {"saved", "on_122", "host"} as host trees, plus each
+    restored leaf's placements on the new mesh."""
+    torch.set_num_threads(1)
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model, device_put, param_shardings
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import init_adamw
+
+    m = build_model(dataclasses.replace(get_smoke("gemma-7b"),
+                                        dtype="float32"))
+    a = make_mesh((2, 1, 2), MESH_AXES)
+    b = make_mesh((1, 2, 2), MESH_AXES)
+    p = m.init(seed=0, device="cpu", param_dtype=torch.float32)
+    p = device_put(p, param_shardings(p, a))
+    opt = init_adamw(p)
+    mgr = CheckpointManager(ckpt_dir, async_save=False)
+    mgr.save(3, {"params": p, "opt": opt, "step": 3})
+    on_b = mgr.restore(3, mesh=b)
+    host = mgr.restore(3)
+    placements = {str(path): (str(leaf.value.device_mesh.shape),
+                              [repr(x) for x in leaf.value.placements])
+                  for path, leaf in tree_leaves(on_b["params"])}
+    want = {str(path): [repr(x) for x in leaf.value.placements]
+            for path, leaf in tree_leaves(
+                device_put(host["params"],
+                           param_shardings(host["params"], b)))}
+    return {"saved": host_tree(p), "on_122": host_tree(on_b["params"]),
+            "host": host_tree(host["params"]),
+            "moments_on_122": host_tree(on_b["opt"]["m"]),
+            "step": on_b["step"], "placements": placements, "want": want,
+            "files": rank == 0}
+
+
+def compression_case(rank, world, grads_np, steps):
+    """`ef_compress_grads` on a (2, 1, 2) mesh over ``steps`` calls, the
+    residual carried: per call {"g": ..., "r": ...} as host arrays."""
+    torch.set_num_threads(1)
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.distributed import ef_compress_grads
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 1, 2), MESH_AXES)
+    layouts = {"a": [Replicate(), Replicate(), Shard(1)],
+               "b": [Replicate(), Replicate(), Replicate()],
+               "c": [Replicate(), Replicate(), Shard(0)]}
+    opt = {}
+    out = []
+    for s in range(steps):
+        grads = {k: distribute_tensor(torch.from_numpy(v[s]), mesh,
+                                      layouts[k], src_data_rank=None)
+                 for k, v in grads_np.items()}
+        g, opt = ef_compress_grads(grads, opt, mesh)
+        out.append({"g": {k: v.full_tensor().numpy() for k, v in g.items()},
+                    "r": {k: v.full_tensor().numpy()
+                          for k, v in opt["ef"]["residual"].items()}})
+    return out
+
+
+
+# ---------------------------------------------------------------------------
+# the reference side (the test process and a subprocess)
+# ---------------------------------------------------------------------------
+
+_REF = r"""
+import json, os, sys, dataclasses
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import AxisType
+from repro.configs import get_smoke
+from repro.data import DataConfig, TokenStream
+from repro.distributed import TrainStepConfig, make_train_step
+from repro.models import Param, build_model, param_shardings
+from repro.optim import AdamWConfig, init_adamw
+
+spec = json.load(open(sys.argv[1]))
+mesh = jax.make_mesh((2, 1, 2), ("pod", "data", "model"),
+                     axis_types=(AxisType.Auto,) * 3)
+out = []
+for case, path in zip(spec["cases"], spec["npz"]):
+    cfg = dataclasses.replace(get_smoke(case["arch"]), dtype=case["dtype"])
+    model = build_model(cfg)
+    tmpl = model.abstract_params()
+    with np.load(path) as npz:
+        flat = {k: npz[k] for k in npz.files}
+    leaves, tdef = jax.tree_util.tree_flatten_with_path(tmpl)
+    params = jax.tree_util.tree_unflatten(
+        tdef, [jnp.asarray(flat[jax.tree_util.keystr(p)]) for p, _ in leaves])
+    params = jax.device_put(params, param_shardings(params, mesh))
+    opt = init_adamw(params)
+    step = jax.jit(make_train_step(
+        model, AdamWConfig(**spec["opt"]), mesh=mesh,
+        step_cfg=TrainStepConfig(microbatches=case["mb"],
+                                 compress_pod_grads=case["compress"])))
+    stream = TokenStream(DataConfig(vocab=cfg.vocab,
+                                    global_batch=spec["batch"],
+                                    seq_len=spec["seq"]))
+    metrics = []
+    for s in range(case.get("steps", spec["steps"])):
+        b = {"tokens": jnp.asarray(stream.make_batch(s)["tokens"])}
+        params, opt, m = step(params, opt, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+    final = {jax.tree_util.keystr(p)[:-len("[<flat index 0>]")]:
+             np.asarray(v, np.float32) for p, v in
+             jax.tree_util.tree_flatten_with_path(params)[0]}
+    np.savez(path + ".final.npz", **final)
+    out.append(metrics)
+json.dump(out, open(sys.argv[2], "w"))
+"""
+
+
+
+
+def save_reference_init(arch, path):
+    """The reference's initial f32 parameters of ``arch``'s smoke config
+    (``PRNGKey(0)``), by key string."""
+    import jax
+    from repro.configs import get_smoke
+    from repro.models import build_model
+    params = build_model(get_smoke(arch)).init(jax.random.PRNGKey(0))
+    flat = {jax.tree_util.keystr(p): np.asarray(v, np.float32) for p, v in
+            jax.tree_util.tree_flatten_with_path(params)[0]}
+    np.savez(path, **flat)
+
+
+def run_train_cases(d, cases):
+    """[((reference metrics, reference final params), port result)] per
+    case; the reference's subprocess and the port's world run side by
+    side in directory ``d``."""
+    npz = []
+    for i, c in enumerate(cases):
+        npz.append(os.path.join(d, f"init_{i}.npz"))
+        save_reference_init(c["arch"], npz[-1])
+    spec = os.path.join(d, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"cases": cases, "npz": npz, "opt": OPT, "batch": BATCH,
+                   "seq": SEQ, "steps": STEPS}, f)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               JAX_PLATFORMS="cpu")
+    out_json = os.path.join(d, "ref.json")
+    ref = subprocess.Popen([sys.executable, "-c", _REF, spec, out_json],
+                           env=env, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+    try:
+        from repro_torch.launch.mesh import spawn_world
+        port = spawn_world(train_cases, 4, cases, npz,
+                           timeout=WORLD_TIMEOUT)[0]
+        _, err = ref.communicate(timeout=WORLD_TIMEOUT)
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+            ref.communicate()
+    assert ref.returncode == 0, err[-3000:]
+    with open(out_json) as f:
+        ref_metrics = json.load(f)
+    out = []
+    for i, p in enumerate(npz):
+        with np.load(p + ".final.npz") as f:
+            ref_final = {k: f[k] for k in f.files}
+        out.append(((ref_metrics[i], ref_final), port[i]))
+    return out
+
+
+def assert_case_matches(case, ref_metrics, ref_final, port):
+    """Loss (and in float32 grad norm) within 1e-5 relative and every
+    parameter within 1e-4; in bf16 compute the loss within 5e-4."""
+    f32 = case["dtype"] == "float32"
+    for got, want in zip(port["metrics"], ref_metrics):
+        np.testing.assert_allclose(got["loss"], want["loss"],
+                                   rtol=1e-5 if f32 else 5e-4)
+        if f32:
+            np.testing.assert_allclose(got["grad_norm"], want["grad_norm"],
+                                       rtol=1e-5)
+    if f32:
+        assert sorted(port["params"]) == sorted(ref_final)
+        for k, v in ref_final.items():
+            np.testing.assert_allclose(port["params"][k], v, rtol=0,
+                                       atol=1e-4, err_msg=k)
+
+
+def case_id(c):
+    return (f"{c['arch']}-{c['dtype']}-mb{c['mb']}"
+            + ("-compressed" if c["compress"] else ""))
+
+
+def serve_case(rank, world, arch, tuned):
+    """Prefill (4 x 16) and two greedy decode steps of ``arch``'s smoke
+    config in float32, on a (2, 1, 2) mesh and without one, tuned
+    layers on or off: (meshed logits, unmeshed logits, meshed tokens,
+    unmeshed tokens), rank 0's."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed import make_serve_fns
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model, device_put, param_shardings
+    from repro_torch.models.layers import use_tuned_layers
+    torch.set_num_threads(1)
+    mesh = make_mesh((2, 1, 2), MESH_AXES)
+    model = build_model(dataclasses.replace(get_smoke(arch),
+                                            dtype="float32"))
+    params = model.init(seed=0, device="cpu", param_dtype=torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, model.cfg.vocab, (4, 16)).astype(np.int32))
+    out = []
+    for m, p in ((mesh, device_put(params, param_shardings(params, mesh))),
+                 (None, params)):
+        prefill, decode = make_serve_fns(model, mesh=m)
+        with torch.no_grad(), use_tuned_layers(tuned):
+            logits, cache = prefill(p, {"tokens": toks})
+            full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") \
+                else t
+            got = [full(logits).numpy()]
+            tok = full(logits)[:, -1:].argmax(-1).to(torch.int32)
+            tokens = [tok.numpy()]
+            for _ in range(2):
+                lg, cache = decode(p, cache, tok)
+                got.append(full(lg).numpy())
+                tok = full(lg)[:, -1:].argmax(-1).to(torch.int32)
+                tokens.append(tok.numpy())
+        out.append((got, tokens))
+    return out
