@@ -517,6 +517,7 @@ class LoweredStep:
     collectives: Any            # repro_torch.core.hlo.CollectiveStats
     comm_debug_counts: Dict[str, int] = dataclasses.field(
         default_factory=dict)   # CommDebugMode's, by collective
+    memory: Optional[Dict[str, Any]] = None   # the trace's live bytes
 
 
 class GraphTuner:

@@ -33,8 +33,11 @@ reg_ops        moves: broadcast/transpose/reshape/convert (paper's O_reg)
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
+import weakref
+from contextvars import ContextVar
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -46,6 +49,7 @@ __all__ = [
     "TracedOp",
     "TorchGraph",
     "trace_fn",
+    "live_bytes",
     "mix_from_graph",
     "mix_of_fn",
     "mix_from_hlo_text",
@@ -242,6 +246,50 @@ def _shapes(tree) -> Tuple[_Shape, ...]:
                  for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
 
 
+class LiveBytes:
+    """The bytes of the local storages alive while a meta trace runs
+    (`live_bytes`): each storage an op makes counts from that op until
+    it is freed, and the peak is kept.  Storages of ``keep`` (a step's
+    arguments) are known from the start and not counted."""
+
+    def __init__(self, keep=()):
+        self.live = self.peak = 0
+        self._keys: set = set()
+        self._keep = [t.untyped_storage() for t in keep]
+        self._keys.update(id(st) for st in self._keep)
+
+    def add(self, t) -> None:
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._keys:
+            return
+        n = st.nbytes()
+        self._keys.add(key)
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(st, self._free, key, n)
+
+    def _free(self, key, n: int) -> None:
+        self._keys.discard(key)
+        self.live -= n
+
+
+_LIVE: "ContextVar[Optional[LiveBytes]]" = ContextVar(
+    "repro_torch_live_bytes", default=None)
+
+
+@contextlib.contextmanager
+def live_bytes(keep=()):
+    """Within it, `trace_meta_fn` counts the storages its ops make
+    (`LiveBytes`, yielded)."""
+    lb = LiveBytes(keep)
+    tok = _LIVE.set(lb)
+    try:
+        yield lb
+    finally:
+        _LIVE.reset(tok)
+
+
 def _recorder(ops: List[TracedOp], move: bool = True):
     """A dispatch mode that runs every aten op on ``meta`` tensors (real
     inputs and factory devices are moved there first) and appends it to
@@ -278,6 +326,12 @@ def _recorder(ops: List[TracedOp], move: bool = True):
             if not move:
                 kwargs = kwargs or {}
                 out = func(*args, **kwargs)
+                live = _LIVE.get()
+                if live is not None:
+                    for t in tree_leaves(out):
+                        if isinstance(t, torch.Tensor) and \
+                                t.device.type == "meta":
+                            live.add(t)
                 if any(t.device.type == "meta" for t in tree_leaves(
                         (args, kwargs, out)) if isinstance(t, torch.Tensor)):
                     ops.append(TracedOp(

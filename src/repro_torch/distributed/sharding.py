@@ -35,7 +35,8 @@ import torch
 __all__ = ["Rules", "WEIGHT_RULES", "ACT_RULES", "ACT_RULES_SP",
            "CACHE_RULES", "CACHE_RULES_SEQSHARD", "logical_spec",
            "NamedSharding", "named_sharding", "Sharder", "tree_shardings",
-           "mesh_sizes", "place", "local", "settle", "per_shard"]
+           "mesh_sizes", "place", "local", "settle", "per_shard",
+           "shard_map", "shard_einsum", "shard_range", "batch_only"]
 
 AxisCand = Union[str, Tuple[str, ...]]
 Rule = Tuple[str, Tuple[AxisCand, ...]]
@@ -223,54 +224,101 @@ def settle(x):
                                           else p for p in x.placements])
 
 
+def shard_map(fn, in_placements, out_placements, *xs, mesh=None,
+              grad_placements=None):
+    """``fn`` on each rank's local shards, every layout given, as JAX's
+    ``shard_map``: each DTensor among ``xs`` is redistributed to its
+    entry of ``in_placements`` (a plain tensor there joins the mesh
+    replicated first; an entry of None passes its argument as it is),
+    ``fn`` runs on the local tensors, and each tensor it returns becomes
+    a DTensor of ``out_placements`` (one tuple for every output, or a
+    list with one tuple per output; ``Partial()`` where the outputs of
+    the ranks along a mesh dim are summands).
+
+    Gradients: an input sharded along a mesh dim takes its gradient
+    sharded there; one replicated along a mesh dim along which the
+    outputs are sharded or partial takes a partial gradient (each rank
+    adds its own part), and one replicated where the outputs are too
+    takes a replicated one — so along a mesh dim the outputs must be
+    all replicated or none.  ``grad_placements`` (one entry per input,
+    None for the rule) overrides that, for an ``fn`` whose backward
+    splits work the forward repeats.  Without a mesh it is
+    ``fn(*xs)``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if mesh is None:
+        mesh = next((x.device_mesh for x in xs if isinstance(x, DTensor)),
+                    None)
+    if mesh is None:
+        return fn(*xs)
+    from torch.distributed.tensor import Placement
+    outs = ([tuple(out_placements)] if isinstance(out_placements[0],
+                                                  Placement)
+            else [tuple(p) for p in out_placements])
+    busy = [any(not o[i].is_replicate() for o in outs)
+            for i in range(mesh.ndim)]
+    if any(busy[i] and any(o[i].is_replicate() for o in outs)
+           for i in range(mesh.ndim)):
+        raise ValueError(f"outputs {outs} mix replicated and partitioned "
+                         f"layouts along one mesh dim")
+    rep = (Replicate(),) * mesh.ndim
+    args = []
+    grads = grad_placements or [None] * len(xs)
+    for x, pl, grad in zip(xs, in_placements, grads):
+        if pl is None or not isinstance(x, torch.Tensor):
+            args.append(x)
+            continue
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, mesh, rep, run_check=False)
+        pl = tuple(pl)
+        grad = tuple(grad) if grad is not None else tuple(
+            p if p.is_shard() else Partial() if busy[i] else Replicate()
+            for i, p in enumerate(pl))
+        if tuple(x.placements) != pl:
+            x = x.redistribute(mesh, pl)
+        args.append(x.to_local(grad_placements=grad))
+    n_out = [0]
+
+    def back(y):
+        if isinstance(y, (tuple, list)):
+            return type(y)(back(t) for t in y)
+        if isinstance(y, torch.Tensor):
+            pl = outs[min(n_out[0], len(outs) - 1)]
+            n_out[0] += 1
+            return DTensor.from_local(y, mesh, pl, run_check=False)
+        return y
+    return back(fn(*args))
+
+
 def per_shard(fn, placements, *xs, whole: Sequence[int] = ()):
     """``fn`` run on each rank's shards, for an ``fn`` whose every output
     element depends only on the inputs at the same index of the tensor
     dims ``placements`` shards (batch, heads): each DTensor among ``xs``
     is laid out by ``placements``, except those at the indices in
     ``whole``, which go whole (``Replicate()``) and take back a gradient
-    partial over the mesh dims ``placements`` shards, each rank adding
-    its shards' part.  ``fn`` runs on the local tensors and each tensor
-    it returns is a DTensor of ``placements``.  Plain ``xs`` (a mask
-    bias, the same on every rank) pass as they are; without DTensors it
-    is ``fn(*xs)``.
-
-    The attention core, the SSD block, the embedding lookup and the
-    projections of heads the rules leave whole run so; each call site
-    says which DTensor rule it works around."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    partial over the mesh dims ``placements`` shards.  ``fn`` runs on
+    the local tensors and each tensor it returns is a DTensor of
+    ``placements``.  Plain ``xs`` (a mask bias, the same on every rank)
+    pass as they are; without DTensors it is ``fn(*xs)`` (`shard_map`
+    with one layout)."""
+    from torch.distributed.tensor import DTensor, Replicate
     mesh = next((x.device_mesh for x in xs if isinstance(x, DTensor)),
                 None)
     if mesh is None:
         return fn(*xs)
     pl = tuple(placements)
-    rep = (Replicate(),) * mesh.ndim
-    grad_pl = tuple(Partial() if p.is_shard() else Replicate() for p in pl)
-    args = []
-    for i, x in enumerate(xs):
-        if not isinstance(x, DTensor):
-            args.append(x)
-        elif i in whole:
-            args.append(x.redistribute(mesh, rep).to_local(
-                grad_placements=grad_pl))
-        else:
-            args.append(x.redistribute(mesh, pl).to_local())
-
-    def back(y):
-        if isinstance(y, (tuple, list)):
-            return type(y)(back(t) for t in y)
-        if isinstance(y, torch.Tensor):
-            return DTensor.from_local(y, mesh, pl, run_check=False)
-        return y
-    return back(fn(*args))
+    ins = [None if not isinstance(x, DTensor)
+           else (Replicate(),) * mesh.ndim if i in whole else pl
+           for i, x in enumerate(xs)]
+    return shard_map(fn, ins, pl, *xs, mesh=mesh)
 
 
 def local(fn, *xs):
     """``fn`` on whole operands: every DTensor among ``xs`` is gathered
     to ``Replicate()`` (the all-gather GSPMD inserts around an op it
     cannot partition), ``fn`` runs on the local copies, and each tensor
-    it returns goes back on the mesh replicated.  For ops DTensor has no
-    sharding rule for; autograd flows through.  Without DTensors it is
+    it returns goes back on the mesh replicated.  Only the tuned ops'
+    call sites use it (a kernel takes whole operands, as the
+    reference's Pallas calls do under GSPMD).  Without DTensors it is
     ``fn(*xs)``."""
     from torch.distributed.tensor import DTensor, Replicate
     mesh = next((x.device_mesh for x in xs if isinstance(x, DTensor)),
@@ -278,6 +326,133 @@ def local(fn, *xs):
     if mesh is None:
         return fn(*xs)
     return per_shard(fn, (Replicate(),) * mesh.ndim, *xs)
+
+
+def shard_einsum(eq: str, x, w, whole: Sequence[int] = ()):
+    """``einsum(eq, x, w)`` with ``w`` cast to ``x``'s type.  On
+    DTensors, the layout along each mesh dim is read off the operands,
+    as the reference's FSDP x tensor-parallel program runs: where ``x``
+    is sharded along a dim the weight is not (a batch shard against the
+    weight's FSDP ``embed`` shard) the weight is gathered (``x`` is,
+    where its shard is of a contracted dim); a dim sharded
+    on either side stays sharded in the result, or, contracted, leaves
+    it partial over that mesh dim (the other operand then takes the
+    matching shard, a local slice when it was whole).  The product runs
+    on local tensors (`shard_map`), so no DTensor strategy re-plans it,
+    in the backward either: each rank does its shard's share of the
+    work, never a whole weight's.
+
+    Along the mesh dims ``whole`` (one at most), where both operands are
+    whole, the result is whole on every rank, the product repeated; the
+    backward stays split there, each rank forming the weight's gradient
+    on its part of the weight's first dim only (partial over the dim),
+    which ``x`` contracts.  The reference's compiled program runs so
+    where a layout leaves the lm head's result whole (a vocab the model
+    dim does not divide)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(x, DTensor) and not isinstance(w, DTensor):
+        return torch.einsum(eq, x, w.to(x.dtype))
+    mesh = (x if isinstance(x, DTensor) else w).device_mesh
+    ins, out = eq.replace(" ", "").split("->")
+    a, b = ins.split(",")
+    x, w = settle(x), settle(w)
+    if len(whole) > 1:
+        raise ValueError(f"a weight gathered along {len(whole)} mesh dims "
+                         f"(one at most)")
+    xpl = x.placements if isinstance(x, DTensor) else None
+    wpl = w.placements if isinstance(w, DTensor) else None
+    px, pw, po, grad, xgrad, cut = [], [], [], [], [], None
+    for i in range(mesh.ndim):
+        lx = (a[xpl[i].dim] if xpl is not None and xpl[i].is_shard()
+              else None)
+        lw = (b[wpl[i].dim] if wpl is not None and wpl[i].is_shard()
+              else None)
+        if i in whole:
+            if lx is not None or lw is not None or b[0] not in a:
+                raise ValueError(f"whole along mesh dim {i} takes whole "
+                                 f"operands and a contracted weight dim 0")
+            # torch.chunk's split of the weight's first dim
+            size, k = w.shape[0], mesh.shape[i]
+            lo = min(mesh.get_coordinate()[i] * -(-size // k), size)
+            cut = (lo, min(-(-size // k), size - lo))
+            px.append(Replicate()), pw.append(Replicate())
+            po.append(Replicate()), grad.append(Partial())
+            xgrad.append(Replicate())
+            continue
+        if lx is not None and lw is not None and lx != lw and lx not in out:
+            lx = None        # x's contracted shard against the weight's own
+        letter = lx or lw    # x's batch shard wins: the weight gathers
+        if letter is None:
+            px.append(Replicate()); pw.append(Replicate())
+            po.append(Replicate()), grad.append(Replicate())
+            xgrad.append(Replicate())
+            continue
+        px.append(Shard(a.index(letter)) if letter in a else Replicate())
+        pw.append(Shard(b.index(letter)) if letter in b else Replicate())
+        po.append(Shard(out.index(letter)) if letter in out else Partial())
+        grad.append(pw[-1] if pw[-1].is_shard() else Partial())
+        xgrad.append(px[-1] if px[-1].is_shard() else Partial())
+    if cut is None:
+        return shard_map(lambda xx, ww: torch.einsum(
+            eq, xx, ww.to(xx.dtype)), (tuple(px), tuple(pw)), tuple(po),
+            x, w, mesh=mesh)
+    return shard_map(lambda xx, ww: _SlicedWeightGrad.apply(
+        eq, xx, ww.to(xx.dtype), *cut), (tuple(px), tuple(pw)), tuple(po),
+        x, w, mesh=mesh, grad_placements=[tuple(xgrad), tuple(grad)])
+
+
+class _SlicedWeightGrad(torch.autograd.Function):
+    """``einsum(eq, x, w)`` whose backward forms the weight's gradient
+    on rows ``[lo, lo + n)`` of its first dim only (zero elsewhere:
+    another rank forms the rest); ``x`` contracts that dim, and ``eq``
+    has no index that only one operand sums over."""
+
+    @staticmethod
+    def forward(ctx, eq, x, w, lo, n):
+        ctx.save_for_backward(x, w)
+        ctx.args = (eq, lo, n)
+        return torch.einsum(eq, x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        eq, lo, n = ctx.args
+        ins, out = eq.replace(" ", "").split("->")
+        a, b = ins.split(",")
+        xs = x.narrow(a.index(b[0]), lo, n)
+        dx = torch.einsum(f"{out},{b}->{a}", g, w)
+        dw = torch.zeros_like(w)
+        dw.narrow(0, lo, n).copy_(torch.einsum(f"{a},{out}->{b}", xs, g))
+        return None, dx, dw, None, None
+
+
+def batch_only(x):
+    """A DTensor laid out over its batch (dim 0) shards alone, every
+    other shard or pending sum gathered; anything else as is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    pl = tuple(p if p.is_shard() and p.dim == 0 else Replicate()
+               for p in x.placements)
+    return x if tuple(x.placements) == pl else x.redistribute(
+        x.device_mesh, pl)
+
+
+def shard_range(mesh, placements, dim: int, size: int) -> Tuple[int, int]:
+    """(start, length) of this rank's part of tensor dim ``dim`` (of
+    ``size``) under ``placements``: the dim is split over every mesh dim
+    that shards it, in mesh order, the first major; (0, size) without a
+    mesh or a shard of ``dim``."""
+    if mesh is None:
+        return 0, size
+    coord = mesh.get_coordinate()
+    idx, n = 0, 1
+    for i, p in enumerate(placements):
+        if p.is_shard() and p.dim == dim:
+            idx, n = idx * mesh.shape[i] + coord[i], n * mesh.shape[i]
+    if size % n:
+        raise ValueError(f"dim of {size} does not split over {n} ranks")
+    return idx * (size // n), size // n
 
 
 class Sharder:

@@ -17,10 +17,15 @@ arithmetic; ``flops``, ``bytes_accessed``, ``vpu_flops`` and
 ``transcendentals`` come from `core.mix.mix_from_graph` of the trace;
 ``collective_bytes``, ``collectives_by_kind`` and ``collective_counts``
 from the trace's collectives (each one's output bytes, the reference's
-HLO accounting; the counts also from ``CommDebugMode``).  The fields an
-XLA compile gives and a trace does not (``memory_analysis``,
-``hlo_instructions``, ``xla_cost_analysis``, ``compile_s``) are null,
-each with its reason under ``"why"``.  ``roofline`` holds the three
+HLO accounting; the counts also from ``CommDebugMode``);
+``memory_analysis`` holds the reference's keys from the trace's storages
+(`lower_step`): ``argument_bytes`` (the arguments' local bytes, equal to
+``arg_bytes_per_device``), ``output_bytes``, ``temp_bytes`` (the peak of
+the storages the step makes while it runs) and ``generated_code_bytes``
+(null).  The fields an XLA compile gives and a trace does not
+(``hlo_instructions``, ``xla_cost_analysis``, ``compile_s``,
+``generated_code_bytes``) are null, each with its reason under
+``"why"``.  ``roofline`` holds the three
 terms under the H100 (`core.roofline`), analysis only.  A cell the fake
 group cannot carry records ``status: "error"``.
 
@@ -40,9 +45,9 @@ from typing import Dict, Optional
 __all__ = ["dryrun_cell", "lower_step", "save_record", "main"]
 
 _WHY = {
-    "memory_analysis": "an XLA compile's buffer assignment; a torch trace "
-                       "on meta tensors has none (arg_bytes_per_device "
-                       "is the analytic residency)",
+    "generated_code_bytes": "no compiled executable: the step runs as "
+                            "eager torch ops (its kernels' code is "
+                            "torch's own)",
     "hlo_instructions": "no HLO module: the step is a torch trace",
     "xla_cost_analysis": "no XLA compile: flops and bytes come from the "
                          "trace's mix",
@@ -125,22 +130,63 @@ def _step_args(shape, dargs):
     return dargs
 
 
+def _local_tensors(tree) -> list:
+    """Each distinct local storage's tensor among a tree's tensors and
+    DTensors (params, dicts, tuples), once."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.params import Param
+    out, seen = [], set()
+
+    def walk(t):
+        if isinstance(t, Param):
+            walk(t.value)
+        elif isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (tuple, list)):
+            for v in t:
+                walk(v)
+        elif isinstance(t, torch.Tensor):
+            loc = t._local_tensor if isinstance(t, DTensor) else t
+            key = id(loc.untyped_storage())
+            if key not in seen:
+                seen.add(key)
+                out.append(loc)
+    walk(tree)
+    return out
+
+
+def _storage_bytes(tensors) -> int:
+    return int(sum(t.untyped_storage().nbytes() for t in tensors))
+
+
 def lower_step(step_fn, *args, grad: bool = True):
     """Trace ``step_fn(*args)`` (DTensors on a mesh, meta locals) as the
     per-device program: its `InstructionMix` and its collectives, each
-    counted once with its output bytes.  Returns a
+    counted once with its output bytes, and its memory: the arguments'
+    local bytes, the result's, and the peak of the storages the step's
+    ops make while it runs (`core.mix.live_bytes`; ``temp_bytes`` = that
+    peak, the reference's "peak live minus arguments").  Returns a
     `core.autotuner.LoweredStep` (`GraphTuner` scores it)."""
     import torch
     from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.core.autotuner import LoweredStep
     from repro_torch.core.hlo import CollectiveStats
-    from repro_torch.core.mix import (_T_COLLECTIVE, _nbytes,
+    from repro_torch.core.mix import (_T_COLLECTIVE, _nbytes, live_bytes,
                                       mix_from_graph, trace_meta_fn)
 
+    arg_locals = _local_tensors(args)
+    result = []
     with torch.enable_grad() if grad else torch.no_grad(), \
-            CommDebugMode() as comm:
-        graph = trace_meta_fn(step_fn, *args)
+            CommDebugMode() as comm, live_bytes(keep=arg_locals) as live:
+        graph = trace_meta_fn(lambda *a: result.append(step_fn(*a)), *args)
+    memory = {"argument_bytes": _storage_bytes(arg_locals),
+              "output_bytes": _storage_bytes(_local_tensors(result)),
+              "temp_bytes": int(live.peak), "generated_code_bytes": None}
+    del result
     by_kind: Dict[str, float] = {}
     counts: Dict[str, float] = {}
     for op in graph.ops:
@@ -151,7 +197,8 @@ def lower_step(step_fn, *args, grad: bool = True):
     return LoweredStep(
         mix_from_graph(graph),
         CollectiveStats(by_kind, counts, sum(by_kind.values()), []),
-        {str(k): int(v) for k, v in comm.get_comm_counts().items()})
+        {str(k): int(v) for k, v in comm.get_comm_counts().items()},
+        memory)
 
 
 def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -201,18 +248,19 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
         n_params=cfg.num_params(),
         n_active_params=cfg.num_active_params(),
         ici_links=ici_links(mesh, spec=H100_SXM),
-        memory_analysis=None, hlo_instructions=None,
+        hlo_instructions=None,
         xla_cost_analysis=None, compile_s=None, why=dict(_WHY))
     traced = ("flops", "vpu_flops", "transcendentals", "bytes_accessed",
               "unknown_trip_loops", "collective_bytes",
               "collectives_by_kind", "collective_counts", "lower_s",
-              "roofline")
+              "roofline", "memory_analysis")
     if not trace:
         rec.update({k: None for k in traced})
         rec["why"]["traced"] = "trace=False: analytic fields only"
         return rec
 
-    lowered = lower_step(step_fn, *_step_args(shape, to_dtensors(args)),
+    dargs = to_dtensors(args)
+    lowered = lower_step(step_fn, *_step_args(shape, dargs),
                          grad=(shape.kind == "train"))
     t_lower = time.time() - t0
     mix, coll = lowered.mix, lowered.collectives
@@ -229,6 +277,10 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
         collective_bytes=coll.total_bytes, collectives_by_kind=by_kind,
         collective_counts=counts,
         comm_debug_counts=dict(lowered.comm_debug_counts),
+        # the arguments as the cell gives them (the decode cache's
+        # position a device scalar, as the reference's)
+        memory_analysis=dict(lowered.memory, argument_bytes=_storage_bytes(
+            _local_tensors(dargs))),
         roofline={"spec": H100_SXM.name, **{
             k: getattr(terms, k) for k in (
                 "t_compute", "t_memory", "t_collective", "dominant",

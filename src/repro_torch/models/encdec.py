@@ -21,13 +21,14 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import Sharder
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (AttnConfig, _sdpa, attention,
+from repro_torch.models.layers import (AttnConfig, _decode_core, attention,
                                        attention_decode, head_proj,
                                        init_attention, init_mlp, mlp,
                                        rms_norm)
 from repro_torch.models.params import param, resolve_device
 from repro_torch.models.transformer import (_unstack, embed_lookup,
-                                            next_token_nll, remat)
+                                            lm_head_product, next_token_nll,
+                                            remat)
 
 __all__ = ["init_encdec", "encdec_prefill", "encdec_decode_step",
            "init_encdec_cache", "conv_frontend", "encode", "encdec_logits",
@@ -127,8 +128,10 @@ def _cross_kv(p: Dict, ctx: torch.Tensor):
 def _cross_attention(p: Dict, x: torch.Tensor, ek: torch.Tensor,
                      ev: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     q = head_proj("bsd,dhk->bshk", x, p["wq"])
-    out = _sdpa(q, ek, ev, torch.zeros((), device=x.device),
-                1.0 / math.sqrt(cfg.hd))
+    # on a mesh the core follows the context's layout (`_decode_core`):
+    # on each rank's head_dim shard where the rules split head_dim
+    out = _decode_core(q, ek, ev, torch.zeros((), device=x.device),
+                       1.0 / math.sqrt(cfg.hd))
     return head_proj("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
 
 
@@ -187,8 +190,7 @@ def _decode_stack(params, h, enc_out, cfg: ModelConfig, shd: Sharder,
 
 def _head(params, h: torch.Tensor, shd: Sharder) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"])
-    logits = torch.einsum("bsd,dv->bsv", h,
-                          params["lm_head"].value.to(h.dtype))
+    logits = lm_head_product(h, params["lm_head"].value)
     return shd.act(logits, ("batch", "seq", "vocab"))
 
 

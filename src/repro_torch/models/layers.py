@@ -21,13 +21,14 @@ import functools
 import math
 import os
 from contextvars import ContextVar
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (Sharder, local, per_shard,
-                                              settle)
+                                              settle, shard_einsum,
+                                              shard_map)
 from repro_torch.models.params import Param, param
 
 __all__ = ["rms_norm", "make_rope", "apply_rope", "init_attention",
@@ -164,21 +165,13 @@ def init_attention(cfg: AttnConfig, *, n_layers: int, dtype, device,
 
 def head_proj(eq: str, x: torch.Tensor, w: Param) -> torch.Tensor:
     """``einsum(eq, x, w)`` for a (d, heads, head_dim) or (heads,
-    head_dim, d) projection ``w``, cast to ``x``'s type.  On a mesh whose
-    rules left the heads whole (they do not divide the model dim, so
-    head_dim takes it), the product runs on each rank's batch shard with
-    the weight whole (`per_shard`): DTensor's own rule would shard the
-    flattened heads x head_dim columns, which no view can unflatten."""
-    v = w.value
-    heads = 1 if w.dims[-1] == "head_dim" else 0
-    if hasattr(v, "placements") and not any(
-            p.is_shard() and p.dim == heads for p in v.placements):
-        from torch.distributed.tensor import Replicate
-        pl = tuple(p if p.is_shard() and p.dim == 0 else Replicate()
-                   for p in x.placements)
-        return per_shard(lambda xx, ww: torch.einsum(eq, xx, ww.to(xx.dtype)),
-                         pl, x, v, whole=(1,))
-    return torch.einsum(eq, x, v.to(x.dtype))
+    head_dim, d) projection ``w``, cast to ``x``'s type.  On a mesh it is
+    `shard_einsum`: each rank projects onto its heads, or, where the
+    rules shard head_dim because the heads do not divide the model dim,
+    onto its head_dim shard (the output projection then sums its
+    head_dim shard's part, partial over the model dim) — the reference's
+    ``head_dim`` fallback."""
+    return shard_einsum(eq, x, w.value)
 
 
 def _project_qkv(p: Dict, x: torch.Tensor, cfg: AttnConfig, positions):
@@ -216,17 +209,35 @@ def _repeat_kv(k, h):
         .reshape(b, s, h, hd)
 
 
-def _sdpa(q, k, v, bias, scale):
+def _sdpa(q, k, v, bias, scale, split: Tuple[int, ...] = ()):
     """q: (B,S,H,hd), k/v: (B,Sk,KV,hd) — dense attention, softmax in
     f32, P.V in the value type.  On a mesh the core runs on each rank's
     (batch, heads) shards (`per_shard`): on a mesh of three dims
     DTensor's rules for its batched products merge the two sharded dims
-    into a strided shard whose redistribution planner did not finish."""
+    into a strided shard whose redistribution planner did not finish.
+    Along the mesh dims ``split`` (where the output projection shards
+    head_dim, the heads being whole) each rank forms P.V on its own
+    head_dim shard only, as the reference's program does, and the
+    output comes back sharded there."""
     h = q.shape[2]
     k, v = _repeat_kv(k, h), _repeat_kv(v, h)
     q = settle(q)           # a decode step's q may be a pending sum
-    return per_shard(functools.partial(_sdpa_core, scale=scale),
-                     getattr(q, "placements", None), q, k, v, bias)
+    core = functools.partial(_sdpa_core, scale=scale)
+    qp = getattr(q, "placements", None)
+    if qp is None or not split:
+        return per_shard(core, qp, q, k, v, bias)
+    from torch.distributed.tensor import Shard
+    op = tuple(Shard(3) if i in split else p for i, p in enumerate(qp))
+    return shard_map(core, (qp, qp, op, None), op, q, k, v, bias)
+
+
+def _head_dim_split(w: Param) -> Tuple[int, ...]:
+    """The mesh dims over which an output projection ``w`` (heads,
+    head_dim, d) shards head_dim, its heads being whole."""
+    pl = getattr(w.value, "placements", None)
+    if pl is None or any(p.is_shard() and p.dim == 0 for p in pl):
+        return ()
+    return tuple(i for i, p in enumerate(pl) if p.is_shard() and p.dim == 1)
 
 
 def _sdpa_core(q, k, v, bias, scale):
@@ -238,13 +249,13 @@ def _sdpa_core(q, k, v, bias, scale):
 
 
 def _sdpa_chunked(q, k, v, q_positions, k_positions, window, scale,
-                  chunk: int):
+                  chunk: int, split: Tuple[int, ...] = ()):
     """Query chunks of ``chunk`` rows: O(S * chunk) logits memory."""
     outs = []
     for c0 in range(0, q.shape[1], chunk):
         bias = causal_mask_bias(q_positions[0, c0:c0 + chunk],
                                 k_positions[0], window)
-        outs.append(_sdpa(q[:, c0:c0 + chunk], k, v, bias, scale))
+        outs.append(_sdpa(q[:, c0:c0 + chunk], k, v, bias, scale, split))
     return torch.cat(outs, dim=1)
 
 
@@ -276,21 +287,25 @@ def attention(p: Dict, x: torch.Tensor, cfg: AttnConfig, shd: Sharder,
     tuned = tuned_layers_enabled() and positions is None and window == 0
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    # on a mesh the positions (and the rope angles made from them) take
+    # the batch's layout: a plain table would join the mesh whole
+    q, k, v = _project_qkv(p, x, cfg, shd.act(positions, ("batch", "seq")))
     q = shd.act(q, ("batch", "seq", "heads", "head_dim"))
     k = shd.act(k, ("batch", "seq", "kv_heads", "head_dim"))
     v = shd.act(v, ("batch", "seq", "kv_heads", "head_dim"))
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    split = _head_dim_split(p["wo"])
     if tuned:
         out = _attention_tuned(q, k, v, cfg.causal)
     elif not cfg.causal:
-        out = _sdpa(q, k, v, torch.zeros((), device=x.device), scale)
+        out = _sdpa(q, k, v, torch.zeros((), device=x.device), scale,
+                    split)
     elif s < cfg.dense_below:
         bias = causal_mask_bias(positions[0], positions[0], window)
-        out = _sdpa(q, k, v, bias, scale)
+        out = _sdpa(q, k, v, bias, scale, split)
     else:
         out = _sdpa_chunked(q, k, v, positions, positions, window,
-                            scale, cfg.chunk_q)
+                            scale, cfg.chunk_q, split)
     out = out.to(x.dtype)
     y = head_proj("bshk,hkd->bsd", out, p["wo"])
     y = shd.act(y, ("batch", "residual_seq", "embed"))
@@ -346,9 +361,40 @@ def attention_decode(p: Dict, x: torch.Tensor, cache_k: torch.Tensor,
             ok &= (pos - idx) < window
     bias = torch.where(ok, 0.0, -1e30).float()[None, :]
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    out = _sdpa(q, cache_k, cache_v, bias, scale).to(x.dtype)
+    out = _decode_core(q, cache_k, cache_v, bias, scale).to(x.dtype)
     y = head_proj("bshk,hkd->bsd", out, p["wo"])
     return y, (cache_k, cache_v)
+
+
+def _decode_core(q, k, v, bias, scale):
+    """The decode step's attention over the cache.  Where the cache
+    rules split head_dim over a mesh dim (the heads do not divide it),
+    the core runs on each rank's head_dim shard as the reference's does:
+    the logits are partial sums over the shards, reduced once (one
+    value per cached position), and P.V is each shard's; otherwise
+    `_sdpa` on the cache's (batch, heads) shards."""
+    kp = getattr(k, "placements", None)
+    if kp is None or not any(p.is_shard() and p.dim == 3 for p in kp):
+        if kp is not None:
+            # q on the cache's layout, not the whole batch DTensor's
+            # projection may leave it in
+            q = q.redistribute(q.device_mesh, kp)
+        return _sdpa(q, k, v, bias, scale)
+    from torch.distributed.tensor import Partial, Replicate
+    h = q.shape[2]
+    kp = tuple(kp)
+    split = lambda part: tuple(part if p.is_shard() and p.dim == 3 else p
+                               for p in kp)
+    logits = shard_map(
+        lambda qq, kk: torch.einsum("bqhd,bshd->bhqs", qq.float(),
+                                    _repeat_kv(kk, h).float()) * scale,
+        (kp, kp), split(Partial()), q, k)
+    probs = torch.softmax(settle(logits) + bias, dim=-1).to(v.dtype)
+    out = shard_map(
+        lambda pp, vv: torch.einsum("bhqs,bshd->bqhd", pp,
+                                    _repeat_kv(vv, h)),
+        (split(Replicate()), kp), kp, probs, v)
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -391,13 +437,11 @@ def mlp(p: Dict, x: torch.Tensor, act: str, shd: Sharder) -> torch.Tensor:
                   h, p["w_down"].value.to(x.dtype))
         return shd.act(y.reshape(b, s, d), ("batch", "residual_seq",
                                             "embed"))
-    up = torch.einsum("bsd,df->bsf", x, p["w_up"].value.to(x.dtype))
+    up = shard_einsum("bsd,df->bsf", x, p["w_up"].value)
     if "w_gate" in p:
-        gate = torch.einsum("bsd,df->bsf", x,
-                            p["w_gate"].value.to(x.dtype))
-        h = a(gate) * up
+        h = a(shard_einsum("bsd,df->bsf", x, p["w_gate"].value)) * up
     else:
         h = a(up)
     h = shd.act(h, ("batch", "seq", "mlp"))
-    y = torch.einsum("bsf,fd->bsd", h, p["w_down"].value.to(x.dtype))
+    y = shard_einsum("bsf,fd->bsd", h, p["w_down"].value)
     return shd.act(y, ("batch", "residual_seq", "embed"))

@@ -32,7 +32,9 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import Sharder, local
+from repro_torch.distributed.sharding import (Sharder, named_sharding,
+                                              settle, shard_map,
+                                              shard_range)
 from repro_torch.models.layers import _ACTS, init_mlp, mlp
 from repro_torch.models.params import param
 
@@ -81,20 +83,30 @@ def _rank_in_expert(flat_e: torch.Tensor, n: int, e: int) -> torch.Tensor:
     return torch.zeros_like(pos_sorted).index_copy_(0, order, pos_sorted)
 
 
-def _scatter(xt, flat_e, e: int, e_pad: int, cap: int):
+def _scatter(xt, flat_e, e: int, cap: int, er, cr=None):
     """Rows of ``xt`` (T, D), replicated k ways (``flat_e`` (T*k,)),
-    into the (E_pad, C, D) buffer.  Returns (buffer, slot, keep)."""
+    into this rank's part of the (E_pad, C, D) buffer: experts
+    ``er = (first, count)`` and capacity slots ``cr`` (the whole buffer
+    when None).  Positions count over every row of ``flat_e``.  Returns
+    (buffer, slot, mine): each row's slot in the flat part (a sink past
+    its end where the row is dropped or lies in another rank's part)."""
     t, d = xt.shape
     k = flat_e.shape[0] // t
     pos = _rank_in_expert(flat_e, t * k, e)
-    keep = pos < cap
-    sink = e_pad * cap
-    slot = torch.where(keep, flat_e * cap + pos, torch.full_like(pos, sink))
+    (e0, el), (c0, cl) = er, cr or (0, cap)
+    mine = pos < cap
+    if (c0, cl) != (0, cap):
+        mine = mine & (pos >= c0) & (pos < c0 + cl)
+    if e0 or el < e:
+        mine = mine & (flat_e >= e0) & (flat_e < e0 + el)
+    sink = el * cl
+    slot = torch.where(mine, (flat_e - e0) * cl + pos - c0,
+                       torch.full_like(pos, sink))
     xin = xt.repeat_interleave(k, dim=0)                     # (T*k, D)
-    xin = torch.where(keep[:, None], xin, torch.zeros_like(xin))
+    xin = torch.where(mine[:, None], xin, torch.zeros_like(xin))
     buf = torch.zeros((sink + 1, d), dtype=xt.dtype, device=xt.device)
     buf.index_copy_(0, slot, xin)
-    return buf[:-1].reshape(e_pad, cap, d), slot, keep
+    return buf[:-1].reshape(el, cl, d), slot, mine
 
 
 def _combine(flat_out, slot, keep, top_p, cap_rows: int):
@@ -127,50 +139,92 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _route(x, router, wg, wu, wd, *, n_experts: int, top_k: int,
-           capacity_factor: float, act: str, router_dtype, pad_to: int,
-           dispatch: str):
-    """Routing, dispatch, the experts and the combine: (y, aux)."""
-    b, s, d = x.shape
-    t = b * s
-    e = n_experts
-    e_pad = max(e, pad_to) if pad_to else e
-
+def _router(x, router, *, top_k: int, router_dtype, tokens: int):
+    """Routing of the local tokens: (top_p, top_i, the sum of their
+    probabilities per expert, their share of the ``tokens * top_k``
+    routed rows per expert) — the last two summands of the Switch aux
+    loss's terms."""
+    e = router.shape[-1]
     logits = torch.einsum("bsd,de->bse", x.to(router_dtype),
                           router.to(router_dtype))
     probs = torch.softmax(logits, dim=-1)                     # (B, S, E)
     top_p, top_i = _top_k(probs, top_k)                       # (B, S, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
-
-    # load-balancing auxiliary loss (Switch-style)
-    me = probs.reshape(t, e).mean(dim=0)
+    me = probs.reshape(-1, e).sum(dim=0)
+    n = top_i.numel()
     ce = torch.zeros(e, dtype=router_dtype, device=x.device)
     ce.scatter_add_(0, top_i.reshape(-1), torch.full(
-        (t * top_k,), 1.0 / (t * top_k), dtype=router_dtype,
-        device=x.device))
-    aux = e * torch.sum(me * ce)
+        (n,), 1.0 / (tokens * top_k), dtype=router_dtype, device=x.device))
+    return top_p, top_i, me, ce
 
+
+def _dispatch(x, top_p, top_i, wg, wu, wd, *, n_experts: int, cap: int,
+              act: str, grouped: bool, er, cr):
+    """Dispatch, this rank's experts over its capacity slots, and the
+    combine of its slots' rows into every token (zero where a token's
+    rows lie elsewhere).  ``x``: every token of the flat capacity (its
+    batch shard when grouped)."""
+    b, s, d = x.shape
     wg, wu, wd = wg.to(x.dtype), wu.to(x.dtype), wd.to(x.dtype)
-
-    if dispatch == "grouped":
-        cap = moe_capacity(s, e, top_k, capacity_factor)
-        groups = [_scatter(x[g], top_i[g].reshape(-1), e, e_pad, cap)
+    if grouped:
+        groups = [_scatter(x[g], top_i[g].reshape(-1), n_experts, cap, er)
                   for g in range(b)]
-        buf = torch.stack([g[0] for g in groups])            # (B,E,C,D)
-        out_buf = _experts(buf, wg, wu, wd, act, "ge")
-        y = torch.stack([
-            _combine(out_buf[g].reshape(e_pad * cap, d), slot, keep,
-                     top_p[g], e_pad * cap)
-            for g, (_, slot, keep) in enumerate(groups)])
-    else:
-        cap = moe_capacity(t, e, top_k, capacity_factor)
-        buf, slot, keep = _scatter(x.reshape(t, d), top_i.reshape(-1), e,
-                                   e_pad, cap)
-        out_buf = _experts(buf, wg, wu, wd, act, "e")
-        y = _combine(out_buf.reshape(e_pad * cap, d), slot, keep,
-                     top_p.reshape(t, top_k), e_pad * cap).reshape(b, s, d)
+        out = _experts(torch.stack([g[0] for g in groups]), wg, wu, wd,
+                       act, "ge")
+        rows = out.shape[1] * cap
+        return torch.stack([
+            _combine(out[g].reshape(rows, d), slot, mine, top_p[g], rows)
+            for g, (_, slot, mine) in enumerate(groups)])
+    t = b * s
+    buf, slot, mine = _scatter(x.reshape(t, d), top_i.reshape(-1),
+                               n_experts, cap, er, cr)
+    out = _experts(buf, wg, wu, wd, act, "e")
+    rows = buf.shape[0] * buf.shape[1]
+    return _combine(out.reshape(rows, d), slot, mine,
+                    top_p.reshape(t, -1), rows).reshape(b, s, d)
 
-    return y, aux
+
+def _layouts(shd: Sharder, x, e_pad: int, cap: int, f: int,
+             grouped: bool):
+    """The dispatch's layouts on a mesh, from the activation rules of
+    the expert buffers (the reference's ``(experts, moe_capacity, .)``,
+    or ``(batch, experts, ., .)`` grouped) and of the hidden rows
+    (``expert_mlp``): (input layouts of x, top_p, top_i and the three
+    weights; the output's; this rank's experts (first, count); its
+    capacity slots, or None)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    b, s, d = x.shape
+    mesh, rules = shd.mesh, shd.act_rules
+    if grouped:
+        buf = named_sharding(("batch", "experts", None, None),
+                             (b, e_pad, cap, d), rules, mesh).placements
+        hid = named_sharding(("batch", "experts", None, "expert_mlp"),
+                             (b, e_pad, cap, f), rules, mesh).placements
+        ed, cd, fd = 1, None, 3
+    else:
+        buf = named_sharding(("experts", "moe_capacity", None),
+                             (e_pad, cap, d), rules, mesh).placements
+        hid = named_sharding(("experts", "moe_capacity", "expert_mlp"),
+                             (e_pad, cap, f), rules, mesh).placements
+        ed, cd, fd = 0, 1, 2
+    rep = Replicate()
+    tokens, w_in, w_out, y = [], [], [], []
+    for pb, ph in zip(buf, hid):
+        on = lambda p, dim: p.is_shard() and p.dim == dim
+        if on(pb, ed):                        # expert parallel
+            w_in.append(Shard(0)), w_out.append(Shard(0)), y.append(Partial())
+        elif on(ph, fd):                      # within-expert TP
+            w_in.append(Shard(2)), w_out.append(Shard(1)), y.append(Partial())
+        elif cd is not None and on(pb, cd):   # capacity slots
+            w_in.append(rep), w_out.append(rep), y.append(Partial())
+        else:
+            w_in.append(rep), w_out.append(rep)
+            y.append(Shard(0) if grouped and on(pb, 0) else rep)
+        tokens.append(y[-1] if y[-1].is_shard() else rep)
+    tok = tuple(tokens)
+    return ((tok, tok, tok, tuple(w_in), tuple(w_in), tuple(w_out)),
+            tuple(y), shard_range(mesh, buf, ed, e_pad),
+            None if grouped else shard_range(mesh, buf, cd, cap))
 
 
 def moe_layer(p: Dict, x: torch.Tensor, *, n_experts: int, top_k: int,
@@ -181,18 +235,47 @@ def moe_layer(p: Dict, x: torch.Tensor, *, n_experts: int, top_k: int,
 
     ``dispatch='flat'``: one capacity over all B*S tokens.
     ``dispatch='grouped'``: a capacity per sequence, each sequence
-    scattered into its own (E, C, D) buffer."""
-    # on a mesh the routing runs on whole operands on every rank
-    # (`local`: an all-gather of the tokens and the experts): the flat
-    # capacity counts over every token of the batch, and DTensor has no
-    # rule for the dispatch's scatter_add_ and index_copy_
-    y, aux = local(
-        functools.partial(_route, n_experts=n_experts, top_k=top_k,
-                          capacity_factor=capacity_factor, act=act,
-                          router_dtype=router_dtype, pad_to=pad_to,
-                          dispatch=dispatch),
-        x, p["router"].value, p["w_gate"].value, p["w_up"].value,
-        p["w_down"].value)
+    scattered into its own (E, C, D) buffer.
+
+    On a mesh the work is partitioned as the reference's rules lay out
+    its buffers: each rank routes its batch shard; the flat dispatch
+    gathers the top-k routing and the tokens (its capacity counts over
+    every token of the batch), and each rank fills only its own part of
+    the (experts, capacity) buffer — experts over the model dim where
+    their count divides it, else the expert MLP's width (``expert_mlp``),
+    capacity over the batch dims — runs the expert products on its
+    expert or width shard, and adds its slots' rows into a result
+    partial over those dims, reduced back to the activations' layout.
+    DTensor has no rule for the dispatch's ``index_copy_`` and
+    ``scatter_add_``: they run on local tensors (`shard_map`)."""
+    b, s, d = x.shape
+    t = b * s
+    e = n_experts
+    e_pad = max(e, pad_to) if pad_to else e
+    grouped = dispatch == "grouped"
+    cap = moe_capacity(s if grouped else t, e, top_k, capacity_factor)
+    route = functools.partial(_router, top_k=top_k,
+                              router_dtype=router_dtype, tokens=t)
+    run = functools.partial(_dispatch, n_experts=e, cap=cap, act=act,
+                            grouped=grouped)
+    wts = (p["w_gate"].value, p["w_up"].value, p["w_down"].value)
+    if shd.mesh is None:
+        top_p, top_i, me, ce = route(x, p["router"].value)
+        y = run(x, top_p, top_i, *wts, er=(0, e_pad), cr=None)
+    else:
+        from torch.distributed.tensor import Partial, Replicate
+        bp = shd.batch_placements(x)
+        rep = (Replicate(),) * len(bp)
+        part = tuple(Partial() if q.is_shard() else q for q in bp)
+        top_p, top_i, me, ce = shard_map(
+            route, (bp, rep), [bp, bp, part, part], x, p["router"].value)
+        me, ce = settle(me), settle(ce)
+        ins, out, er, cr = _layouts(shd, x, e_pad, cap,
+                                    wts[0].shape[-1], grouped)
+        y = shard_map(functools.partial(run, er=er, cr=cr), ins, out, x,
+                      top_p, top_i, *wts)
+        y = shd.act(y, ("batch", "residual_seq", "embed"))
+    aux = e * torch.sum((me / t) * ce)
     if "shared" in p:
         y = y + mlp(p["shared"], x, act, shd)
 

@@ -24,8 +24,11 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import Sharder, per_shard
-from repro_torch.models.params import Param, param
+from repro_torch.distributed.sharding import (Sharder, batch_only,
+                                              named_sharding, per_shard,
+                                              settle, shard_einsum,
+                                              shard_map, shard_range)
+from repro_torch.models.params import param
 
 __all__ = ["SsdConfig", "init_ssd", "ssd_block", "ssd_decode",
            "init_ssd_state", "xc_skip"]
@@ -74,15 +77,6 @@ def init_ssd(cfg: SsdConfig, *, n_layers: int, dtype, device,
         "w_out": mk((di, d), ("ssm_inner", "embed"),
                     scale=1.0 / math.sqrt(di)),
     }
-
-
-def _split_in(p, x, cfg: SsdConfig):
-    di = cfg.d_inner
-    zxbcdt = torch.einsum("bsd,de->bse", x, p["w_in"].value.to(x.dtype))
-    z = zxbcdt[..., :di]
-    xbc = zxbcdt[..., di:di + cfg.conv_dim]
-    dt = zxbcdt[..., di + cfg.conv_dim:]
-    return z, xbc, dt
 
 
 def _causal_conv(xbc, w, b, k):
@@ -159,6 +153,86 @@ def xc_skip(p, xh):
     return xh.float() * p["d_skip"].value.float()[None, None, :, None]
 
 
+def _inner_layout(shd: Sharder, shape, cfg: SsdConfig):
+    """(placements of the (B, S, H, P) heads activations by the rules,
+    this rank's first head, its head count); (None, 0, H) without a
+    mesh."""
+    if shd.mesh is None:
+        return None, 0, cfg.n_heads
+    pl = named_sharding(("batch", "seq", "ssm_inner", None),
+                        (shape[0], shape[1], cfg.n_heads, cfg.head_dim),
+                        shd.act_rules, shd.mesh).placements
+    h0, hl = shard_range(shd.mesh, pl, 2, cfg.n_heads)
+    return pl, h0, hl
+
+
+def _layouts(pl, bp):
+    """The core's output layouts from the heads layout ``pl`` and the
+    batch layout ``bp``: the gated channels (B, S, H_loc * P), the
+    partial sum of their squares (B, S, 1) and the state (B, H_loc, N,
+    P)."""
+    from torch.distributed.tensor import Partial, Shard
+    heads = [p.is_shard() and p.dim == 2 for p in pl]
+    return ([tuple(Shard(2) if hs else b for hs, b in zip(heads, bp)),
+             tuple(Partial() if hs else b for hs, b in zip(heads, bp)),
+             tuple(Shard(1) if hs else b for hs, b in zip(heads, bp))])
+
+
+def _my_channels(t, cfg: SsdConfig, h0: int, hl: int):
+    """The conv channels of heads [h0, h0 + hl) (their x columns) and B,
+    C, along the last dim of ``t``; ``t`` itself when that is every
+    head."""
+    if hl == cfg.n_heads:
+        return t
+    p, di = cfg.head_dim, cfg.d_inner
+    return torch.cat([t[..., h0 * p:(h0 + hl) * p], t[..., di:]], dim=-1)
+
+
+_CORE = ("conv_w", "conv_b", "a_log", "dt_bias", "d_skip")
+
+
+def _project_in(x, w):
+    """The packed projection ``x @ w_in`` (B, S, E).  Where the rules
+    leave w_in's columns whole on a mesh dim along which ``x`` is whole
+    too (the model dim does not divide them: hymba's 6482), each rank
+    still projects one chunk of them, the columns zero-padded to a
+    multiple of the dim as the reference's compiler pads them to split
+    them, and the result is sharded there over the padded width (the
+    core gathers it; the pad columns are never read)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return shard_einsum("bsd,de->bse", x, w)
+    x, mesh = batch_only(x), x.device_mesh
+    spare = [i for i, (a, b) in enumerate(zip(x.placements, w.placements))
+             if a.is_replicate() and b.is_replicate() and mesh.shape[i] > 1]
+    if not spare:
+        return shard_einsum("bsd,de->bse", x, w)
+    op = tuple(Shard(2) if i in spare else p
+               for i, p in enumerate(x.placements))
+    e = w.shape[1]
+    pad = (-e) % math.prod(mesh.shape[i] for i in spare)
+    lo, n = shard_range(mesh, op, 2, e + pad)
+
+    def chunk(xx, ww):
+        ww = F.pad(ww, (0, pad))[:, lo:lo + n]
+        return torch.einsum("bsd,de->bse", xx, ww.to(xx.dtype))
+    return shard_map(chunk, (x.placements, (Replicate(),) * mesh.ndim), op,
+                     x, w, mesh=mesh)
+
+
+def _core_layouts(shd: Sharder, zx, pl, n_state: int):
+    """The core's input layouts (``zx`` and ``n_state`` state tensors on
+    the batch layout, the ``_CORE`` weights whole), its output layouts,
+    and ``zx`` gathered over every mesh dim but the batch's (None, None,
+    zx without a mesh)."""
+    if pl is None:
+        return None, None, zx
+    from torch.distributed.tensor import Replicate
+    bp = shd.batch_placements(zx)
+    ins = [bp] * n_state + [(Replicate(),) * len(bp)] * len(_CORE)
+    return ins, _layouts(pl, bp), zx.redistribute(zx.device_mesh, bp)
+
+
 def ssd_block(p: Dict, x: torch.Tensor, cfg: SsdConfig, shd: Sharder,
               return_state: bool = False):
     """Full-sequence SSD block.  x: (B, S, D) -> (B, S, D).
@@ -166,58 +240,71 @@ def ssd_block(p: Dict, x: torch.Tensor, cfg: SsdConfig, shd: Sharder,
     ``return_state=True`` additionally returns the decode handoff state
     {"ssm": (B,H,N,P), "conv": (B,k-1,C)} after the last position.
 
-    On a mesh the block runs on each rank's batch shard with its weights
-    whole (`per_shard`): ``w_in`` packs [z, x, B, C, dt] along the dim
-    the rules shard, so its slices would cut across shards, and DTensor
-    merges the sharded batch with the sequence into strided shards whose
-    redistribution planner does not finish.  The weights' gradients
-    come back partial over the batch shards and are reduced to the
-    weights' layout."""
-    names = sorted(p)
-
-    def body(xx, *vals):
-        q = {k: Param(v, p[k].dims) for k, v in zip(names, vals)}
-        out, state = _ssd_block(q, xx, cfg, return_state)
-        return (out,) if state is None else (out, state["ssm"],
-                                             state["conv"])
-
-    res = per_shard(body, shd.batch_placements(x), x,
-                    *(p[k].value for k in names),
-                    whole=range(1, len(names) + 1))
-    out = shd.act(res[0], ("batch", "residual_seq", "embed"))
-    if return_state:
-        return out, {"ssm": res[1], "conv": res[2]}
-    return out
-
-
-def _ssd_block(p: Dict, x: torch.Tensor, cfg: SsdConfig,
-               return_state: bool):
-    """The block on local tensors: (out, state or None)."""
-    from repro_torch.models.layers import _rms
+    On a mesh the block is partitioned as the rules say (``ssm_inner ->
+    model``): ``w_in`` projects each rank's column shard, the packed
+    [z, x, B, C, dt] rows are gathered over the model dim (its column
+    shards cut across the five parts), each rank runs the conv and the
+    scan of its own heads (every head where they do not divide the model
+    dim, as the reference's are replicated then), and ``w_out`` sums
+    its row shard's part, partial over the model dim; the gated norm's
+    sum of squares is reduced once."""
     bsz, t, _ = x.shape
-    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.n_heads
-    z, xbc_raw, dt = _split_in(p, x, cfg)
-    xbc = _causal_conv(xbc_raw, p["conv_w"].value.to(x.dtype),
-                       p["conv_b"].value.to(x.dtype), cfg.ssm_conv)
-    xin = xbc[..., :di]
-    b_in = xbc[..., di:di + n]
-    c_in = xbc[..., di + n:]
-    xh = xin.reshape(bsz, t, h, cfg.head_dim)
-    a = -torch.exp(p["a_log"].value.float())               # (H,)
-    dtp = F.softplus(dt.float() + p["dt_bias"].value.float())
-    y, (_a_scan, s_scan) = _ssd_chunked(xh, dtp, a, b_in, c_in, cfg)
-    y = y + xc_skip(p, xh)
-    y = y.reshape(bsz, t, di).to(x.dtype)
-    y = _rms(y * F.silu(z), p["norm_w"].value)
-    out = torch.einsum("bse,ed->bsd", y, p["w_out"].value.to(x.dtype))
+    zx = _project_in(x, p["w_in"].value)
+    pl, h0, hl = _inner_layout(shd, x.shape, cfg)
+    ins, outs, zx = _core_layouts(shd, zx, pl, 1)
+    core = lambda zz, *w: _ssd_core(zz, *w, cfg=cfg, h0=h0, hl=hl,
+                                    return_state=return_state)
+    res = shard_map(core, ins, outs and outs[:3 if return_state else 2],
+                    zx, *(p[k].value for k in _CORE))
+    out = _ssd_out(p, res[0], res[1], cfg, shd)
     if not return_state:
-        return out, None
+        return out
     k = cfg.ssm_conv
-    pad = max(0, (k - 1) - t)
-    tail = xbc_raw[:, max(0, t - (k - 1)):, :]
-    if pad:
-        tail = F.pad(tail, (0, 0, pad, 0))
-    return out, {"ssm": s_scan[:, -1], "conv": tail}
+
+    def tail_of(zz):
+        pad = max(0, (k - 1) - t)
+        tail = zz[:, max(0, t - (k - 1)):, cfg.d_inner:
+                  cfg.d_inner + cfg.conv_dim]
+        return F.pad(tail, (0, 0, pad, 0)) if pad else tail
+    return out, {"ssm": res[2],
+                 "conv": per_shard(tail_of, shd.batch_placements(zx), zx)}
+
+
+def _ssd_core(zx, conv_w, conv_b, a_log, dt_bias, d_skip, *,
+              cfg: SsdConfig, h0: int, hl: int, return_state: bool):
+    """The conv and the scan of heads [h0, h0 + hl) on local tensors:
+    (gated channels, their sum of squares[, the state after the last
+    position])."""
+    bsz, t, _ = zx.shape
+    di, n, pdim = cfg.d_inner, cfg.ssm_state, cfg.head_dim
+    hs = slice(h0, h0 + hl)
+    z = zx[..., h0 * pdim:(h0 + hl) * pdim]
+    xbc_raw = _my_channels(zx[..., di:di + cfg.conv_dim], cfg, h0, hl)
+    dt = zx[..., di + cfg.conv_dim:][..., hs]
+    xbc = _causal_conv(xbc_raw,
+                       _my_channels(conv_w, cfg, h0, hl).to(zx.dtype),
+                       _my_channels(conv_b, cfg, h0, hl).to(zx.dtype),
+                       cfg.ssm_conv)
+    xh = xbc[..., :hl * pdim].reshape(bsz, t, hl, pdim)
+    b_in = xbc[..., hl * pdim:hl * pdim + n]
+    c_in = xbc[..., hl * pdim + n:]
+    a = -torch.exp(a_log[hs].float())                       # (H_loc,)
+    dtp = F.softplus(dt.float() + dt_bias[hs].float())
+    y, (_a_scan, s_scan) = _ssd_chunked(xh, dtp, a, b_in, c_in, cfg)
+    y = y + xh.float() * d_skip[hs].float()[None, None, :, None]
+    g = y.reshape(bsz, t, hl * pdim).to(zx.dtype) * F.silu(z)
+    ssq = torch.sum(g.float() * g.float(), dim=-1, keepdim=True)
+    return (g, ssq, s_scan[:, -1]) if return_state else (g, ssq)
+
+
+def _ssd_out(p: Dict, g, ssq, cfg: SsdConfig, shd: Sharder, eps=1e-6):
+    """The gated RMS norm over d_inner (its sum of squares reduced over
+    the ranks' heads) and the output projection."""
+    var = settle(ssq) / cfg.d_inner
+    y = (g.float() * torch.rsqrt(var + eps)
+         * p["norm_w"].value.float()).to(g.dtype)
+    out = shard_einsum("bse,ed->bsd", y, p["w_out"].value)
+    return shd.act(out, ("batch", "residual_seq", "embed"))
 
 
 def init_ssd_state(bsz: int, cfg: SsdConfig, dtype=torch.float32,
@@ -234,46 +321,56 @@ def init_ssd_state(bsz: int, cfg: SsdConfig, dtype=torch.float32,
 
 def ssd_decode(p: Dict, x: torch.Tensor, state: Dict, cfg: SsdConfig,
                shd: Sharder) -> Tuple[torch.Tensor, Dict]:
-    """One-token decode.  x: (B, 1, D).  On a mesh, as `ssd_block`, on
-    each rank's batch shard with the weights whole."""
-    names = sorted(p)
+    """One-token decode.  x: (B, 1, D).  On a mesh, partitioned as
+    `ssd_block`: each rank steps the state of its own heads (the cache
+    rules shard it so), with the conv window gathered over the model
+    dim; the new window and state come back in the cache's layout."""
+    zx = _project_in(x, p["w_in"].value)
+    pl, h0, hl = _inner_layout(shd, x.shape, cfg)
+    ins, outs, zx = _core_layouts(shd, zx, pl, 3)
+    if ins is not None:
+        # the state on the heads' layout
+        ins[1] = outs[2]
+    step = lambda zz, ssm, conv, *w: _ssd_step(zz, ssm, conv, *w, cfg=cfg,
+                                               h0=h0, hl=hl)
+    g, ssq, ssm = shard_map(step, ins, outs, zx, state["ssm"],
+                            state["conv"], *(p[k].value for k in _CORE))
+    di = cfg.d_inner
+    window = per_shard(
+        lambda zz, conv: torch.cat([conv.to(zz.dtype),
+                                    zz[..., di:di + cfg.conv_dim]], 1)[:, 1:],
+        shd.batch_placements(zx), zx, state["conv"])
+    return _ssd_out(p, g, ssq, cfg, shd), {
+        "ssm": shd.cache(ssm, ("batch", "ssm_inner", None, None)),
+        "conv": shd.cache(window, ("batch", None, "ssm_inner"))}
 
-    def body(xx, ssm, conv, *vals):
-        q = {k: Param(v, p[k].dims) for k, v in zip(names, vals)}
-        out, st = _ssd_decode(q, xx, {"ssm": ssm, "conv": conv}, cfg)
-        return out, st["ssm"], st["conv"]
 
-    out, ssm, conv = per_shard(body, shd.batch_placements(x), x,
-                               state["ssm"], state["conv"],
-                               *(p[k].value for k in names),
-                               whole=range(3, len(names) + 3))
-    return out, {"ssm": ssm, "conv": conv}
-
-
-def _ssd_decode(p: Dict, x: torch.Tensor, state: Dict, cfg: SsdConfig
-                ) -> Tuple[torch.Tensor, Dict]:
-    from repro_torch.models.layers import _rms
-    bsz = x.shape[0]
-    di, n = cfg.d_inner, cfg.ssm_state
-    z, xbc, dt = _split_in(p, x, cfg)                       # (B,1,*)
-    window = torch.cat([state["conv"].to(xbc.dtype), xbc], dim=1)
-    w = p["conv_w"].value.to(x.dtype)
-    conv_out = torch.einsum("bkc,kc->bc", window, w) \
-        + p["conv_b"].value.to(x.dtype)
-    conv_out = F.silu(conv_out)[:, None, :]                 # (B,1,C)
-    new_conv = window[:, 1:, :]
-
-    xin = conv_out[..., :di].reshape(bsz, cfg.n_heads, cfg.head_dim)
-    b_in = conv_out[..., di:di + n].reshape(bsz, n)
-    c_in = conv_out[..., di + n:].reshape(bsz, n)
-    a = -torch.exp(p["a_log"].value.float())
-    dtp = F.softplus(dt[:, 0].float() + p["dt_bias"].value.float())  # (B,H)
-    decay = torch.exp(dtp * a)                              # (B,H)
+def _ssd_step(zx, ssm, conv, conv_w, conv_b, a_log, dt_bias, d_skip, *,
+              cfg: SsdConfig, h0: int, hl: int):
+    """One step of heads [h0, h0 + hl) on local tensors: (gated channels,
+    their sum of squares, the new state)."""
+    bsz = zx.shape[0]
+    di, n, pdim = cfg.d_inner, cfg.ssm_state, cfg.head_dim
+    hs = slice(h0, h0 + hl)
+    z = zx[..., h0 * pdim:(h0 + hl) * pdim]
+    xbc = zx[..., di:di + cfg.conv_dim]                     # (B,1,C)
+    dt = zx[..., di + cfg.conv_dim:][..., hs]
+    window = _my_channels(torch.cat([conv.to(xbc.dtype), xbc], dim=1), cfg,
+                          h0, hl)
+    conv_out = torch.einsum("bkc,kc->bc", window, _my_channels(
+        conv_w, cfg, h0, hl).to(zx.dtype)) \
+        + _my_channels(conv_b, cfg, h0, hl).to(zx.dtype)
+    conv_out = F.silu(conv_out)[:, None, :]                 # (B,1,C_loc)
+    xin = conv_out[..., :hl * pdim].reshape(bsz, hl, pdim)
+    b_in = conv_out[..., hl * pdim:hl * pdim + n].reshape(bsz, n)
+    c_in = conv_out[..., hl * pdim + n:].reshape(bsz, n)
+    a = -torch.exp(a_log[hs].float())
+    dtp = F.softplus(dt[:, 0].float() + dt_bias[hs].float())  # (B,H_loc)
+    decay = torch.exp(dtp * a)                              # (B,H_loc)
     upd = torch.einsum("bn,bh,bhp->bhnp", b_in.float(), dtp, xin.float())
-    s_new = state["ssm"] * decay[..., None, None] + upd
+    s_new = ssm * decay[..., None, None] + upd
     y = torch.einsum("bn,bhnp->bhp", c_in.float(), s_new)
-    y = y + xin.float() * p["d_skip"].value.float()[None, :, None]
-    y = y.reshape(bsz, 1, di).to(x.dtype)
-    y = _rms(y * F.silu(z), p["norm_w"].value)
-    out = torch.einsum("bse,ed->bsd", y, p["w_out"].value.to(x.dtype))
-    return out, {"ssm": s_new, "conv": new_conv}
+    y = y + xin.float() * d_skip[hs].float()[None, :, None]
+    g = y.reshape(bsz, 1, hl * pdim).to(zx.dtype) * F.silu(z)
+    ssq = torch.sum(g.float() * g.float(), dim=-1, keepdim=True)
+    return g, ssq, s_new

@@ -21,7 +21,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import Sharder, per_shard, settle
+from repro_torch.distributed.sharding import (Sharder, batch_only,
+                                              per_shard, settle,
+                                              shard_einsum, shard_map,
+                                              shard_range)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (AttnConfig, _rms, attention,
                                        attention_decode, init_attention,
@@ -286,8 +289,36 @@ def _embed(params, tokens, shd: Sharder, dtype) -> torch.Tensor:
 
 def _head(params, h: torch.Tensor) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"])
-    return torch.einsum("bsd,dv->bsv", h,
-                        params["lm_head"].value.to(h.dtype))
+    return lm_head_product(h, params["lm_head"].value)
+
+
+def lm_head_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The logits ``h @ w`` (``w`` (embed, vocab), cast to ``h``'s type).
+    Where the rules shard the vocab, `shard_einsum`.  Where they leave
+    it whole on some mesh dims (a vocab the model dim does not divide),
+    the work along those dims follows the reference's compiled program:
+    serving contracts each rank's embed shard and sums the logits once;
+    training keeps the logits whole on every rank there and splits only
+    the weight's gradient, each rank forming its own embed rows."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(h, DTensor):
+        return shard_einsum("bsd,dv->bsv", h, w)
+    h, mesh = batch_only(h), h.device_mesh
+    spare = [i for i, (a, b) in enumerate(zip(h.placements, w.placements))
+             if a.is_replicate() and b.is_replicate() and mesh.shape[i] > 1]
+    if not spare:
+        return shard_einsum("bsd,dv->bsv", h, w)
+    rep = Replicate()
+    wp = tuple(Shard(0) if i in spare else rep for i in range(mesh.ndim))
+    if not torch.is_grad_enabled():
+        hp = tuple(Shard(2) if i in spare else p
+                   for i, p in enumerate(h.placements))
+        op = tuple(Partial() if i in spare else p
+                   for i, p in enumerate(h.placements))
+        return settle(shard_map(
+            lambda hh, ww: torch.einsum("bsd,dv->bsv", hh, ww.to(hh.dtype)),
+            (hp, wp), op, h, w, mesh=mesh))
+    return shard_einsum("bsd,dv->bsv", h, w, whole=spare)
 
 
 def lm_logits(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -319,12 +350,42 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor
     """Mean next-token cross entropy: f32 logsumexp over
     ``logits[:, :-1]`` against ``tokens[:, 1:]``."""
     lf = logits[:, :-1].float()
-    lse = torch.logsumexp(lf, dim=-1)
-    # on a vocab-sharded mesh the gather is a masked partial sum over the
-    # vocab shards: reduced here (an all-reduce of one value per
-    # position), before the view that would drop it
-    gold = settle(lf.gather(-1, tokens[:, 1:, None].long()))[..., 0]
-    return (lse - gold).mean()
+    target = tokens[:, 1:].long()
+    if not hasattr(lf, "placements"):
+        lse = torch.logsumexp(lf, dim=-1)
+        return (lse - lf.gather(-1, target[..., None])[..., 0]).mean()
+    # on a mesh the targets are picked on each rank's shards (DTensor's
+    # gather backward makes a zero tensor of the whole batch's logits);
+    # with the vocab sharded, logsumexp runs as its own steps (max, sum
+    # of exp, log) on the shards, each reduction one value a position
+    # (DTensor would gather the vocab)
+    split = [i for i, p in enumerate(lf.placements)
+             if p.is_shard() and p.dim == 2]
+    if split:
+        m = settle(torch.amax(lf, dim=-1, keepdim=True)).detach()
+        lse = torch.log(settle(torch.sum(torch.exp(lf - m), dim=-1))) \
+            + m[..., 0]
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+    return (lse - settle(_gold_logits(lf, target, split))).mean()
+
+
+def _gold_logits(lf, target, split):
+    """``lf[b, s, target[b, s]]`` on each rank's shards: over vocab
+    shards (the mesh dims ``split``) each rank picks the targets in its
+    own vocab range, a sum partial over those dims."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh, pl = lf.device_mesh, tuple(lf.placements)
+    lo, n = shard_range(mesh, pl, 2, lf.shape[-1])
+    tp = tuple(Replicate() if i in split else p for i, p in enumerate(pl))
+    op = tuple(Partial() if i in split else p for i, p in enumerate(pl))
+
+    def pick(ll, tt):
+        idx = tt - lo
+        ok = (idx >= 0) & (idx < n)
+        g = ll.gather(-1, idx.clamp(0, n - 1)[..., None])[..., 0]
+        return torch.where(ok, g, torch.zeros_like(g))
+    return shard_map(pick, (pl, tp), op, lf, target, mesh=mesh)
 
 
 def lm_loss(params: Dict, batch: Dict, cfg: ModelConfig, shd: Sharder

@@ -12,7 +12,8 @@ against the reference's ``dryrun_cell``.
   or 512 ranks, meta DTensors, nothing allocated) records the
   per-device mix and the collectives: finite positive flops and bytes,
   collective counts equal to ``CommDebugMode``'s, the H100 roofline's
-  terms from them, and the XLA-only fields null with their reason.
+  terms from them, the trace's memory under the reference's keys, and
+  the XLA-only fields null with their reason.
 * ``main`` writes one JSON record per cell.
 """
 import dataclasses
@@ -117,14 +118,23 @@ def test_a_traced_cell_records_the_per_device_mix_and_collectives(
     assert roof["spec"] == "h100-sxm" and rec["ici_links"] == 18
     assert roof["t_collective"] == rec["collective_bytes"] / (18 * 50e9)
     assert roof["t_memory"] == rec["bytes_accessed"] / 3.35e12
-    for k in ("memory_analysis", "hlo_instructions", "xla_cost_analysis"):
+    for k in ("hlo_instructions", "xla_cost_analysis"):
         assert rec[k] is None and rec["why"][k]
-    # the per-device program: a dense or SSD step's flops are a shard's,
-    # not the whole cell's (model_flops counts every layer of the full
-    # depth); MoE routing runs on whole operands on every rank, so its
-    # experts' flops are the whole batch's on each device
-    if cfg.family != "moe":
-        assert rec["flops"] < rec["model_flops"] / rec["chips"] * 4
+    # the trace's memory under the reference's keys: the arguments'
+    # local bytes are the analytic residency, the step's own storages
+    # peak above nothing, and there is no generated code
+    mem = rec["memory_analysis"]
+    assert sorted(mem) == ["argument_bytes", "generated_code_bytes",
+                           "output_bytes", "temp_bytes"]
+    assert mem["argument_bytes"] == rec["arg_bytes_per_device"]
+    assert mem["temp_bytes"] > 0 and mem["output_bytes"] > 0
+    assert mem["generated_code_bytes"] is None \
+        and rec["why"]["generated_code_bytes"]
+    # the per-device program: a step's flops are a shard's, not the
+    # whole cell's (model_flops counts every layer of the full depth),
+    # the MoE experts' included (each rank runs its own experts or
+    # expert-MLP shard on its capacity slots)
+    assert rec["flops"] < rec["model_flops"] / rec["chips"] * 4
 
 
 def test_main_writes_one_record_per_cell(tmp_path, fake_world):

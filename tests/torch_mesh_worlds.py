@@ -3,9 +3,10 @@
 Rank functions run in every rank of a world spawned by
 `repro_torch.launch.mesh.spawn_world` (gloo, CPU) and return plain numpy
 data; they import neither JAX nor the reference.  `run_train_cases`
-runs a list of meshed train-step cases in the port's world and in the
+runs a list of meshed train-step cases in the port's worlds and in the
 reference (a subprocess on 4 host devices, a (2, 1, 2) mesh with Auto
-axes) side by side, from the reference's initial parameters."""
+axes or the case's own) side by side, from the reference's initial
+parameters."""
 import dataclasses
 import json
 import os
@@ -51,7 +52,32 @@ def host_tree(params):
     return out
 
 
-def train_case(rank, world, case, npz_path, mesh_shape=(2, 1, 2)):
+def case_mesh(case):
+    """(shape, axis names) of a case's mesh: ``case["mesh"]`` as
+    [shape, axes], by default (2, 1, 2) over ``MESH_AXES``."""
+    shape, axes = case.get("mesh", ((2, 1, 2), MESH_AXES))
+    return tuple(shape), tuple(axes)
+
+
+def case_config(case, get_smoke):
+    """A case's smoke config: its compute type, and ``case["dispatch"]``
+    as the MoE dispatch where given."""
+    cfg = dataclasses.replace(get_smoke(case["arch"]), dtype=case["dtype"])
+    if "dispatch" in case:
+        cfg = dataclasses.replace(cfg, moe_dispatch=case["dispatch"])
+    return cfg
+
+
+def frames(cfg, step):
+    """An encoder-decoder's stub frames for ``step`` (float32, seeded by
+    the step), None for a token-only config."""
+    if cfg.frontend != "frames":
+        return None
+    return np.random.default_rng(1000 + step).standard_normal(
+        (BATCH, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+
+
+def train_case(rank, world, case, npz_path):
     """Meshed train steps of one case: {"metrics": [...], "params":
     {...}} after ``STEPS`` steps."""
     from repro_torch.configs import get_smoke
@@ -61,8 +87,8 @@ def train_case(rank, world, case, npz_path, mesh_shape=(2, 1, 2)):
     from repro_torch.models import build_model, device_put, param_shardings
     from repro_torch.optim import AdamWConfig, init_adamw
 
-    mesh = make_mesh(mesh_shape, MESH_AXES[-len(mesh_shape):])
-    cfg = dataclasses.replace(get_smoke(case["arch"]), dtype=case["dtype"])
+    mesh = make_mesh(*case_mesh(case))
+    cfg = case_config(case, get_smoke)
     model = build_model(cfg)
     params = load_params(model, npz_path)
     params = device_put(params, param_shardings(params, mesh))
@@ -76,6 +102,9 @@ def train_case(rank, world, case, npz_path, mesh_shape=(2, 1, 2)):
     metrics = []
     for s in range(case.get("steps", STEPS)):
         b = {"tokens": torch.from_numpy(stream.make_batch(s)["tokens"])}
+        f = frames(cfg, s)
+        if f is not None:
+            b["frames"] = torch.from_numpy(f)
         params, opt, m = step(params, opt, b)
         metrics.append({k: float(v) for k, v in m.items()})
     residual = None
@@ -180,11 +209,15 @@ from repro.models import Param, build_model, param_shardings
 from repro.optim import AdamWConfig, init_adamw
 
 spec = json.load(open(sys.argv[1]))
-mesh = jax.make_mesh((2, 1, 2), ("pod", "data", "model"),
-                     axis_types=(AxisType.Auto,) * 3)
 out = []
 for case, path in zip(spec["cases"], spec["npz"]):
+    shape, axes = case.get("mesh", ((2, 1, 2), ("pod", "data", "model")))
+    mesh = jax.make_mesh(tuple(shape), tuple(axes),
+                         axis_types=(AxisType.Auto,) * len(axes),
+                         devices=jax.devices()[:int(np.prod(shape))])
     cfg = dataclasses.replace(get_smoke(case["arch"]), dtype=case["dtype"])
+    if "dispatch" in case:
+        cfg = dataclasses.replace(cfg, moe_dispatch=case["dispatch"])
     model = build_model(cfg)
     tmpl = model.abstract_params()
     with np.load(path) as npz:
@@ -204,6 +237,12 @@ for case, path in zip(spec["cases"], spec["npz"]):
     metrics = []
     for s in range(case.get("steps", spec["steps"])):
         b = {"tokens": jnp.asarray(stream.make_batch(s)["tokens"])}
+        if cfg.frontend == "frames":
+            b["frames"] = jnp.asarray(np.random.default_rng(1000 + s)
+                                      .standard_normal((spec["batch"],
+                                                        cfg.enc_seq,
+                                                        cfg.d_model))
+                                      .astype(np.float32))
         params, opt, m = step(params, opt, b)
         metrics.append({k: float(v) for k, v in m.items()})
     final = {jax.tree_util.keystr(p)[:-len("[<flat index 0>]")]:
@@ -229,10 +268,11 @@ def save_reference_init(arch, path):
     np.savez(path, **flat)
 
 
-def run_train_cases(d, cases):
+def run_train_cases(d, cases, timeout=WORLD_TIMEOUT):
     """[((reference metrics, reference final params), port result)] per
-    case; the reference's subprocess and the port's world run side by
-    side in directory ``d``."""
+    case; the reference's subprocess (every case) and the port's worlds
+    (one for each mesh size, its cases in turn) run side by side in
+    directory ``d``."""
     npz = []
     for i, c in enumerate(cases):
         npz.append(os.path.join(d, f"init_{i}.npz"))
@@ -249,9 +289,15 @@ def run_train_cases(d, cases):
                            stderr=subprocess.PIPE, text=True)
     try:
         from repro_torch.launch.mesh import spawn_world
-        port = spawn_world(train_cases, 4, cases, npz,
-                           timeout=WORLD_TIMEOUT)[0]
-        _, err = ref.communicate(timeout=WORLD_TIMEOUT)
+        port = [None] * len(cases)
+        sizes = [int(np.prod(case_mesh(c)[0])) for c in cases]
+        for n in sorted(set(sizes)):
+            idx = [i for i, k in enumerate(sizes) if k == n]
+            got = spawn_world(train_cases, n, [cases[i] for i in idx],
+                              [npz[i] for i in idx], timeout=timeout)[0]
+            for i, r in zip(idx, got):
+                port[i] = r
+        _, err = ref.communicate(timeout=timeout)
     finally:
         if ref.poll() is None:
             ref.kill()
@@ -286,7 +332,10 @@ def assert_case_matches(case, ref_metrics, ref_final, port):
 
 def case_id(c):
     return (f"{c['arch']}-{c['dtype']}-mb{c['mb']}"
-            + ("-compressed" if c["compress"] else ""))
+            + ("-compressed" if c["compress"] else "")
+            + (f"-{c['dispatch']}" if "dispatch" in c else "")
+            + ("-" + "x".join(map(str, c["mesh"][0])) if "mesh" in c
+               else ""))
 
 
 def serve_case(rank, world, arch, tuned):
@@ -323,4 +372,54 @@ def serve_case(rank, world, arch, tuned):
                 tok = full(lg)[:, -1:].argmax(-1).to(torch.int32)
                 tokens.append(tok.numpy())
         out.append((got, tokens))
+    return out
+
+
+def meshed_and_plain(rank, world, mesh_shape, archs):
+    """For each arch's smoke config in float32 (``<arch>+grouped``: its
+    MoE dispatch per sequence): two train steps on a (data, model) =
+    ``mesh_shape`` mesh and two on plain tensors, from the port's own
+    seed-0 parameters and one batch of 8 x 32 tokens: {arch: {"mesh":
+    [(loss, grad_norm)], "plain": [...], "params": largest |meshed -
+    plain| parameter after the steps}}."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed import TrainStepConfig, make_train_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.params import device_put, param_shardings
+    from repro_torch.optim import AdamWConfig, init_adamw
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    out = {}
+    for arch in archs:
+        name, _, grouped = arch.partition("+")
+        cfg = dataclasses.replace(get_smoke(name), dtype="float32")
+        if grouped:
+            cfg = dataclasses.replace(cfg, moe_dispatch="grouped")
+        model = build_model(cfg)
+        g = torch.Generator().manual_seed(0)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (8, 32), generator=g)}
+        if cfg.frontend == "frames":
+            batch["frames"] = torch.randn((8, cfg.enc_seq, cfg.d_model),
+                                          generator=g)
+        runs, final = {}, {}
+        for tag, m in (("mesh", mesh), ("plain", None)):
+            params = model.init(seed=0, device="cpu",
+                                param_dtype=torch.float32)
+            if m is not None:
+                params = device_put(params, param_shardings(params, m))
+            opt = init_adamw(params)
+            step = make_train_step(model, AdamWConfig(**OPT), mesh=m,
+                                   step_cfg=TrainStepConfig())
+            runs[tag] = []
+            for _ in range(2):
+                params, opt, met = step(params, opt, dict(batch))
+                runs[tag].append((float(met["loss"]),
+                                  float(met["grad_norm"])))
+            final[tag] = host_tree(params)
+        runs["params"] = max(float(np.abs(final["mesh"][k] - v).max())
+                             for k, v in final["plain"].items())
+        out[arch] = runs
     return out
