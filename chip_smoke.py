@@ -195,7 +195,19 @@ Phases, each fatal on failure (exit code != 0, no result line):
              qwen2-moe's flops ratio passes 2.0 (the reference's 1.61
              x 1.25).  ``python3 chip_smoke.py --mesh-only [--mesh-shape
              D,M]`` runs this phase alone (with a shape: (a) alone, on
-             a D x M mesh of cards) and prints no result line.
+             a D x M mesh of cards) and prints no result line;
+12. memory — the memory accounting held to the card
+             (`tools/train_memory.py`): whisper-tiny at published width
+             and depth, unmeshed, one train step of 16 x 4096 tokens
+             (``train_4k``'s per-device batch on the 16 x 16 mesh):
+             ``torch.cuda.max_memory_allocated`` over the step beside
+             the trace's prediction for the same step on meta tensors
+             (`launch.dryrun.lower_train_step`, arguments plus
+             temporaries) and the storages it names at its peak; fatal
+             when the step fails or its loss is not finite, not on the
+             ratio (a finding); 0 hand-written kernel launches.
+             ``python3 chip_smoke.py --memory-only`` runs it alone and
+             prints no result line.
 
 Phase 2 also holds the Table IV kernels against their plain versions at
 the tuner's sizes (above the 50 MB L2), jacobi3d on its static pick (a
@@ -878,7 +890,8 @@ def phase_table4(dev):
               "bicg": (bc.bicg_cuda, bc.bicg_plain),
               "jacobi3d": (jc.jacobi3d_cuda, jc.jacobi3d_plain)}
     library = {"matvec": lambda a, x: torch.matmul(a, x),
-               "atax": lambda a, x: torch.linalg.multi_dot([a.T, a, x])}
+               "atax": lambda a, x: torch.linalg.multi_dot([a.T, a, x]),
+               "jacobi3d": _conv3d_jacobi(dev, jc.C0_DEFAULT, jc.C1_DEFAULT)}
     composite = {"bicg": lambda a, p, r: (a @ p, a.T @ r)}
     results = {}
     for kid in TABLE4:
@@ -907,6 +920,25 @@ def phase_table4(dev):
             del args
     torch.cuda.empty_cache()
     return results
+
+
+def _conv3d_jacobi(dev, c0: float, c1: float):
+    """jacobi3d's one-call yardstick: ``F.conv3d`` of the 7-point
+    stencil over the interior, the boundary copied through unchanged
+    (the reference's sweep, `kernels/ref.py` ``jacobi3d_ref``)."""
+    import torch
+    import torch.nn.functional as F
+    w = torch.zeros((1, 1, 3, 3, 3), dtype=torch.float32, device=dev)
+    w[0, 0, 1, 1, 1] = c0
+    for d in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+              (1, 1, 2)):
+        w[(0, 0) + d] = c1
+
+    def lib(u):
+        out = u.clone()
+        out[1:-1, 1:-1, 1:-1] = F.conv3d(u[None, None], w.to(u.dtype))[0, 0]
+        return out
+    return lib
 
 
 def _table4_row(kid, sig, dtype, tile, args, launch, lib, comp):
@@ -961,6 +993,12 @@ def _table4_row(kid, sig, dtype, tile, args, launch, lib, comp):
     if kid == "jacobi3d":
         row["device_us"] = device_us(lambda: fn(*args, tile=tile))
         extra = f" | device {row['device_us']:.2f} us per launch"
+        if lib is not None:
+            row["library_device_us"] = device_us(lambda: lib(*args))
+            l_err = (lib(*args).float() - want[0].float()).abs().max().item()
+            extra += (f" | library (conv3d + boundary copy) device "
+                      f"{row['library_device_us']:.2f} us, max|err| "
+                      f"{l_err:.3g}")
     print(f"[kernels] {kid} {dtype} "
           f"{'x'.join(str(v) for v in TABLE4_SHAPES[kid].values())} "
           f"tile {tile}: max|err| {err:.3g} (tol {tol:g} abs + rel)"
@@ -3312,6 +3350,58 @@ def phase_mesh(card: str, shape=None) -> None:
           flush=True)
 
 
+def phase_memory(card: str) -> dict:
+    """[memory]: one unmeshed train step of `train_memory.STEP` on the card,
+    its measured peak beside the trace's prediction (module docstring,
+    phase 12)."""
+    import gc
+    import math
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import use_tuned_layers
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import train_memory
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch, batch, seq = train_memory.STEP
+    cfg = get_config(arch)
+    # the serving phases switch tuned layers on for the process; a train
+    # step refuses them (no backward kernels), traced or run
+    with use_tuned_layers(False):
+        pred = train_memory.predict(cfg, batch, seq)
+        kernels.reset_launch_counts()
+        got = train_memory.measure(cfg, batch, seq)
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    if got["oom"]:
+        fail(f"[memory] {arch} {batch} x {seq}: out of device memory "
+             f"({got['error']})")
+    if not math.isfinite(got["loss"]):
+        fail(f"[memory] {arch}: the step's loss is {got['loss']}")
+    if launches:
+        fail(f"[memory] the training step launched tuned kernels: "
+             f"{launches}")
+    ratio = got["peak_bytes"] / pred["peak_bytes"]
+    print(f"[memory] {arch} at published width and depth ({cfg.n_layers} "
+          f"+ {cfg.enc_layers} layers, vocab {cfg.vocab}), one unmeshed "
+          f"train step of {batch} x {seq} tokens, bf16 over f32 masters, "
+          f"loss {got['loss']:.4f} ({card}): "
+          f"torch.cuda.max_memory_allocated {got['peak_bytes'] / 1e9:.3f} "
+          f"GB ({got['before_bytes'] / 1e9:.3f} GB resident before the "
+          f"step) | trace {pred['peak_bytes'] / 1e9:.3f} GB = arguments "
+          f"{pred['argument_bytes'] / 1e9:.3f} + temporaries "
+          f"{pred['temp_bytes'] / 1e9:.3f} | measured / trace "
+          f"{ratio:.3f}", flush=True)
+    for st in pred["peak_storages"][:6]:
+        print(f"[memory]   held at the trace's peak: {st['bytes'] / 1e9:.3f}"
+              f" GB {st['op']} {st['dtype']}{st['shape']}", flush=True)
+    print(f"[memory] phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"measured": got, "predicted": pred, "ratio": ratio}
+
+
 def _param_items(tree, prefix: str = ""):
     from repro_torch.models.params import Param
     for k, v in tree.items():
@@ -3350,6 +3440,13 @@ def main() -> None:
         print(f"[smoke] --mesh-only: the mesh phase passed in "
               f"{time.perf_counter() - t_all:.1f} s", flush=True)
         return
+    if "--memory-only" in sys.argv[1:]:
+        # phase 12 alone
+        phase_memory(card)
+        print(card)
+        print(f"[smoke] --memory-only: the memory phase passed in "
+              f"{time.perf_counter() - t_all:.1f} s", flush=True)
+        return
     phase_build()
     rows = phase_kernels(dev)
     rows.update(phase_table4(dev))
@@ -3373,6 +3470,7 @@ def main() -> None:
     sass = phase_extract(rows, ranking, profile)
     phase_train(dev, card)
     phase_mesh(card)
+    phase_memory(card)
 
     _require_picks_launched("the main path", reports, launches)
     for op, names in (("matmul", ("matmul",)),

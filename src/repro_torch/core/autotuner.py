@@ -518,6 +518,9 @@ class LoweredStep:
     comm_debug_counts: Dict[str, int] = dataclasses.field(
         default_factory=dict)   # CommDebugMode's, by collective
     memory: Optional[Dict[str, Any]] = None   # the trace's live bytes
+    # the largest storages alive at the memory peak (`LiveBytes.at_peak`)
+    peak_storages: List[Dict[str, Any]] = dataclasses.field(
+        default_factory=list)
 
 
 class GraphTuner:

@@ -198,11 +198,17 @@ _T_SKIP = {"empty", "empty_like", "empty_strided", "new_empty",
            "wait_tensor"}
 
 # a DTensor's collectives as a traced rank sees them (the functional
-# collectives); as in the HLO mix, each moves its output through HBM
+# collectives, and DTensor's own all-to-all that moves a shard from one
+# tensor dim to another); as in the HLO mix, each moves its output
+# through HBM
 _T_COLLECTIVE = {"all_reduce": "all-reduce",
+                 "all_reduce_coalesced": "all-reduce",
                  "all_gather_into_tensor": "all-gather",
+                 "all_gather_into_tensor_coalesced": "all-gather",
                  "reduce_scatter_tensor": "reduce-scatter",
-                 "all_to_all_single": "all-to-all"}
+                 "reduce_scatter_tensor_coalesced": "reduce-scatter",
+                 "all_to_all_single": "all-to-all",
+                 "shard_dim_alltoall": "all-to-all"}
 
 _Shape = Tuple[Tuple[int, ...], str]
 
@@ -250,28 +256,50 @@ class LiveBytes:
     """The bytes of the local storages alive while a meta trace runs
     (`live_bytes`): each storage an op makes counts from that op until
     it is freed, and the peak is kept.  Storages of ``keep`` (a step's
-    arguments) are known from the start and not counted."""
+    arguments) are known from the start and not counted.
+
+    `at_peak` names the storages alive at the peak, each with the op
+    that made it: a storage made before the peak and freed after it
+    is kept aside when it goes, until a higher peak drops it."""
 
     def __init__(self, keep=()):
         self.live = self.peak = 0
-        self._keys: set = set()
+        self._n = self._peak_at = 0
+        # id of each live storage -> (serial, bytes, op, shape, dtype)
+        self._held: Dict[int, Tuple] = {}
+        self._gone: List[Tuple] = []     # alive at the peak, freed since
         self._keep = [t.untyped_storage() for t in keep]
-        self._keys.update(id(st) for st in self._keep)
+        self._kept = {id(st) for st in self._keep}
 
-    def add(self, t) -> None:
+    def add(self, t, op: str = "") -> None:
         st = t.untyped_storage()
         key = id(st)
-        if key in self._keys:
+        if key in self._held or key in self._kept:
             return
         n = st.nbytes()
-        self._keys.add(key)
+        self._n += 1
+        self._held[key] = (self._n, n, op, tuple(t.shape),
+                           str(t.dtype).rpartition(".")[2])
         self.live += n
-        self.peak = max(self.peak, self.live)
-        weakref.finalize(st, self._free, key, n)
+        if self.live > self.peak:
+            self.peak, self._peak_at, self._gone = self.live, self._n, []
+        weakref.finalize(st, self._free, key)
 
-    def _free(self, key, n: int) -> None:
-        self._keys.discard(key)
-        self.live -= n
+    def _free(self, key) -> None:
+        held = self._held.pop(key)
+        self.live -= held[1]
+        if held[0] <= self._peak_at:
+            self._gone.append(held)
+
+    def at_peak(self, top: int = 10) -> List[Dict[str, Any]]:
+        """The ``top`` largest storages alive at the peak, largest
+        first: the op that made each (aten name), the shape and dtype
+        it was made with, and its bytes."""
+        rows = self._gone + [h for h in self._held.values()
+                             if h[0] <= self._peak_at]
+        rows.sort(key=lambda h: (-h[1], h[0]))
+        return [{"op": op, "shape": list(shape), "dtype": dtype,
+                 "bytes": int(n)} for _, n, op, shape, dtype in rows[:top]]
 
 
 _LIVE: "ContextVar[Optional[LiveBytes]]" = ContextVar(
@@ -331,7 +359,7 @@ def _recorder(ops: List[TracedOp], move: bool = True):
                     for t in tree_leaves(out):
                         if isinstance(t, torch.Tensor) and \
                                 t.device.type == "meta":
-                            live.add(t)
+                            live.add(t, func.overloadpacket.__name__)
                 if any(t.device.type == "meta" for t in tree_leaves(
                         (args, kwargs, out)) if isinstance(t, torch.Tensor)):
                     ops.append(TracedOp(

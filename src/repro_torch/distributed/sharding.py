@@ -340,7 +340,10 @@ def shard_einsum(eq: str, x, w, whole: Sequence[int] = ()):
     matching shard, a local slice when it was whole).  The product runs
     on local tensors (`shard_map`), so no DTensor strategy re-plans it,
     in the backward either: each rank does its shard's share of the
-    work, never a whole weight's.
+    work, never a whole weight's.  Without grad (serving) the weight is
+    cast to ``x``'s type before it moves, as the reference's program
+    gathers the cast; with grad the float32 master is gathered, so its
+    gradient is reduced in float32.
 
     Along the mesh dims ``whole`` (one at most), where both operands are
     whole, the result is whole on every rank, the product repeated; the
@@ -356,6 +359,8 @@ def shard_einsum(eq: str, x, w, whole: Sequence[int] = ()):
     ins, out = eq.replace(" ", "").split("->")
     a, b = ins.split(",")
     x, w = settle(x), settle(w)
+    if not torch.is_grad_enabled():
+        w = w.to(x.dtype)     # serving: a gathered weight moves cast
     if len(whole) > 1:
         raise ValueError(f"a weight gathered along {len(whole)} mesh dims "
                          f"(one at most)")

@@ -22,7 +22,10 @@ HLO accounting; the counts also from ``CommDebugMode``);
 (`lower_step`): ``argument_bytes`` (the arguments' local bytes, equal to
 ``arg_bytes_per_device``), ``output_bytes``, ``temp_bytes`` (the peak of
 the storages the step makes while it runs) and ``generated_code_bytes``
-(null).  The fields an XLA compile gives and a trace does not
+(null); ``peak_storages`` names the largest storages alive at that peak
+(the aten op that made each, shape, dtype, bytes).  A shard moved from
+one tensor dim to another is traced as the card moves it, one
+all-to-all (`_card_all_to_all`).  The fields an XLA compile gives and a trace does not
 (``hlo_instructions``, ``xla_cost_analysis``, ``compile_s``,
 ``generated_code_bytes``) are null, each with its reason under
 ``"why"``.  ``roofline`` holds the three
@@ -36,13 +39,15 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
 import traceback
 from typing import Dict, Optional
 
-__all__ = ["dryrun_cell", "lower_step", "save_record", "main"]
+__all__ = ["dryrun_cell", "lower_step", "lower_train_step", "save_record",
+           "main"]
 
 _WHY = {
     "generated_code_bytes": "no compiled executable: the step runs as "
@@ -56,13 +61,25 @@ _WHY = {
 
 
 def _fake_world(size: int) -> None:
-    """A fake process group of ``size`` ranks, this process rank 0."""
+    """A fake process group of ``size`` ranks, this process rank 0.  A
+    new world first clears DTensor's caches of sharding plans: they are
+    keyed by meshes, and a mesh compares equal to a destroyed world's of
+    the same shape and names, so a cached plan would hand the new
+    world's trace the old world's process groups."""
     import torch.distributed as dist
+    from torch.distributed.tensor import _redistribute, debug
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
         if dist.get_backend() == "fake" and dist.get_world_size() == size:
             return
         dist.destroy_process_group()
+    for clear in (getattr(debug, "_clear_python_sharding_prop_cache", None),
+                  getattr(debug, "_clear_fast_path_sharding_prop_cache",
+                          None),
+                  getattr(getattr(_redistribute, "_gen_transform_infos",
+                                  None), "cache_clear", None)):
+        if clear is not None:
+            clear()
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=size)
 
@@ -162,13 +179,48 @@ def _storage_bytes(tensors) -> int:
     return int(sum(t.untyped_storage().nbytes() for t in tensors))
 
 
-def lower_step(step_fn, *args, grad: bool = True):
+@contextlib.contextmanager
+def _card_all_to_all():
+    """DTensor moves a shard from one tensor dim to another with one
+    all-to-all on the card (NCCL), but on a CPU mesh — the fake group's
+    — with an all-gather of the whole dim and a slice.  Within it a
+    trace on ``meta`` tensors takes the card's route: one all-to-all of
+    the shard's bytes, its result the new shard's shape (no values: a
+    meta trace has none)."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import placement_types as pt
+    orig = getattr(pt, "shard_dim_alltoall", None)
+    if orig is None:
+        yield
+        return
+
+    def on_card(x, gather_dim, shard_dim, mesh, mesh_dim):
+        if x.device.type != "meta":
+            return orig(x, gather_dim, shard_dim, mesh, mesh_dim)
+        y = funcol.all_to_all_single(x.reshape(-1), None, None,
+                                     (mesh, mesh_dim))
+        if isinstance(y, funcol.AsyncCollectiveTensor):
+            y = y.wait()
+        shape = list(x.shape)
+        shape[gather_dim] *= mesh.size(mesh_dim)
+        shape[shard_dim] //= mesh.size(mesh_dim)
+        return y.view(shape)
+    pt.shard_dim_alltoall = on_card
+    try:
+        yield
+    finally:
+        pt.shard_dim_alltoall = orig
+
+
+def lower_step(step_fn, *args, grad: bool = True, top: int = 10):
     """Trace ``step_fn(*args)`` (DTensors on a mesh, meta locals) as the
     per-device program: its `InstructionMix` and its collectives, each
     counted once with its output bytes, and its memory: the arguments'
     local bytes, the result's, and the peak of the storages the step's
     ops make while it runs (`core.mix.live_bytes`; ``temp_bytes`` = that
-    peak, the reference's "peak live minus arguments").  Returns a
+    peak, the reference's "peak live minus arguments"), with the
+    ``top`` largest storages alive at that peak (``peak_storages``: the
+    op that made each, shape, dtype, bytes).  Returns a
     `core.autotuner.LoweredStep` (`GraphTuner` scores it)."""
     import torch
     from torch.distributed.tensor.debug import CommDebugMode
@@ -181,7 +233,8 @@ def lower_step(step_fn, *args, grad: bool = True):
     arg_locals = _local_tensors(args)
     result = []
     with torch.enable_grad() if grad else torch.no_grad(), \
-            CommDebugMode() as comm, live_bytes(keep=arg_locals) as live:
+            _card_all_to_all(), CommDebugMode() as comm, \
+            live_bytes(keep=arg_locals) as live:
         graph = trace_meta_fn(lambda *a: result.append(step_fn(*a)), *args)
     memory = {"argument_bytes": _storage_bytes(arg_locals),
               "output_bytes": _storage_bytes(_local_tensors(result)),
@@ -198,7 +251,27 @@ def lower_step(step_fn, *args, grad: bool = True):
         mix_from_graph(graph),
         CollectiveStats(by_kind, counts, sum(by_kind.values()), []),
         {str(k): int(v) for k, v in comm.get_comm_counts().items()},
-        memory)
+        memory, live.at_peak(top))
+
+
+def lower_train_step(cfg, batch: int, seq: int, microbatches: int = 1,
+                     top: int = 10):
+    """`lower_step` of ``cfg``'s train step with no mesh, at ``batch`` x
+    ``seq`` tokens: the f32 master parameters, AdamW's moments and the
+    batch on ``meta`` (the arguments), and the storages one step makes
+    (the temporaries) — what a card holds for the same step."""
+    from repro_torch.distributed import TrainStepConfig, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.model import batch_shapes
+    from repro_torch.optim import AdamWConfig, init_adamw
+
+    model = build_model(cfg)
+    params = model.abstract_params()
+    step = make_train_step(model, AdamWConfig(), step_cfg=TrainStepConfig(
+        microbatches=microbatches))
+    return lower_step(step, params, init_adamw(params), batch_shapes(
+        cfg, ShapeSpec("train", seq, batch, "train")), top=top)
 
 
 def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -253,7 +326,7 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
     traced = ("flops", "vpu_flops", "transcendentals", "bytes_accessed",
               "unknown_trip_loops", "collective_bytes",
               "collectives_by_kind", "collective_counts", "lower_s",
-              "roofline", "memory_analysis")
+              "roofline", "memory_analysis", "peak_storages")
     if not trace:
         rec.update({k: None for k in traced})
         rec["why"]["traced"] = "trace=False: analytic fields only"
@@ -281,6 +354,7 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
         # position a device scalar, as the reference's)
         memory_analysis=dict(lowered.memory, argument_bytes=_storage_bytes(
             _local_tensors(dargs))),
+        peak_storages=lowered.peak_storages,
         roofline={"spec": H100_SXM.name, **{
             k: getattr(terms, k) for k in (
                 "t_compute", "t_memory", "t_collective", "dominant",

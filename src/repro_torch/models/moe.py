@@ -102,26 +102,93 @@ def _scatter(xt, flat_e, e: int, cap: int, er, cr=None):
     sink = el * cl
     slot = torch.where(mine, (flat_e - e0) * cl + pos - c0,
                        torch.full_like(pos, sink))
-    xin = xt.repeat_interleave(k, dim=0)                     # (T*k, D)
-    xin = torch.where(mine[:, None], xin, torch.zeros_like(xin))
-    buf = torch.zeros((sink + 1, d), dtype=xt.dtype, device=xt.device)
-    buf.index_copy_(0, slot, xin)
-    return buf[:-1].reshape(el, cl, d), slot, mine
+    buf = _Scatter.apply(xt, slot, sink)
+    return buf.reshape(el, cl, d), slot, mine
+
+
+class _Scatter(torch.autograd.Function):
+    """The dispatch buffer's ``rows`` rows: row ``s`` is the token of the
+    routed row (of T*k, token = row // k) whose ``slot`` is ``s``, zero
+    where none is.  Each routed row is looked up from its slot, so the
+    k-fold copy of the tokens is never made; the backward sums each
+    token's k rows of the buffer's gradient in the order of k (no
+    atomics)."""
+
+    @staticmethod
+    def forward(ctx, xt, slot, rows: int):
+        t, k = xt.shape[0], slot.shape[0] // xt.shape[0]
+        src = torch.full((rows + 1,), t * k, dtype=torch.long,
+                         device=xt.device)
+        # every kept row has its own slot; the dropped ones share the
+        # sink, cut off
+        src.index_copy_(0, slot, torch.arange(t * k, device=xt.device))
+        src = src[:rows]
+        ctx.save_for_backward(slot)
+        ctx.t = t
+        return torch.where((src < t * k)[:, None],
+                           xt[torch.clamp(src // k, max=t - 1)],
+                           torch.zeros((), dtype=xt.dtype, device=xt.device))
+
+    @staticmethod
+    def backward(ctx, g):
+        (slot,) = ctx.saved_tensors
+        rows = g.shape[0]
+        slot = slot.reshape(ctx.t, -1)
+        keep = slot < rows
+        safe = torch.clamp(slot, max=max(rows - 1, 0))
+        zero = torch.zeros((), dtype=g.dtype, device=g.device)
+        dx = torch.zeros((ctx.t, g.shape[1]), dtype=g.dtype, device=g.device)
+        for j in range(slot.shape[1]):
+            dx = dx + torch.where(keep[:, j, None], g[safe[:, j]], zero)
+        return dx, None, None
 
 
 def _combine(flat_out, slot, keep, top_p, cap_rows: int):
     """Gather each routed row back and sum a token's k rows, weighted by
-    its router probabilities, in the order of k."""
+    its router probabilities, in the order of k (`_Combine`)."""
     t, k = top_p.shape
-    safe = torch.clamp(slot, max=cap_rows - 1)
-    y_rep = flat_out[safe]
-    y_rep = torch.where(keep[:, None], y_rep, torch.zeros_like(y_rep))
-    w = top_p.reshape(-1)[:, None].to(flat_out.dtype)
-    r = (y_rep * w).reshape(t, k, -1)
-    y = torch.zeros_like(r[:, 0])
-    for j in range(k):
-        y = y + r[:, j]
-    return y
+    return _Combine.apply(flat_out, torch.clamp(slot, max=cap_rows - 1)
+                          .reshape(t, k), keep.reshape(t, k),
+                          top_p.to(flat_out.dtype))
+
+
+class _Combine(torch.autograd.Function):
+    """``y[t] = sum_j w[t, j] * out[slot[t, j]]`` over the kept rows, in
+    the order of j.  One routed row's contribution at a time, and none
+    saved: the backward looks each up again (the weights' gradient) or
+    goes from each slot to its routed row (the buffer's), so no (T*k, D)
+    tensor is made in either pass."""
+
+    @staticmethod
+    def forward(ctx, out, safe, keep, w):
+        t, k = w.shape
+        zero = torch.zeros((), dtype=out.dtype, device=out.device)
+        y = torch.zeros((t, out.shape[1]), dtype=out.dtype,
+                        device=out.device)
+        for j in range(k):
+            y = y + torch.where(keep[:, j, None], out[safe[:, j]],
+                                zero) * w[:, j, None]
+        ctx.save_for_backward(out, safe, keep, w)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        out, safe, keep, w = ctx.saved_tensors
+        (t, k), rows = w.shape, out.shape[0]
+        zero = torch.zeros((), dtype=out.dtype, device=out.device)
+        dw = torch.stack([
+            (dy * torch.where(keep[:, j, None], out[safe[:, j]], zero))
+            .sum(dim=-1) for j in range(k)], dim=1)
+        # the routed row in each slot (each kept row has its own)
+        src = torch.full((rows + 1,), t * k, dtype=torch.long,
+                         device=out.device)
+        src.index_copy_(0, torch.where(keep, safe, rows).reshape(-1),
+                        torch.arange(t * k, device=out.device))
+        src = src[:rows]
+        hit = torch.clamp(src, max=t * k - 1)
+        dout = torch.where((src < t * k)[:, None],
+                           dy[hit // k] * w.reshape(-1)[hit][:, None], zero)
+        return dout, None, None, dw
 
 
 def _experts(buf, wg, wu, wd, act: str, lead: str):

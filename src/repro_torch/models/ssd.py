@@ -198,7 +198,10 @@ def _project_in(x, w):
     still projects one chunk of them, the columns zero-padded to a
     multiple of the dim as the reference's compiler pads them to split
     them, and the result is sharded there over the padded width (the
-    core gathers it; the pad columns are never read)."""
+    core gathers it; the pad columns are never read).  Each rank cuts
+    its chunk from its own rows of the weight and only the chunk is
+    gathered over the dims that shard the rows; serving casts the
+    weight before it moves, training gathers the float32 master."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     if not isinstance(x, DTensor):
         return shard_einsum("bsd,de->bse", x, w)
@@ -212,12 +215,17 @@ def _project_in(x, w):
     e = w.shape[1]
     pad = (-e) % math.prod(mesh.shape[i] for i in spare)
     lo, n = shard_range(mesh, op, 2, e + pad)
-
-    def chunk(xx, ww):
-        ww = F.pad(ww, (0, pad))[:, lo:lo + n]
-        return torch.einsum("bsd,de->bse", xx, ww.to(xx.dtype))
-    return shard_map(chunk, (x.placements, (Replicate(),) * mesh.ndim), op,
-                     x, w, mesh=mesh)
+    if not torch.is_grad_enabled():
+        w = w.to(x.dtype)
+    rows = tuple(p if p.is_shard(0) else Replicate() for p in w.placements)
+    cols = tuple(Shard(1) if i in spare else Replicate()
+                 for i in range(mesh.ndim))
+    wc = shard_map(lambda ww: F.pad(ww, (0, pad))[:, lo:lo + n], (rows,),
+                   tuple(Shard(1) if i in spare else p
+                         for i, p in enumerate(rows)), w, mesh=mesh)
+    return shard_map(
+        lambda xx, ww: torch.einsum("bsd,de->bse", xx, ww.to(xx.dtype)),
+        (x.placements, cols), op, x, wc, mesh=mesh)
 
 
 def _core_layouts(shd: Sharder, zx, pl, n_state: int):

@@ -273,13 +273,44 @@ def _run_blocks(blocks: Dict, h: torch.Tensor, windows: List[int],
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, shd: Sharder,
                  dtype) -> torch.Tensor:
     """``table[tokens]`` in ``dtype``.  On a mesh the lookup runs on each
-    rank's batch shard with the table whole (`per_shard`: an all-gather
-    of the table, its gradient reduced back to the table's layout):
-    DTensor's rules for indexing a vocab- and embed-sharded table differ
-    between torch releases (indexing fails on 2.11, the embedding op's
-    backward on 2.13)."""
-    return per_shard(lambda t, w: w.to(dtype)[t],
-                     shd.batch_placements(tokens), tokens, table, whole=(1,))
+    rank's part of the table, as the reference's compiled program runs
+    it, and the table is never gathered: along a mesh dim that shards
+    the embed dim every token is looked up in the rank's columns (the
+    tokens gathered, the rows left split over the embed dim for the
+    batch to move them onto: an all-to-all); along
+    one that shards the vocab each rank picks the tokens in its own
+    rows, zero elsewhere, a partial sum; elsewhere the rank's batch
+    shard.  The result is laid out over its batch shards, every other
+    dim whole.  The lookup indexes local tensors (`shard_map`): DTensor's
+    rules for indexing a sharded table differ between torch releases
+    (indexing fails on 2.11, the embedding op's backward on 2.13)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(table, DTensor):
+        return per_shard(lambda t, w: w.to(dtype)[t],
+                         shd.batch_placements(tokens), tokens, table)
+    mesh, wp = table.device_mesh, tuple(table.placements)
+    bp = shd.batch_placements(tokens) or (Replicate(),) * mesh.ndim
+    tp, op = [], []
+    for w, b in zip(wp, bp):
+        if w.is_shard(1):                 # the rank's columns, every token
+            tp.append(Replicate()), op.append(Shard(2))
+        elif w.is_shard(0):               # the rank's rows: a partial sum
+            tp.append(Replicate()), op.append(Partial())
+        else:
+            tp.append(b), op.append(b)
+    lo, n = shard_range(mesh, wp, 0, table.shape[0])
+
+    def look(t, w):
+        w = w.to(dtype)
+        if n == table.shape[0]:
+            return w[t]
+        idx = t - lo
+        ok = (idx >= 0) & (idx < n)
+        return torch.where(ok[..., None], w[idx.clamp(0, n - 1)],
+                           torch.zeros((), dtype=dtype, device=w.device))
+    h = shard_map(look, (tuple(tp), wp), tuple(op), tokens, table,
+                  mesh=mesh)
+    return h.redistribute(mesh, bp)
 
 
 def _embed(params, tokens, shd: Sharder, dtype) -> torch.Tensor:
@@ -297,7 +328,8 @@ def lm_head_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     Where the rules shard the vocab, `shard_einsum`.  Where they leave
     it whole on some mesh dims (a vocab the model dim does not divide),
     the work along those dims follows the reference's compiled program:
-    serving contracts each rank's embed shard and sums the logits once;
+    serving contracts each rank's own part of the weight and sums the
+    logits once;
     training keeps the logits whole on every rank there and splits only
     the weight's gradient, each rank forming its own embed rows."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -309,15 +341,41 @@ def lm_head_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if not spare:
         return shard_einsum("bsd,dv->bsv", h, w)
     rep = Replicate()
-    wp = tuple(Shard(0) if i in spare else rep for i in range(mesh.ndim))
     if not torch.is_grad_enabled():
-        hp = tuple(Shard(2) if i in spare else p
-                   for i, p in enumerate(h.placements))
-        op = tuple(Partial() if i in spare else p
-                   for i, p in enumerate(h.placements))
-        return settle(shard_map(
-            lambda hh, ww: torch.einsum("bsd,dv->bsv", hh, ww.to(hh.dtype)),
-            (hp, wp), op, h, w, mesh=mesh))
+        # serving: the weight cast first.  When the batch's tokens are
+        # fewer than the embed dim (a decode step) they are gathered
+        # where the weight's embed rows are sharded, each rank contracts
+        # its own rows against its vocab chunk over the spare dims, and
+        # the logits' partial sums go back onto the batch shards: the
+        # weight never moves.  Else the weight is gathered along the
+        # batch's dims and each rank contracts its embed rows over the
+        # spare dims.
+        few = h.shape[0] * h.shape[1] < w.shape[0]
+        rows = {i for i, p in enumerate(w.placements)
+                if few and p.is_shard() and p.dim == 0}
+        hp, wp, op = [], [], []
+        for i, p in enumerate(h.placements):
+            if i in rows:
+                hp.append(Shard(2)), wp.append(Shard(0)), op.append(Partial())
+            elif i in spare:
+                hp.append(rep if few else Shard(2))
+                wp.append(rep if few else Shard(0))
+                op.append(Shard(2) if few else Partial())
+            else:
+                hp.append(p), wp.append(rep), op.append(p)
+        # the vocab chunks: zero-padded to a multiple of the spare dims
+        v = w.shape[1]
+        pad = (-v) % math.prod(mesh.shape[i] for i in spare) if few else 0
+        lo, n = shard_range(mesh, op, 2, v + pad)
+
+        def head(hh, ww):
+            if few:
+                ww = torch.nn.functional.pad(ww, (0, pad))[:, lo:lo + n]
+            return torch.einsum("bsd,dv->bsv", hh, ww)
+        out = shard_map(head, (tuple(hp), tuple(wp)), tuple(op), h,
+                        w.to(h.dtype), mesh=mesh).redistribute(
+                            mesh, h.placements)
+        return out[..., :v] if pad else out
     return shard_einsum("bsd,dv->bsv", h, w, whole=spare)
 
 
@@ -345,47 +403,102 @@ def lm_logits(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     return logits, aux
 
 
+# rows a chunk of the loss takes: its float32 rows stay about this many
+# bytes, whatever the vocab (a few chunks a step: each adds host ops)
+NLL_CHUNK_BYTES = 1 << 28
+
+
+def _row_chunks(n: int, v: int):
+    """(first row, rows) of the chunks that cover ``n`` rows of ``v``
+    logits, each about `NLL_CHUNK_BYTES` in float32."""
+    c = max(1, NLL_CHUNK_BYTES // max(4 * v, 1))
+    return [(r, min(c, n - r)) for r in range(0, n, c)]
+
+
+class _TokenNLL(torch.autograd.Function):
+    """Per row of ``x`` (N, V), its float32 logsumexp (``own_lse``: on
+    this rank of the vocab's shards only) minus the logit of its target
+    where the target lies in these rows' vocab ``[0, V)`` (``t`` already
+    offset; out of range, as -1, it counts 0): summed over the vocab's
+    shards, the cross entropy.  The logsumexp's max and sum are reduced
+    over the vocab's other shards (the mesh ``groups``).  Both passes go
+    chunk by chunk, in float32 within a chunk; the backward writes the
+    gradient, ``(softmax - one-hot) x g``, straight into one tensor of
+    the logits' type: no whole float32 copy of the logits is made."""
+
+    @staticmethod
+    def forward(ctx, x, t, groups, own_lse: bool):
+        import torch.distributed._functional_collectives as funcol
+        n, v = x.shape
+        ok = (t >= 0) & (t < v)
+        idx = t.clamp(0, v - 1)
+        m, z, gold = (torch.empty(n, dtype=torch.float32, device=x.device)
+                      for _ in range(3))
+        for r, c in _row_chunks(n, v):
+            lf = x[r:r + c].float()
+            mc = lf.amax(dim=-1)
+            m[r:r + c] = mc
+            z[r:r + c] = torch.exp(lf - mc[:, None]).sum(dim=-1)
+            gold[r:r + c] = lf.gather(-1, idx[r:r + c, None])[:, 0]
+        for g in groups:
+            top = funcol.all_reduce(m, "max", g)
+            z = funcol.all_reduce(z * torch.exp(m - top), "sum", g)
+            m = top
+        lse = m + torch.log(z)
+        ctx.save_for_backward(x, idx, ok, lse)
+        return (lse if own_lse else torch.zeros_like(lse)) \
+            - torch.where(ok, gold, torch.zeros_like(gold))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, idx, ok, lse = ctx.saved_tensors
+        grad = torch.empty_like(x)
+        hit = -ok.to(torch.float32)
+        for r, c in _row_chunks(*x.shape):
+            p = torch.exp(x[r:r + c].float() - lse[r:r + c, None])
+            p.scatter_add_(-1, idx[r:r + c, None], hit[r:r + c, None])
+            grad[r:r + c] = p * g[r:r + c, None]
+        return grad, None, None, None
+
+
+def _nll_positions(logits, target, groups=(), lo: int = 0,
+                   own_lse: bool = True) -> torch.Tensor:
+    """Per position of ``logits[:, :-1]`` (local tensors), the cross
+    entropy against ``target`` (a vocab shard's rows start at ``lo``).
+    The rows go flat, the last position's included and cut off after
+    (its target -1): no copy of the sliced logits is made."""
+    b, s, v = logits.shape
+    t = torch.nn.functional.pad(target - lo, (0, 1), value=-1)
+    out = _TokenNLL.apply(logits.reshape(b * s, v), t.reshape(-1),
+                          tuple(groups), own_lse)
+    return out.reshape(b, s)[:, :-1]
+
+
 def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor
                    ) -> torch.Tensor:
     """Mean next-token cross entropy: f32 logsumexp over
-    ``logits[:, :-1]`` against ``tokens[:, 1:]``."""
-    lf = logits[:, :-1].float()
+    ``logits[:, :-1]`` against ``tokens[:, 1:]``, chunk by chunk over the
+    rows (`_TokenNLL`): the value and the gradient are the plain
+    f32 form's, without its float32 copies of the whole batch's logits.
+    On a mesh it runs on each rank's shards (`shard_map`); where the
+    vocab is sharded, the logsumexp's max and sum are reduced over the
+    vocab's mesh dims and each rank picks the targets in its own vocab
+    range, the per-position losses a partial sum over those dims."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
     target = tokens[:, 1:].long()
-    if not hasattr(lf, "placements"):
-        lse = torch.logsumexp(lf, dim=-1)
-        return (lse - lf.gather(-1, target[..., None])[..., 0]).mean()
-    # on a mesh the targets are picked on each rank's shards (DTensor's
-    # gather backward makes a zero tensor of the whole batch's logits);
-    # with the vocab sharded, logsumexp runs as its own steps (max, sum
-    # of exp, log) on the shards, each reduction one value a position
-    # (DTensor would gather the vocab)
-    split = [i for i, p in enumerate(lf.placements)
-             if p.is_shard() and p.dim == 2]
-    if split:
-        m = settle(torch.amax(lf, dim=-1, keepdim=True)).detach()
-        lse = torch.log(settle(torch.sum(torch.exp(lf - m), dim=-1))) \
-            + m[..., 0]
-    else:
-        lse = torch.logsumexp(lf, dim=-1)
-    return (lse - settle(_gold_logits(lf, target, split))).mean()
-
-
-def _gold_logits(lf, target, split):
-    """``lf[b, s, target[b, s]]`` on each rank's shards: over vocab
-    shards (the mesh dims ``split``) each rank picks the targets in its
-    own vocab range, a sum partial over those dims."""
-    from torch.distributed.tensor import Partial, Replicate
-    mesh, pl = lf.device_mesh, tuple(lf.placements)
-    lo, n = shard_range(mesh, pl, 2, lf.shape[-1])
+    if not isinstance(logits, DTensor):
+        return _nll_positions(logits, target).mean()
+    mesh, pl = logits.device_mesh, tuple(logits.placements)
+    split = [i for i, p in enumerate(pl) if p.is_shard() and p.dim == 2]
+    lo, _ = shard_range(mesh, pl, 2, logits.shape[-1])
+    coord = mesh.get_coordinate()
     tp = tuple(Replicate() if i in split else p for i, p in enumerate(pl))
     op = tuple(Partial() if i in split else p for i, p in enumerate(pl))
-
-    def pick(ll, tt):
-        idx = tt - lo
-        ok = (idx >= 0) & (idx < n)
-        g = ll.gather(-1, idx.clamp(0, n - 1)[..., None])[..., 0]
-        return torch.where(ok, g, torch.zeros_like(g))
-    return shard_map(pick, (pl, tp), op, lf, target, mesh=mesh)
+    nll = shard_map(
+        functools.partial(_nll_positions, groups=[(mesh, i) for i in split],
+                          lo=lo, own_lse=all(coord[i] == 0 for i in split)),
+        (pl, tp), op, logits, target, mesh=mesh)
+    return settle(nll).mean()
 
 
 def lm_loss(params: Dict, batch: Dict, cfg: ModelConfig, shd: Sharder

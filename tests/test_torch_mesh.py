@@ -128,6 +128,25 @@ def test_serving_on_a_mesh_matches_the_unmeshed_path(served, tuned):
         assert np.array_equal(a, b)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b",
+                                  "whisper-tiny"])
+def test_serving_an_indivisible_vocab_on_a_mesh_matches_the_unmeshed_path(
+        arch):
+    """A vocab of 509 the model dim does not divide, on (pod, data,
+    model) = (1, 2, 2): the decode step's lm head contracts each rank's
+    embed rows against its vocab chunk with the batch's tokens
+    gathered, the embedding is looked up in each rank's columns, and
+    hymba's in-projection gathers its column chunk alone; logits and
+    greedy tokens as the unmeshed path's."""
+    (meshed, m_tokens), (plain, p_tokens) = spawn_world(
+        worlds.serve_case, 4, arch, False, 509, (1, 2, 2),
+        timeout=worlds.WORLD_TIMEOUT)[0]
+    for a, b in zip(meshed, plain):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    for a, b in zip(m_tokens, p_tokens):
+        assert np.array_equal(a, b)
+
+
 def test_tree_shardings_resolve_each_leaf_by_its_dims():
     import torch
     from repro_torch.distributed.sharding import (WEIGHT_RULES,

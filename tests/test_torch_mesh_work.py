@@ -15,7 +15,18 @@ there to Auto axes and its ``get_config`` to the same two-layer cut).
   partitioned as the reference partitions them, not run whole on every
   rank;
 * the port's ``memory_analysis`` has the reference's keys, its
-  ``argument_bytes`` equal to ``arg_bytes_per_device``.
+  ``argument_bytes`` equal to ``arg_bytes_per_device``, and its peak
+  (arguments + temporaries) is at most 1.25 x the reference's; the
+  record names the storages held at the peak (``peak_storages``);
+* the collective bytes, port over reference, lie in [0.5, 2.0], both
+  sides counted alike (each collective's output, the reference's at
+  the width its program holds; `mesh_work.program_collectives`); where
+  the reference's program has collectives the port does not by design
+  (`mesh_work.BY_DESIGN`: the op and what the port does instead), the
+  named ops are present and the ratio holds without them.
+
+`check_cell` (``torch_mesh_worlds``) makes the assertions;
+``test_torch_mesh_work_wide.py`` holds the other three archs.
 """
 import os
 import sys
@@ -26,14 +37,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 
 import mesh_work  # noqa: E402
+from torch_mesh_worlds import check_cell  # noqa: E402
 
 ARCHS = ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "mamba2-1.3b",
          "hymba-1.5b", "starcoder2-3b", "gemma-7b", "whisper-tiny")
 SHAPES = ("train_4k", "decode_32k")
 LAYERS = 2
 CELLS = [(a, s) for a in ARCHS for s in SHAPES]
-MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes",
-               "generated_code_bytes"}
 
 
 @pytest.fixture(scope="module")
@@ -60,15 +70,4 @@ def reference():
 def test_per_device_flops_match_the_reference(reference, arch, shape):
     port = mesh_work.port_record(arch, shape, LAYERS)
     ref = reference()[arch, shape]
-    assert port["status"] == "ok" and ref["status"] == "ok", ref
-    row = mesh_work.row(port, ref)
-    print(f"{arch} {shape}: port {row['port_flops']:.4g} reference "
-          f"{row['ref_flops']:.4g} ratio {row['ratio']:.4f}")
-    assert 0.8 <= row["ratio"] <= 1.25, row
-    mem = port["memory_analysis"]
-    assert set(mem) == MEMORY_KEYS and set(ref["memory_analysis"]) \
-        == MEMORY_KEYS
-    assert mem["argument_bytes"] == port["arg_bytes_per_device"]
-    assert mem["temp_bytes"] > 0 and mem["output_bytes"] > 0
-    assert mem["generated_code_bytes"] is None \
-        and port["why"]["generated_code_bytes"]
+    check_cell(port, ref)

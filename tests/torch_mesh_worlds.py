@@ -338,29 +338,37 @@ def case_id(c):
                else ""))
 
 
-def serve_case(rank, world, arch, tuned):
+def serve_case(rank, world, arch, tuned, vocab=None, mesh_shape=(2, 1, 2)):
     """Prefill (4 x 16) and two greedy decode steps of ``arch``'s smoke
-    config in float32, on a (2, 1, 2) mesh and without one, tuned
-    layers on or off: (meshed logits, unmeshed logits, meshed tokens,
-    unmeshed tokens), rank 0's."""
+    config in float32 (its vocab replaced by ``vocab`` where given; an
+    encoder-decoder's frames seeded), on a ``mesh_shape`` mesh of
+    (pod, data, model) and without one, tuned layers on or off:
+    (meshed logits, unmeshed logits, meshed tokens, unmeshed tokens),
+    rank 0's."""
     from repro_torch.configs import get_smoke
     from repro_torch.distributed import make_serve_fns
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model, device_put, param_shardings
     from repro_torch.models.layers import use_tuned_layers
     torch.set_num_threads(1)
-    mesh = make_mesh((2, 1, 2), MESH_AXES)
-    model = build_model(dataclasses.replace(get_smoke(arch),
-                                            dtype="float32"))
+    mesh = make_mesh(mesh_shape, MESH_AXES)
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    if vocab:
+        cfg = dataclasses.replace(cfg, vocab=vocab)
+    model = build_model(cfg)
     params = model.init(seed=0, device="cpu", param_dtype=torch.float32)
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, model.cfg.vocab, (4, 16)).astype(np.int32))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (4, 16)).astype(np.int32))}
+    if cfg.frontend == "frames":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (4, cfg.enc_seq, cfg.d_model)).astype(np.float32))
     out = []
     for m, p in ((mesh, device_put(params, param_shardings(params, mesh))),
                  (None, params)):
         prefill, decode = make_serve_fns(model, mesh=m)
         with torch.no_grad(), use_tuned_layers(tuned):
-            logits, cache = prefill(p, {"tokens": toks})
+            logits, cache = prefill(p, dict(batch))
             full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") \
                 else t
             got = [full(logits).numpy()]
@@ -423,3 +431,67 @@ def meshed_and_plain(rank, world, mesh_shape, archs):
                              for k, v in final["plain"].items())
         out[arch] = runs
     return out
+
+
+def loss_case(rank, world, logits_np, tokens_np, placements, chunk_bytes):
+    """`next_token_nll` on a (1, world) mesh of (data, model), the logits
+    laid out by ``placements`` ("vocab": sharded over model, else
+    whole), with ``chunk_bytes`` as the loss's chunk: (loss, the logits'
+    whole gradient, the collectives a rank ran)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+
+    torch.set_num_threads(1)
+    transformer.NLL_CHUNK_BYTES = chunk_bytes
+    mesh = make_mesh((1, world), ("data", "model"))
+    pl = ((Replicate(), Shard(2)) if placements == "vocab"
+          else (Replicate(), Replicate()))
+    logits = distribute_tensor(torch.from_numpy(logits_np), mesh, pl,
+                               src_data_rank=None).requires_grad_(True)
+    tokens = distribute_tensor(torch.from_numpy(tokens_np), mesh,
+                               (Replicate(), Replicate()), src_data_rank=None)
+    with CommDebugMode() as comm:
+        loss = transformer.next_token_nll(logits, tokens)
+        loss.backward()
+    return (float(loss.full_tensor()), logits.grad.full_tensor().numpy(),
+            {str(k): int(v) for k, v in comm.get_comm_counts().items()})
+
+
+MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes",
+               "generated_code_bytes"}
+
+
+def check_cell(port, ref):
+    """A cell of `tools/mesh_work.py` (port and reference records) held
+    to the reference: per-device flops within [0.8, 1.25], the memory
+    record's keys and peak (at most 1.25 x the reference's, its
+    storages named), the collective bytes within [0.5, 2.0] — without
+    the ops `mesh_work.BY_DESIGN` names, which must be there."""
+    import mesh_work
+    assert port["status"] == "ok" and ref["status"] == "ok", ref
+    row = mesh_work.row(port, ref)
+    print(f"{port['arch']} {port['shape']}: flops {row['ratio']:.4f}, "
+          f"peak {row['port_peak'] / row['ref_peak']:.3f}, collective "
+          f"bytes {row['coll_ratio']:.3f} ({row['coll_ratio_kept']:.3f} "
+          f"without the ops by design)")
+    assert 0.8 <= row["ratio"] <= 1.25, row
+    mem = port["memory_analysis"]
+    assert set(mem) == MEMORY_KEYS and set(ref["memory_analysis"]) \
+        == MEMORY_KEYS
+    assert mem["argument_bytes"] == port["arg_bytes_per_device"]
+    assert mem["temp_bytes"] > 0 and mem["output_bytes"] > 0
+    assert mem["generated_code_bytes"] is None \
+        and port["why"]["generated_code_bytes"]
+    assert row["port_peak"] <= 1.25 * row["ref_peak"], row
+    held = port["peak_storages"]
+    assert held and all(set(h) == {"op", "shape", "dtype", "bytes"}
+                        for h in held)
+    assert sum(h["bytes"] for h in held) <= mem["temp_bytes"]
+    ratio = row["coll_ratio"]
+    if row["by_design"]:
+        assert row["ref_coll_kept"] < 0.9 * row["ref_coll"], row
+        ratio = row["coll_ratio_kept"]
+    assert 0.5 <= ratio <= 2.0, row
