@@ -164,24 +164,41 @@ Phases, each fatal on failure (exit code != 0, no result line):
              parameter of optimizer traffic at 3.35 TB/s); gemma-smoke in
              bf16 through ``--checkpoint-dir`` with a fault after the
              first checkpoint, whose final parameters must equal an
-             uninterrupted run's bit for bit; the launch counters set to
-             0 before and read after (0 hand-written kernel launches);
+             uninterrupted run's bit for bit; the tuning registry's
+             launch counters set to 0 before and read after (0 tuned
+             kernel launches).  Every update on the card runs the
+             optimizer's two kernels (``kernels/csrc/optim.cu``, counted
+             by ``optim.adamw.LAUNCHES``): gemma-7b's run must launch
+             exactly two a leaf a step; from its trained state they are
+             held against the plain version on the card (the global
+             norm within 1e-6 relative; one update of every leaf from
+             the same state and norm: m, v and p bit for bit), their
+             device time per launch read off the profile, timed over
+             one step's leaves beside their bytes bound, the plain
+             version, ``torch.dot`` and ``torch._fused_adamw_``, and
+             ``adamw_update`` timed alone on both routes;
 11. mesh   — the device mesh (`launch.mesh`, DTensor): (a) an NCCL
              world of every visible card, one process each, on a
              (data, model) = (1, cards) mesh: gemma-7b at published
              width, 4 of 28 layers, and qwen2-moe-a2.7b at published
              width, 2 of 24 layers, each 3 steps of 8 x 256 tokens
              through ``launch.train.main --mesh-shape``, held to the
-             unmeshed step on the same card (losses and grad norms
-             1e-5 relative, final parameters 1e-4; on a mesh of more
-             than one card, where bf16 partial products sum in another
-             order, losses and grad norms 1e-2 relative and the
-             parameters' error recorded), with the census of leaf
+             unmeshed step on the same card (`mesh_verdict`: on one
+             card losses and grad norms 1e-5 relative, final parameters
+             1e-4; on a mesh of more than one card, where partial
+             products sum in another order, each arch runs twice: in
+             float32 with TF32 off, the gate, losses 1e-5 and grad
+             norms 1e-3 relative, then in the config's bf16, every loss
+             and grad norm finite, losses 1e-2 relative, grad norms
+             and the parameters' error recorded; an MoE's gates hold
+             its first two steps, its third is recorded: routing
+             flips), with the census of leaf
              placements, the collectives by kind per step of the step
              loop (``CommDebugMode``), ms/step beside the unmeshed one,
              peak memory; each rank sets its launch counters to 0
-             before each run and reads them after (0 hand-written
-             kernel launches: training runs no kernel); (b), four gloo
+             before each run and reads them after (0 tuned kernel
+             launches: they have no backward; the optimizer's kernels
+             on every leaf of every step); (b), four gloo
              ranks sharing the card, is left out (DTensor's all-gather
              over gloo on CUDA tensors hangs there; the CPU tests run
              four-rank gloo worlds); (c) ``python -m
@@ -227,6 +244,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -915,8 +933,8 @@ def phase_table4(dev):
                     kid, None, sig,
                     lambda t: jc.JACOBI_TILES[t][3] == jc.PLANE)
                 results["jacobi_plane"] = _table4_row(
-                    kid, sig, dtype, plane, args, launch[kid], None,
-                    None)[kid]
+                    kid, sig, dtype, plane, args, launch[kid],
+                    library[kid], None)[kid]
             del args
     torch.cuda.empty_cache()
     return results
@@ -2939,6 +2957,7 @@ def _train_full_width(dev, card: str) -> dict:
     from repro_torch.launch import train
     from repro_torch.models import build_model
     from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.params import tree_leaves
 
     full = get_config("gemma-7b")
     cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS, remat="full")
@@ -2951,9 +2970,20 @@ def _train_full_width(dev, card: str) -> dict:
           f"at {full.n_layers} layers); device memory in use before: "
           f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB", flush=True)
     batch, seq, steps = 8, 256, 8
+    opt_launches = _reset_opt_launches()      # the training path starts
     rep = train.main(["--arch", "gemma-7b", "--batch", str(batch),
                       "--seq", str(seq), "--steps", str(steps),
                       "--log-every", "1"], cfg=cfg)
+    opt_launches = dict(opt_launches)         # ... and ends here
+    leaves = len(list(tree_leaves(rep["state"]["params"])))
+    want = len(rep["losses"]) * leaves
+    print(f"[train] the optimizer's kernels on gemma-7b's run: "
+          f"{opt_launches} over {len(rep['losses'])} steps of {leaves} "
+          f"leaves (two a leaf a step: sumsq_kernel and adamw_kernel)",
+          flush=True)
+    if opt_launches != {"sumsq": want, "adamw": want}:
+        fail(f"[train] the optimizer launched {opt_launches}, not "
+             f"{want} of each kernel")
     for i, (loss, gn, ms) in enumerate(zip(rep["losses"], rep["grad_norms"],
                                            rep["step_ms"])):
         print(f"[train]   step {i + 1}: loss {loss:.4f}, grad norm "
@@ -2987,7 +3017,8 @@ def _train_full_width(dev, card: str) -> dict:
           f"peak, for reference)", flush=True)
     out = {k: rep[k] for k in ("losses", "grad_norms", "step_ms",
                                "ms_per_step", "tokens_per_s", "peak_bytes")}
-    out.update(floor_ms=floor, flops=flops, flops_8nd=flops_8nd, params=n)
+    out.update(floor_ms=floor, flops=flops, flops_8nd=flops_8nd, params=n,
+               opt_launches=opt_launches)
     out.update(_train_profile(dev, cfg, rep["state"], batch, seq, t_flops,
                               t_opt))
     del rep
@@ -3019,16 +3050,14 @@ def _train_profile(dev, cfg, state, batch: int, seq: int, t_flops: float,
                    t_opt: float, steps: int = 2) -> dict:
     """Where a full-width training step's time goes: `torch.profiler`
     over ``steps`` more steps from the trained state (device busy time,
-    idle share, the matrix products' share, time by kernel), then
-    `adamw_update` alone on the card (CUDA events) beside its bytes
-    bound."""
+    idle share, the matrix products' share, time by kernel), then the
+    optimizer's kernels (`_optimizer_kernels`)."""
     import torch
     from repro_torch.data import DataConfig, TokenStream
     from repro_torch.distributed import make_train_step
     from repro_torch.launch.train import make_batch_fn
     from repro_torch.models import build_model
-    from repro_torch.models.params import tree_leaves
-    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.optim import AdamWConfig
 
     opt_cfg = AdamWConfig(peak_lr=3e-3, warmup_steps=0, decay_steps=8)
     step = make_train_step(build_model(cfg), opt_cfg)
@@ -3060,21 +3089,183 @@ def _train_profile(dev, cfg, state, batch: int, seq: int, t_flops: float,
               f"{100 * ms / steps / busy:5.1f}%  x{n // steps:<5d} "
               f"{key[:90]}", flush=True)
     del prof
+    opt = _optimizer_kernels(dev, p, o, opt_cfg, rows, steps, busy, t_opt)
+    return {"profile_wall_ms": wall, "busy_ms": busy, "gemm_ms": gemm,
+            **opt}
+
+
+def _reset_opt_launches() -> dict:
+    """The optimizer's launch counters (`optim.adamw.LAUNCHES`, apart
+    from the tuning registry's), set to 0."""
+    from repro_torch.optim import adamw
+    for k in adamw.LAUNCHES:
+        adamw.LAUNCHES[k] = 0
+    return adamw.LAUNCHES
+
+
+# the optimizer's kernels in the kernels JSON line.  They have no Pallas
+# counterpart: the reference's jitted, donating step lets XLA fuse its
+# norm and its per-leaf update; "replaces" names those functions.
+OPT_KERNELS = {
+    "sumsq": ("src/repro_torch/kernels/csrc/optim.cu",
+              "src/repro/optim/adamw.py:44"),
+    "adamw": ("src/repro_torch/kernels/csrc/optim.cu",
+              "src/repro/optim/adamw.py:67"),
+}
+# the kernels' global norm against the plain version's: each leaf's sum
+# in another order (f32 over at most 786 M squares)
+OPT_NORM_RTOL = 1e-6
+
+
+def _optimizer_kernels(dev, params, opt_state, opt_cfg, rows, steps: int,
+                       busy: float, t_opt: float) -> dict:
+    """The optimizer's kernels (csrc/optim.cu) on gemma-7b's leaves from
+    the trained state and seeded gradients: held against the plain
+    version on the card — the global norm within OPT_NORM_RTOL, one
+    update of every leaf from the same state and norm with m, v and p
+    bit for bit (each operation rounds as the eager op does) — then
+    their device time per launch in the profile above, their time over
+    one step's leaves beside the plain version's, the bytes bound and
+    one PyTorch call each (``torch.dot`` per leaf; ``torch._fused_adamw_``,
+    whose clip runs apart and whose eps sits elsewhere: timed, its values
+    not compared), their SASS registers; and ``adamw_update`` alone on
+    both routes beside ``torch._fused_adamw_``.  Returns the kernels'
+    rows of the kernels JSON line."""
+    import torch
+    from repro_torch.core.sass import find_function, template_symbol
+    from repro_torch.kernels import _cuda
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import adamw
+
+    paths = [path for path, _ in tree_leaves(params)]
+    ps = [leaf.value for _, leaf in tree_leaves(params)]
+    ms = [leaf.value for _, leaf in tree_leaves(opt_state["m"])]
+    vs = [leaf.value for _, leaf in tree_leaves(opt_state["v"])]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    gs = [torch.randn(x.shape, generator=gen, device=dev) * 1e-3
+          for x in ps]
     grads = {}
-    for path, leaf in tree_leaves(p):
+    for path, g in zip(paths, gs):
         node = grads
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = torch.full_like(leaf.value, 1e-3)
-    opt_ms = time_ms(lambda: adamw_update(p, grads, o, opt_cfg),
-                     warmup=1, budget_ms=300.0)
-    share = 100 * opt_ms / busy
-    print(f"[train] adamw_update alone: {opt_ms:.2f} ms ({share:.1f} % of "
-          f"the step's busy time; bound {t_opt:.2f} ms, 32 B a parameter "
-          f"at 3.35 TB/s: {t_opt / opt_ms:.2f} of it)", flush=True)
-    del grads
-    return {"profile_wall_ms": wall, "busy_ms": busy, "gemm_ms": gemm,
-            "adamw_ms": opt_ms}
+        node[path[-1]] = g
+    n = sum(x.numel() for x in ps)
+
+    # held against the plain version: the kernels on copies, the plain
+    # version on the state itself (it scales each gradient in place)
+    norm = adamw.global_norm(grads)
+    norm_err = _rel(float(norm), float(adamw.global_norm_plain(grads)))
+    sq_err = max(abs(float(adamw.sumsq(g))
+                     - float(torch.sum(torch.square(g)))) for g in gs)
+    same_mv, ulps, p_err = True, 0, 0.0
+    state = lambda m, v: {"count": opt_state["count"].clone(),
+                          "m": {"w": m}, "v": {"w": v}}
+    for x, g, m, v in zip(ps, gs, ms, vs):
+        xk, mk, vk = x.clone(), m.clone(), v.clone()
+        adamw.update_with_norm({"w": xk}, {"w": g}, state(mk, vk), opt_cfg,
+                               norm, kernels=True)
+        adamw.update_with_norm({"w": x}, {"w": g}, state(m, v), opt_cfg,
+                               norm, kernels=False)
+        same_mv = same_mv and torch.equal(mk, m) and torch.equal(vk, v)
+        if not torch.equal(xk, x):
+            ulps = max(ulps, (xk.view(torch.int32) - x.view(torch.int32))
+                       .abs().max().item())
+            p_err = max(p_err, (xk - x).abs().max().item())
+        del xk, mk, vk
+    print(f"[train] the optimizer's kernels against the plain version on "
+          f"the card, gemma-7b's {len(ps)} leaves ({n / 1e9:.3f} B "
+          f"parameters) from the trained state: global norm rel err "
+          f"{norm_err:.3g} (tol {OPT_NORM_RTOL:g}), a leaf's sum of "
+          f"squares max|err| {sq_err:.3g}; one update from the same state "
+          f"and norm: m and v equal bit for bit {same_mv}, p "
+          f"{'equal bit for bit' if ulps == 0 else f'{ulps} ulps off'} "
+          f"(max|err| {p_err:.3g}; tol 0 ulps: eager PyTorch's one "
+          f"contraction, add_(x, alpha=), is the kernel's fma)", flush=True)
+    if norm_err > OPT_NORM_RTOL or not same_mv or ulps:
+        fail("[train] the optimizer's kernels disagree with the plain "
+             "version")
+
+    # device time per launch in the profile of the steps
+    dev_us = {}
+    for name, keys in (("sumsq", ("sumsq_kernel", "sumsq_final_kernel")),
+                       ("adamw", ("adamw_kernel",))):
+        got = [(ms_, c) for ms_, key, c in rows
+               if any(k in key for k in keys)]
+        step_ms = sum(m_ for m_, _ in got) / steps
+        launches = max((c for _, c in got), default=0) // steps
+        dev_us[name] = 1e3 * step_ms / max(launches, 1)
+        print(f"[train] {name}: {step_ms:.3f} ms/step of device time in "
+              f"the profile ({100 * step_ms / busy:.1f} % of busy), "
+              f"{launches} launches a step, {dev_us[name]:.1f} us a "
+              f"launch", flush=True)
+
+    # one step's leaves, each route; the plain versions scale each
+    # gradient by a clip of 1
+    b1, b2, eps, wd = (opt_cfg.b1, opt_cfg.b2, opt_cfg.eps,
+                       opt_cfg.weight_decay)
+    one = torch.ones((), device=dev)
+    lr, bc1, bc2 = (torch.full((), x, device=dev) for x in (1e-4, 0.1, 0.05))
+    scal = torch.stack([one, lr, bc1, bc2])
+    steps_t = [torch.full((), 10.0, device=dev) for _ in ps]
+    leaves = list(zip(ps, gs, ms, vs))
+    t = lambda fn: time_ms(fn, warmup=1, budget_ms=300.0)
+    sq = dict(
+        ms=t(lambda: [adamw.sumsq(g) for g in gs]),
+        plain_ms=t(lambda: [torch.sum(torch.square(g.float())) for g in gs]),
+        library_ms=t(lambda: [torch.dot(g.view(-1), g.view(-1))
+                              for g in gs]),
+        bound_ms=4.0 * n / HBM_BYTES_PER_S * 1e3)
+    up = dict(
+        ms=t(lambda: [adamw.adamw_leaf(x, g, m, v, scal, b1, b2, eps, wd)
+                      for x, g, m, v in leaves]),
+        plain_ms=t(lambda: [adamw.leaf_update_plain(
+            x, g, m, v, one, lr, bc1, bc2, opt_cfg)
+            for x, g, m, v in leaves]),
+        library_ms=t(lambda: torch._fused_adamw_(
+            ps, gs, ms, vs, [], steps_t, lr=1e-4, beta1=b1, beta2=b2,
+            weight_decay=wd, eps=eps, amsgrad=False, maximize=False)),
+        bound_ms=28.0 * n / HBM_BYTES_PER_S * 1e3)
+    funcs = _cuda.sass_functions()
+    out = {}
+    for name, row, sym, err in (
+            ("sumsq", sq, template_symbol("sumsq_kernel", "float"), sq_err),
+            ("adamw", up, template_symbol("adamw_kernel", "float", "float"),
+             p_err)):
+        fn = find_function(funcs, sym)
+        if fn is None:
+            fail(f"[train] no function {sym}... in the disassembly")
+        loop = fn.main_loop()
+        out[name] = dict(
+            row, max_abs_err=err, bound_by="bytes",
+            device_us=dev_us[name], shape=f"{len(ps)} f32 leaves, "
+            f"{n / 1e9:.3f} B elements",
+            sass=dict(regs=fn.regs, spills=fn.spill_stores + fn.spill_loads,
+                      loop_instructions=(len(fn.body(loop))
+                                         if loop is not None else 0)))
+        print(f"[train] {name}_kernel over one step's {len(ps)} leaves: "
+              f"{row['ms']:.3f} ms (bound {row['bound_ms']:.3f} ms, bytes: "
+              f"{row['bound_ms'] / row['ms']:.2f} of it), plain "
+              f"{row['plain_ms']:.3f} ms, one PyTorch call "
+              f"{row['library_ms']:.3f} ms ("
+              + ("torch.dot a leaf" if name == "sumsq" else
+                 "torch._fused_adamw_ over the leaves, no clip")
+              + f"); {fn.regs} registers, "
+              f"{fn.spill_stores + fn.spill_loads} spill instructions",
+              flush=True)
+
+    # the whole update, each route, beside the fused call
+    k_ms = t(lambda: adamw.adamw_update(params, grads, opt_state, opt_cfg))
+    p_ms = t(lambda: adamw.adamw_update_plain(params, grads, opt_state,
+                                              opt_cfg))
+    print(f"[train] adamw_update alone: {k_ms:.2f} ms on the kernels "
+          f"({100 * k_ms / busy:.1f} % of the step's busy time; bound "
+          f"{t_opt:.2f} ms, 32 B a parameter at 3.35 TB/s: "
+          f"{t_opt / k_ms:.2f} of it), {p_ms:.2f} ms on the plain version "
+          f"({t_opt / p_ms:.2f} of the bound), torch._fused_adamw_ "
+          f"{up['library_ms']:.2f} ms (no norm, no clip)", flush=True)
+    del grads, gs, leaves
+    return {"adamw_ms": k_ms, "adamw_plain_ms": p_ms, "kernels": out}
 
 
 def _train_fault_resume() -> None:
@@ -3115,9 +3306,11 @@ def _train_fault_resume() -> None:
 
 def phase_train(dev, card: str) -> dict:
     """The training path (`repro_torch.launch.train`): the card against
-    the CPU on three smoke configs, gemma-7b at full width, and a fault
-    with a restart; launch counters set to 0 before and read after (the
-    tuned kernels have no backward, so training launches none)."""
+    the CPU on three smoke configs, gemma-7b at full width with the
+    optimizer's kernels held and timed, and a fault with a restart; the
+    registry's launch counters set to 0 before and read after (the
+    tuned kernels have no backward, so training launches none).
+    Returns gemma-7b's run with the optimizer's kernel rows."""
     import gc
     import torch
     from repro_torch import kernels
@@ -3159,11 +3352,13 @@ def _mesh_census(params) -> dict:
 
 
 def _mesh_rank_nccl(rank: int, world: int, arch: str, layers: int,
-                    shape: str) -> dict:
+                    shape: str, compute: str = "config") -> dict:
     """One rank of phase (a): ``arch`` at full width, ``layers`` layers,
     on the (data, model) mesh ``shape`` over every card, then the
-    unmeshed step on this card (rank 0's report is the phase's).  Each
-    rank counts its own kernel launches around each run; rank 0
+    unmeshed step on this card (rank 0's report is the phase's), both
+    in the config's compute type or, with ``compute="float32"``, in
+    float32 with TF32 off.  Each rank counts its own kernel launches
+    (the tuning registry's and the optimizer's) around each run; rank 0
     compares the two runs' final parameters."""
     import gc
     import torch
@@ -3175,17 +3370,25 @@ def _mesh_rank_nccl(rank: int, world: int, arch: str, layers: int,
 
     cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                               remat="full")
+    if compute == "float32":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = dataclasses.replace(cfg, dtype="float32")
     argv = ["--arch", arch, "--batch", "8", "--seq", "256",
             "--steps", str(MESH_STEPS), "--log-every", "0"]
     launched = lambda: {k: v for k, v in kernels.launch_counts().items()
                         if v}
     comm = CommDebugMode()
     kernels.reset_launch_counts()           # the meshed path starts here
+    opt = _reset_opt_launches()
     rep = train.main(argv + ["--mesh-shape", shape], cfg=cfg,
                      around_steps=comm)
     out = {k: rep[k] for k in ("losses", "grad_norms", "step_ms",
                                "ms_per_step", "peak_bytes", "mesh")}
     out["launches"] = {"meshed": launched()}    # ... and ends here
+    out["opt_launches"] = dict(opt)
+    out["leaves"] = len(list(tree_leaves(rep["state"]["params"])))
+    out["compute"] = cfg.dtype
     out["census"] = _mesh_census(rep["state"]["params"])
     out["collectives"] = {str(k): v / MESH_STEPS for k, v in
                           comm.get_comm_counts().items()}
@@ -3218,48 +3421,121 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
 
 
+def _rels(run: dict, key: str) -> list:
+    """Each step's relative difference of ``key`` between a meshed run
+    and its unmeshed one."""
+    return [_rel(x, y) for x, y in zip(run[key], run["plain"][key])]
+
+
+def mesh_verdict(world: int, runs: dict, moe: bool = False):
+    """Phase (a)'s decision for one arch: (faults, record).  ``runs``
+    maps a compute type ("float32", "bfloat16") to rank 0's report of
+    `_mesh_rank_nccl` (``losses``, ``grad_norms``, ``param_err`` and
+    the unmeshed run's under ``plain``); ``record`` holds each run's
+    relative differences by step.  On one card the bf16 run must equal
+    the unmeshed one (losses and grad norms within TRAIN_LOSS_RTOL,
+    parameters within TRAIN_PARAM_ATOL).  On several, the float32 run
+    is the gate: losses within MESH_F32_LOSS_RTOL and grad norms within
+    MESH_F32_NORM_RTOL of one card's; the bf16 run's losses and grad
+    norms must be finite, its losses within MESH_MULTI_RTOL, its grad
+    norms recorded.  An MoE's gates hold its first MESH_MOE_STEPS steps
+    (the first update's effect included) and record the rest: top-k
+    routing is a step function of the router's logits, so once updates
+    have moved weights by a rounding, a token near a tie may take
+    another expert, which moves the loss by a step, not a rounding."""
+    faults, record = [], {}
+    for compute, run in runs.items():
+        rec = record[compute] = {"losses": _rels(run, "losses"),
+                                 "grad_norms": _rels(run, "grad_norms"),
+                                 "param_err": run["param_err"]}
+        tag = f"{compute} on {world} card(s)"
+        vals = (run["losses"] + run["grad_norms"] + run["plain"]["losses"]
+                + run["plain"]["grad_norms"])
+        if len(run["losses"]) != len(run["plain"]["losses"]) or \
+                not all(map(math.isfinite, vals)):
+            faults.append(f"{tag}: a run stopped short, or a loss or grad "
+                          f"norm is not finite")
+            continue
+        if world == 1:
+            loss, norm = max(rec["losses"]), max(rec["grad_norms"])
+            if loss > TRAIN_LOSS_RTOL or norm > TRAIN_LOSS_RTOL or \
+                    run["param_err"] > TRAIN_PARAM_ATOL:
+                faults.append(f"{tag}: the meshed step is not the unmeshed "
+                              f"one (losses {loss:.3g}, grad norms "
+                              f"{norm:.3g}, params {run['param_err']:.3g})")
+            continue
+        steps = MESH_MOE_STEPS if moe else None
+        what = f"steps 1-{steps}'s" if moe else "the"
+        loss = max(rec["losses"][:steps])
+        norm = max(rec["grad_norms"][:steps])
+        if compute == "float32":
+            if loss > MESH_F32_LOSS_RTOL:
+                faults.append(f"{tag}: {what} losses {loss:.3g} off one "
+                              f"card's (tol {MESH_F32_LOSS_RTOL:g})")
+            if norm > MESH_F32_NORM_RTOL:
+                faults.append(f"{tag}: {what} grad norms {norm:.3g} off "
+                              f"one card's (tol {MESH_F32_NORM_RTOL:g})")
+        elif loss > MESH_MULTI_RTOL:
+            faults.append(f"{tag}: {what} losses {loss:.3g} off one card's "
+                          f"(tol {MESH_MULTI_RTOL:g})")
+    return faults, record
+
+
 def _mesh_case(arch: str, layers: int, of: int, shape, card: str):
-    """Phase (a) for one arch: the meshed run against the unmeshed one,
-    fatal past [train]'s tolerances or on any kernel launch."""
+    """Phase (a) for one arch: the meshed run against the unmeshed one
+    (on several cards in float32, then in the config's type), judged by
+    `mesh_verdict` after each; fatal on a fault or on any launch of a
+    tuned kernel, and unless the optimizer's kernels ran on every leaf
+    of every step."""
+    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import spawn_world
 
     world = shape[0] * shape[1]
-    ranks = spawn_world(_mesh_rank_nccl, world, arch, layers,
-                        f"{shape[0]},{shape[1]}", backend="nccl",
-                        timeout=900)
-    a = ranks[0]
-    plain = a["plain"]
-    loss_err = max(_rel(x, y) for x, y in zip(a["losses"], plain["losses"]))
-    norm_err = max(_rel(x, y) for x, y in zip(a["grad_norms"],
-                                              plain["grad_norms"]))
-    # several cards sum their bf16 partial products in another order
-    # than one card does: there losses and grad norms are held at bf16's
-    # 1e-2 relative, and the parameters recorded
-    rtol = TRAIN_LOSS_RTOL if world == 1 else MESH_MULTI_RTOL
-    print(f"[mesh] (a) NCCL, {world} card(s), mesh {a['mesh']}: {arch} "
-          f"{layers} of {of} layers, {MESH_STEPS} steps of 8 x 256: "
-          f"losses {[round(x, 5) for x in a['losses']]} vs unmeshed "
-          f"{[round(x, 5) for x in plain['losses']]} (rel err "
-          f"{loss_err:.3g}), grad norms rel err {norm_err:.3g} (tol "
-          f"{rtol:g}), final params max|err| {a['param_err']:.3g} ("
-          + (f"tol {TRAIN_PARAM_ATOL:g}" if world == 1 else "recorded")
-          + f"); leaf placements {a['census']}; collectives per step "
-          f"(the step loop alone) {a['collectives']}", flush=True)
-    print(f"[mesh] (a) {arch}: {a['ms_per_step']:.2f} ms/step meshed vs "
-          f"{plain['ms_per_step']:.2f} ms/step unmeshed (median past the "
-          f"first two steps), peak {(a['peak_bytes'] or 0) / 1e9:.2f} GB "
-          f"meshed, {(plain['peak_bytes'] or 0) / 1e9:.2f} GB unmeshed "
-          f"({card})", flush=True)
-    if (loss_err > rtol or norm_err > rtol
-            or (world == 1 and a["param_err"] > TRAIN_PARAM_ATOL)):
-        fail(f"[mesh] (a) {arch}: the meshed step disagrees with the "
-             f"unmeshed one")
-    launches = [r["launches"] for r in ranks]
-    print(f"[mesh] (a) {arch}: hand-written kernel launches, counted in "
-          f"each rank around its runs: {launches}", flush=True)
-    if any(n for r in launches for run in r.values() for n in run.values()):
-        fail(f"[mesh] (a) the training path launched tuned kernels: "
-             f"{launches}")
+    moe = get_config(arch).family == "moe"
+    runs = {}
+    for compute in ("float32", "config") if world > 1 else ("config",):
+        ranks = spawn_world(_mesh_rank_nccl, world, arch, layers,
+                            f"{shape[0]},{shape[1]}", compute,
+                            backend="nccl", timeout=900)
+        a = ranks[0]
+        plain = a["plain"]
+        runs[a["compute"]] = a
+        faults, record = mesh_verdict(world, runs, moe)
+        rec = record[a["compute"]]
+        print(f"[mesh] (a) NCCL, {world} card(s), mesh {a['mesh']}: {arch} "
+              f"{layers} of {of} layers in {a['compute']}, {MESH_STEPS} "
+              f"steps of 8 x 256: losses {a['losses']} vs unmeshed "
+              f"{plain['losses']} (rel err by step "
+              f"{[f'{x:.3g}' for x in rec['losses']]}), grad norms "
+              f"{a['grad_norms']} vs unmeshed {plain['grad_norms']} (rel "
+              f"err by step {[f'{x:.3g}' for x in rec['grad_norms']]}), "
+              f"final params max|err| {a['param_err']:.3g}; leaf "
+              f"placements {a['census']}; collectives per step (the step "
+              f"loop alone) {a['collectives']}", flush=True)
+        print(f"[mesh] (a) {arch} {a['compute']}: {a['ms_per_step']:.2f} "
+              f"ms/step meshed vs {plain['ms_per_step']:.2f} ms/step "
+              f"unmeshed (median past the first two steps), peak "
+              f"{(a['peak_bytes'] or 0) / 1e9:.2f} GB meshed, "
+              f"{(plain['peak_bytes'] or 0) / 1e9:.2f} GB unmeshed "
+              f"({card})", flush=True)
+        if faults:
+            fail(f"[mesh] (a) {arch}: the meshed step disagrees with the "
+                 f"unmeshed one: {'; '.join(faults)}")
+        launches = [r["launches"] for r in ranks]
+        opt = [r["opt_launches"] for r in ranks]
+        want = MESH_STEPS * a["leaves"]
+        print(f"[mesh] (a) {arch}: hand-written kernel launches, counted in "
+              f"each rank around its runs: tuned {launches}, the "
+              f"optimizer's on the meshed run {opt} ({want} of each "
+              f"wanted: {MESH_STEPS} steps x {a['leaves']} leaves)",
+              flush=True)
+        if any(n for r in launches for run in r.values()
+               for n in run.values()):
+            fail(f"[mesh] (a) the training path launched tuned kernels: "
+                 f"{launches}")
+        if any(o != {"sumsq": want, "adamw": want} for o in opt):
+            fail(f"[mesh] (a) the optimizer's kernels did not run on every "
+                 f"leaf of every step: {opt}")
 
 
 # (c)'s cells: (arch, shape, --multi-pod)
@@ -3270,8 +3546,20 @@ DRYRUN_CELLS = (("gemma-7b", "train_4k", True),
 # 16 x 16 mesh of Auto axes, jax 0.9.0, on a CPU; the card's machine has
 # no JAX); the port may do at most 1.25 x that
 MOE_FLOPS_GATE = 2.0
-# (a) on more than one card: losses and grad norms against one card's
+# (a) on more than one card, against one card's run.  The float32 run
+# (TF32 off) is the gate that finds a fault of the meshed step (on
+# (2, 2) a sound tree read losses 3.99e-6 and grad norms 5.24e-4 off).
+MESH_F32_LOSS_RTOL, MESH_F32_NORM_RTOL = 1e-5, 1e-3
+# The config's bf16 run: losses within 1e-2 (gemma-7b read 1.66e-3 on
+# (2, 2)); its grad norms are recorded, not gated: the reordered bf16
+# sums, amplified by the step-2 gradient spike (norm ~119), part the
+# step-3 norms at the parent too (0.123 off; this tree 0.375).
 MESH_MULTI_RTOL = 1e-2
+# An MoE's gates hold steps 1-2 (qwen2-moe-a2.7b on (2, 2): float32
+# 7.16e-6 / 3.92e-5, bf16 losses 8.15e-4 at step 2); its step 3 parts
+# by a routing flip (float32 1.43e-4 / 5.57e-3, as far as one card's own
+# run moved one ulp parts) and is recorded, unheld.
+MESH_MOE_STEPS = 2
 CARD_BYTES = 80e9
 MOE_LAYERS = 2
 
@@ -3286,12 +3574,14 @@ def phase_mesh(card: str, shape=None) -> None:
     import gc
     import tempfile
     import torch
+    from repro_torch.kernels import _cuda
 
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     dryrun = shape is None
     shape = shape or (1, torch.cuda.device_count())
+    _cuda.library()         # built here once; each rank loads it
 
     # (a)
     _mesh_case("gemma-7b", TRAIN_LAYERS, 28, shape, card)
@@ -3468,7 +3758,7 @@ def main() -> None:
     ext_launches = phase_extend(dev, card)
     rows.update(phase_extend_kernels(dev))
     sass = phase_extract(rows, ranking, profile)
-    phase_train(dev, card)
+    train = phase_train(dev, card)
     phase_mesh(card)
     phase_memory(card)
 
@@ -3535,6 +3825,22 @@ def main() -> None:
                 "sass": {k: sass[name][k] for k in ("regs", "spills",
                                                     "loop_instructions")}}
 
+    def opt_entry(name):
+        src, replaces = OPT_KERNELS[name]
+        r = train["kernels"][name]
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces,
+                "launches": train["opt_launches"][name], "path": "train",
+                **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms",
+                                     "device_us", "sass")}}
+
+    for n in OPT_KERNELS:
+        r = train["kernels"][n]
+        print(f"[smoke] kernel {n}: launched on the train path "
+              f"({train['opt_launches'][n]} launches), err "
+              f"{r['max_abs_err']:.3g} ok at {r['shape']}, {r['ms']:.4f} ms "
+              f"vs bound {r['bound_ms']:.4f} ms")
     for n in KERNELS:
         path, counts = paths[n]
         c = counts[COUNTER.get(n, n)]
@@ -3545,7 +3851,8 @@ def main() -> None:
               f" ok at {rows[n]['shape']}, {rows[n]['ms']:.4f} ms vs bound "
               f"{rows[n]['bound_ms']:.4f} ms")
     print(f"[smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": [entry(n) for n in KERNELS]}))
+    print(json.dumps({"kernels": [entry(n) for n in KERNELS]
+                      + [opt_entry(n) for n in OPT_KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -167,7 +167,13 @@ _T_VPU = {"add", "sub", "rsub", "mul", "div", "neg", "abs", "maximum",
           "random"}
 _T_REDUCE = {"sum", "mean", "amax", "amin", "max", "min", "prod", "argmax",
              "argmin", "cumsum", "cumprod", "logsumexp", "all", "any",
-             "linalg_vector_norm", "norm", "var", "std", "var_mean"}
+             "linalg_vector_norm", "norm", "var", "std", "var_mean",
+             "sumsq"}
+# the optimizer's one-pass kernels (`optim.adamw`'s custom ops):
+# (transcendentals, vector ops) per element of a leaf's AdamW step, the
+# eager version's sqrt and fifteen multiplies, adds and divides; it
+# reads p, g, m, v and writes p, m, v in place
+_T_FUSED = {"adamw": (1, 15)}
 _T_CTRL = {"where", "masked_fill"}
 # casts and fills write every element (the reference's
 # ``convert_element_type`` / ``broadcast_in_dim``); views write none
@@ -522,6 +528,12 @@ def mix_from_graph(graph: TorchGraph, *, spec=None) -> InstructionMix:
         elif name in _T_REDUCE:
             mix.vpu_flops += _elems(op.inputs[:1])
             mix.vmem_bytes += in_b + out_b
+        elif name in _T_FUSED:
+            n = _elems(op.inputs[:1])
+            mix.trans_flops += _T_FUSED[name][0] * n
+            mix.vpu_flops += _T_FUSED[name][1] * n
+            mix.vmem_bytes += (in_b + _nbytes(op.inputs[:1])
+                               + _nbytes(op.inputs[2:4]))
         elif name in _T_CTRL:
             mix.ctrl_ops += out_e
             _broadcasts(mix, op, out_e)

@@ -50,10 +50,11 @@ from repro_torch.distributed.sharding import (ACT_RULES, CACHE_RULES, Rules,
                                               mesh_sizes)
 from repro_torch.models.layers import tuned_layers_enabled
 from repro_torch.models.params import tree_leaves
-from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.optim import adamw
 
 if TYPE_CHECKING:
     from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig
 
 __all__ = ["TrainStepConfig", "make_train_step", "make_serve_fns",
            "recommended_microbatches", "place_batch", "batch_dims"]
@@ -193,8 +194,8 @@ def make_train_step(model: "Model", opt_cfg: AdamWConfig, mesh=None,
                 from repro_torch.distributed.compression import \
                     ef_compress_grads
                 grads, opt_state = ef_compress_grads(grads, opt_state, mesh)
-            params, opt_state, om = adamw_update(params, grads, opt_state,
-                                                 opt_cfg)
+            params, opt_state, om = adamw.adamw_update(
+                params, grads, opt_state, opt_cfg)
             # the reference's update drops the "ef" residual it was handed
             opt_state.pop("ef", None)
         metrics = {name: _full(m.detach()) for name, m in metrics.items()}

@@ -41,7 +41,7 @@ __all__ = ["library", "load_extension", "build_log", "check", "stream_of",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("gemm.cu", "rms_norm.cu", "attention.cu", "blas2.cu",
-           "jacobi3d.cu", "library.cu")
+           "jacobi3d.cu", "optim.cu", "library.cu")
 _HEADERS = ("common.cuh", "hopper.cuh")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
@@ -64,6 +64,7 @@ TILE_INFO_INTS = 9
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of every exported function (all return cudaError_t as int)
 _SIGNATURES = {
     "repro_gemm": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -78,6 +79,9 @@ _SIGNATURES = {
     "repro_atax": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "repro_bicg": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "repro_jacobi3d": [_I, _I, _P, _P, _I, _I, _I, _F, _F, _P],
+    "repro_sumsq": [_I, _P, _P, _I, _P, _L, _L, _P],
+    "repro_adamw": [_I, _I, _P, _P, _P, _P, _P, _L, _L, _F, _F, _F, _F, _F,
+                    _F, _P],
     "repro_kernel_attrs": [_I, _I, _I, ctypes.POINTER(_I),
                            ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "repro_tile_count": [_I],
@@ -120,7 +124,8 @@ def _compile(out: Path) -> None:
     t0 = time.perf_counter()
     procs = []
     for name in SOURCES:
-        obj = out.parent / f"{out.stem}.{Path(name).stem}.o"
+        # named by process: ranks of a world may build at once
+        obj = out.parent / f"{out.stem}.{Path(name).stem}.{os.getpid()}.o"
         cmd = [nvcc, *_FLAGS, "-I", str(CSRC), "-c", str(CSRC / name),
                "-o", str(obj)]
         procs.append((name, obj, subprocess.Popen(
@@ -141,6 +146,8 @@ def _compile(out: Path) -> None:
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stderr[-4000:]}")
     os.replace(tmp, out)
+    for _, obj, _ in procs:
+        obj.unlink()
     _log.update(build_s=time.perf_counter() - t0, ptxas=ptxas, cached=False)
 
 

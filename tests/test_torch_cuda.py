@@ -953,3 +953,64 @@ def test_disassembled_registers_are_the_runtime_counts(cuda, kind, table,
                 (tile, dt)
             checked += 1
     assert checked >= len(h.tiles)
+
+
+# ---------------------------------------------------------------------------
+# the optimizer's kernels (csrc/optim.cu): each operation rounds as the
+# plain version's eager op does, so the update is bit for bit
+# ---------------------------------------------------------------------------
+
+def _leaf(cuda, n, dtype, off, scale, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    full = (torch.randn(n + off, generator=g, device=cuda) * scale).to(dtype)
+    return full[off:]
+
+
+@pytest.mark.parametrize("off", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("n", [7, 1003, 1 << 16])
+@pytest.mark.parametrize("gdt", DTYPES, ids=["g_f32", "g_bf16"])
+@pytest.mark.parametrize("pdt", DTYPES, ids=["p_f32", "p_bf16"])
+def test_adamw_kernel_is_the_plain_update_bit_for_bit(cuda, pdt, gdt, n,
+                                                      off):
+    from repro_torch.optim.adamw import AdamWConfig, update_with_norm
+    p, g = _leaf(cuda, n, pdt, off, 1.0, 1), _leaf(cuda, n, gdt, off, 1e-2, 2)
+    m = _leaf(cuda, n, torch.float32, off, 1e-3, 3)
+    v = _leaf(cuda, n, torch.float32, off, 1e-3, 4) ** 2
+    cfg = AdamWConfig()
+    norm = torch.tensor(7.3, device=cuda)
+    got = [x.clone() for x in (p, m, v)]
+    state = lambda a, b: {"count": torch.tensor(2, dtype=torch.int32,
+                                                device=cuda),
+                          "m": {"w": a}, "v": {"w": b}}
+    update_with_norm({"w": got[0]}, {"w": g}, state(got[1], got[2]), cfg,
+                     norm, kernels=True)
+    update_with_norm({"w": p}, {"w": g.clone()}, state(m, v), cfg, norm,
+                     kernels=False)
+    for a, b in zip(got, (p, m, v)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [5, 100_003, 1 << 22])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sumsq_kernel_repeats_and_sums_the_squares(cuda, dtype, n):
+    from repro_torch.optim.adamw import sumsq
+    x = _leaf(cuda, n, dtype, 0, 1.0, 5)
+    a, b = sumsq(x), sumsq(x)
+    assert torch.equal(a, b) and a.dtype == torch.float32 and a.dim() == 0
+    want = torch.sum(torch.square(x.double()))
+    assert abs(a.item() - want.item()) <= 1e-6 * want.item()
+
+
+def test_adamw_update_launches_two_kernels_a_leaf(cuda):
+    from repro_torch.models import Param
+    from repro_torch.optim import adamw
+    shapes = [(64, 32), (1003,), (3, 5, 7)]
+    params = {f"w{i}": Param(torch.randn(s, device=cuda), ("a",) * len(s))
+              for i, s in enumerate(shapes)}
+    grads = {k: torch.randn_like(p.value) for k, p in params.items()}
+    state = adamw.init_adamw(params)
+    before = dict(adamw.LAUNCHES)
+    adamw.adamw_update(params, grads, state, adamw.AdamWConfig())
+    torch.cuda.synchronize()
+    assert {k: adamw.LAUNCHES[k] - before[k] for k in before} == {
+        "sumsq": 3, "adamw": 3}

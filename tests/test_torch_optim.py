@@ -9,6 +9,11 @@ the same numpy inputs, in float32.
   global-norm clip active and inactive: parameters and moments within
   1e-6 relative + 1e-7 absolute, ``count`` exact, the metrics within
   1e-6 relative.
+
+The plain versions the card's comparison holds the kernels to
+(`global_norm_plain`, `adamw_update_plain`, and `update_with_norm`'s
+plain route given the reference's own norm) are held to the reference
+at the same tolerances.
 """
 import jax
 import jax.numpy as jnp
@@ -26,6 +31,8 @@ from repro_torch.models import Param
 from repro_torch.models.params import tree_leaves
 from repro_torch.optim import (AdamWConfig, adamw_update, global_norm,
                                init_adamw, schedule)
+from repro_torch.optim.adamw import (adamw_update_plain, global_norm_plain,
+                                     update_with_norm)
 
 CFG = dict(peak_lr=1e-2, warmup_steps=10, decay_steps=100, weight_decay=0.1,
            clip_norm=1.0)
@@ -74,6 +81,13 @@ def test_global_norm_matches(seed):
                                float(ref_global_norm(ref)), rtol=1e-6)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_global_norm_plain_matches(seed):
+    port, ref = random_tree(seed)
+    np.testing.assert_allclose(float(global_norm_plain(port)),
+                               float(ref_global_norm(ref)), rtol=1e-6)
+
+
 def test_flatten_order_is_the_references():
     port, ref = random_tree(0)
     got = [leaf.value.numpy() for _, leaf in tree_leaves(port)]
@@ -83,18 +97,17 @@ def test_flatten_order_is_the_references():
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("grad_scale", [0.01, 10.0],
-                         ids=["no_clip", "clip"])
-@pytest.mark.parametrize("steps", [1, 3])
-def test_adamw_update_matches(steps, grad_scale):
+def _against_reference(update, steps, grad_scale):
+    """``steps`` updates by ``update(params, grads, state, cfg,
+    ref_metrics)`` and by the reference's, from the same trees."""
     params, ref_params = random_tree(0)
     state, ref_state = init_adamw(params), ref_init(ref_params)
     for s in range(steps):
         grads, ref_grads = random_tree(10 + s, grad_scale)
-        params, state, m = adamw_update(params, grads, state,
-                                        AdamWConfig(**CFG))
         ref_params, ref_state, ref_m = ref_update(
             ref_params, ref_grads, ref_state, RefConfig(**CFG))
+        params, state, m = update(params, grads, state, AdamWConfig(**CFG),
+                                  ref_m)
         for k in ("grad_norm", "lr"):
             np.testing.assert_allclose(float(m[k]), float(ref_m[k]),
                                        rtol=1e-6, err_msg=k)
@@ -108,6 +121,34 @@ def test_adamw_update_matches(steps, grad_scale):
             np.testing.assert_allclose(leaf.value.numpy(), np.asarray(r),
                                        rtol=1e-6, atol=1e-7,
                                        err_msg=str(path))
+
+
+@pytest.mark.parametrize("grad_scale", [0.01, 10.0],
+                         ids=["no_clip", "clip"])
+@pytest.mark.parametrize("steps", [1, 3])
+def test_adamw_update_matches(steps, grad_scale):
+    _against_reference(lambda p, g, s, c, _: adamw_update(p, g, s, c),
+                       steps, grad_scale)
+
+
+@pytest.mark.parametrize("grad_scale", [0.01, 10.0],
+                         ids=["no_clip", "clip"])
+@pytest.mark.parametrize("steps", [1, 3])
+def test_adamw_update_plain_matches(steps, grad_scale):
+    _against_reference(lambda p, g, s, c, _: adamw_update_plain(p, g, s, c),
+                       steps, grad_scale)
+
+
+@pytest.mark.parametrize("grad_scale", [0.01, 10.0],
+                         ids=["no_clip", "clip"])
+def test_the_plain_update_from_the_reference_s_norm_matches(grad_scale):
+    """`update_with_norm`'s plain route, handed the reference's norm —
+    the form in which the card holds the kernels to it."""
+    _against_reference(
+        lambda p, g, s, c, ref_m: update_with_norm(
+            p, g, s, c, torch.tensor(float(ref_m["grad_norm"])),
+            kernels=False),
+        3, grad_scale)
 
 
 def test_the_update_is_in_place():

@@ -433,6 +433,75 @@ def meshed_and_plain(rank, world, mesh_shape, archs):
     return out
 
 
+def optimizer_routes(rank, world, mesh_shape, arch="gemma-7b"):
+    """``arch``'s smoke config in float32, two train steps on a (data,
+    model) = ``mesh_shape`` mesh by each of the optimizer's routes from
+    the same seed-0 parameters and batch: the plain route (DTensor ops),
+    then the kernel route (`optim.adamw.on_card` made true) with its two
+    custom ops stood in for by the plain arithmetic on the operands they
+    are handed, each checked to be a whole, contiguous local shard.
+    {route: {"steps": [(loss, grad_norm)], "params": host tree}, "calls":
+    stand-in calls by op, "leaves": leaves, "placements": the leaves'
+    distinct placements}."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed import TrainStepConfig, make_train_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.params import (device_put, param_shardings,
+                                           tree_leaves)
+    from repro_torch.optim import AdamWConfig, adamw, init_adamw
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    model = build_model(cfg)
+    g = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (8, 32), generator=g)}
+    calls = {"sumsq": 0, "adamw": 0}
+
+    def local(*ts):
+        for t in ts:
+            assert type(t) is torch.Tensor and t.is_contiguous()
+        calls["sumsq" if len(ts) == 1 else "adamw"] += 1
+
+    def sumsq(x):
+        local(x)
+        return torch.sum(torch.square(x.float()))
+
+    def adamw_leaf(p, grad, m, v, scal, b1, b2, eps, weight_decay):
+        local(p, grad, m, v)
+        assert p.shape == grad.shape == m.shape == v.shape
+        clip, lr, bc1, bc2 = scal.unbind()
+        adamw.leaf_update_plain(p, grad, m, v, clip, lr, bc1, bc2,
+                                AdamWConfig(b1=b1, b2=b2, eps=eps,
+                                            weight_decay=weight_decay))
+
+    out = {}
+    for route in ("plain", "kernels"):
+        params = model.init(seed=0, device="cpu", param_dtype=torch.float32)
+        params = device_put(params, param_shardings(params, mesh))
+        opt = init_adamw(params)
+        step = make_train_step(model, AdamWConfig(**OPT), mesh=mesh,
+                               step_cfg=TrainStepConfig())
+        saved = adamw.on_card, adamw.sumsq, adamw.adamw_leaf
+        if route == "kernels":
+            adamw.on_card = lambda tree: True
+            adamw.sumsq, adamw.adamw_leaf = sumsq, adamw_leaf
+        try:
+            steps = []
+            for _ in range(2):
+                params, opt, met = step(params, opt, dict(batch))
+                steps.append((float(met["loss"]), float(met["grad_norm"])))
+        finally:
+            adamw.on_card, adamw.sumsq, adamw.adamw_leaf = saved
+        out[route] = {"steps": steps, "params": host_tree(params)}
+    out["calls"] = calls
+    out["leaves"] = len(list(tree_leaves(params)))
+    out["placements"] = sorted({str(tuple(leaf.value.placements))
+                                for _, leaf in tree_leaves(params)})
+    return out
+
+
 def loss_case(rank, world, logits_np, tokens_np, placements, chunk_bytes):
     """`next_token_nll` on a (1, world) mesh of (data, model), the logits
     laid out by ``placements`` ("vocab": sharded over model, else
