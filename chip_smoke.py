@@ -190,18 +190,31 @@ Phases, each fatal on failure (exit code != 0, no result line):
              float32 with TF32 off, the gate, losses 1e-5 and grad
              norms 1e-3 relative, then in the config's bf16, every loss
              and grad norm finite, losses 1e-2 relative, grad norms
-             and the parameters' error recorded; an MoE's gates hold
-             its first two steps, its third is recorded: routing
-             flips), with the census of leaf
-             placements, the collectives by kind per step of the step
-             loop (``CommDebugMode``), ms/step beside the unmeshed one,
-             peak memory; each rank sets its launch counters to 0
+             and the parameters' error recorded; an MoE's chained gates
+             hold its first two steps, its third is recorded: routing
+             flips compound; and every step of the float32 run held
+             from one shared state — rank 0's unmeshed state before
+             it, kept in rank 0's host memory and scattered onto the
+             mesh —
+             losses 1e-5, grad norms 1e-3 and each leaf's parameters
+             after the update 1e-2 of the unmeshed update's norm, every
+             step of every arch), with the census of leaf
+             placements, the collectives by kind of one step counted
+             after the timed steps (``CommDebugMode``; the timed steps
+             run under no dispatch mode), ms/step (wall and host)
+             beside the unmeshed one — on one card (10 steps, two
+             runs a side, meshed, unmeshed, unmeshed, meshed) the
+             meshed host ms/step within 1.25x and wall within 1.15x —,
+             peak memory, and gemma-7b's bf16 step profiled (wall and
+             host ms, device busy and idle share, host time by op
+             class); each rank sets its launch counters to 0
              before each run and reads them after (0 tuned kernel
              launches: they have no backward; the optimizer's kernels
              on every leaf of every step); (b), four gloo
-             ranks sharing the card, is left out (DTensor's all-gather
-             over gloo on CUDA tensors hangs there; the CPU tests run
-             four-rank gloo worlds); (c) ``python -m
+             ranks sharing the card, is left out (the functional
+             collectives over gloo on CUDA tensors hang there,
+             `tools/gloo_cuda.py`; the CPU tests run four-rank gloo
+             worlds); (c) ``python -m
              repro_torch.launch.dryrun``: gemma-7b train_4k on pod256
              and pod512, qwen2-moe-a2.7b train_4k on pod256, at
              published depth, in two subprocesses (a fake process
@@ -3341,6 +3354,18 @@ def phase_train(dev, card: str) -> dict:
 
 
 MESH_STEPS = 3
+# on one card, where runs are compared bit for bit, more steps time the
+# step: each side's medians read steps 3-10 of two runs, in the order
+# meshed, unmeshed, unmeshed, meshed (`_time_again`), so that neither a
+# few steps nor a run slowed by the shared host's other work decides
+MESH_TIMED_STEPS = 10
+# the arch whose step [mesh] (a) profiles, in its config's type (bf16)
+PROFILE_ARCH = "gemma-7b"
+# one card, (1, 1): the meshed step runs the unmeshed one's work as one
+# local program, so its host ms/step stays within 1.25x the unmeshed
+# one's and its wall ms/step within 1.15x (medians of steps 3-10 of two
+# runs a side, no dispatch mode active)
+MESH_ONE_HOST_RATIO, MESH_ONE_WALL_RATIO = 1.25, 1.15
 
 
 def _mesh_census(params) -> dict:
@@ -3351,18 +3376,259 @@ def _mesh_census(params) -> dict:
                         for _, leaf in tree_leaves(params)))
 
 
+def _host_params(params, rank: int) -> dict:
+    """{path: whole float32 host tensor} of a Param tree, on rank 0 (a
+    DTensor leaf is gathered: every rank joins); {} elsewhere."""
+    import torch
+    from repro_torch.models.params import tree_leaves
+    out = {}
+    for path, leaf in tree_leaves(params):
+        v = leaf.value
+        whole = v.full_tensor() if hasattr(v, "full_tensor") else v
+        if rank == 0:
+            out[path] = whole.detach().to("cpu", torch.float32, copy=True)
+        del whole
+    return out
+
+
+def counted_step(rep) -> dict:
+    """One more step of a `launch.train.main` run under ``CommDebugMode``,
+    after its timed steps (which run under no dispatch mode): the
+    collectives a step issues, by kind."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    st = rep["state"]
+    with CommDebugMode() as comm:
+        st["params"], st["opt"], m = rep["train_step"](
+            st["params"], st["opt"], rep["make_batch"](rep["steps"]))
+        float(m["loss"])
+    return {str(k): v for k, v in comm.get_comm_counts().items()}
+
+
+# host time by op class: the self time of a cProfiled step's functions,
+# each in the first class whose words its file or name holds
+OP_CLASSES = (
+    ("collectives and waits", ("_functional_collectives", "distributed_c10d",
+                               "c10d", "all_gather", "reduce_scatter",
+                               "all_reduce", "all_to_all", "wait_tensor",
+                               "_collective_utils")),
+    ("sharding propagation", ("distributed/tensor/_sharding_prop",
+                              "distributed/tensor/_op_schema",
+                              "distributed/tensor/_ops/",
+                              "distributed/tensor/_dtensor_spec")),
+    ("redistributes", ("distributed/tensor/_redistribute",
+                       "distributed/tensor/placement_types")),
+    ("DTensor dispatch", ("distributed/tensor/",)),
+    ("autograd and remat", ("utils/checkpoint", "torch/autograd/",
+                            "run_backward", "_functions")),
+    ("local kernels", ("built-in method", "torch._C", "torch/_ops",
+                       "torch/_tensor", "nn/functional", "functional.py")),
+)
+
+
+def op_class(filename: str, name: str) -> str:
+    """`OP_CLASSES`' class of a profiled function (file, name), or "model
+    and other Python"."""
+    text = f"{filename}:{name}".replace("\\", "/")
+    for cls, words in OP_CLASSES:
+        if any(w in text for w in words):
+            return cls
+    return "model and other Python"
+
+
+def step_profile(rep, setting: str) -> dict:
+    """Where one steady step of a `launch.train.main` run goes, after its
+    timed steps (each a step of its own; every rank takes them): wall and
+    host ms (host: the step's start until ``train_step`` returns, before
+    the loss is read) of a plain step; device busy (the union of its
+    kernels' intervals) and idle share under ``torch.profiler``; host
+    time by op class (`OP_CLASSES`) under ``cProfile``, whose hooks
+    inflate Python-heavy classes: read its shares, not its sum."""
+    import cProfile
+    import pstats
+    import torch
+    st, step, make_batch = rep["state"], rep["train_step"], rep["make_batch"]
+    n = [rep["steps"] + 1]
+
+    def one():
+        st["params"], st["opt"], m = step(st["params"], st["opt"],
+                                          make_batch(n[0]))
+        n[0] += 1
+        return m
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = one()
+    t1 = time.perf_counter()
+    float(m["loss"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        tp = time.perf_counter()
+        float(one()["loss"])
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - tp) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    busy /= 1e3
+    del prof
+    pr = cProfile.Profile()
+    torch.cuda.synchronize()
+    tc = time.perf_counter()
+    pr.enable()
+    m = one()
+    pr.disable()
+    host_c = (time.perf_counter() - tc) * 1e3
+    float(m["loss"])
+    by = {}
+    for (fname, _, func), row in pstats.Stats(pr).stats.items():
+        cls = op_class(fname, func)
+        by[cls] = by.get(cls, 0.0) + row[2] * 1e3      # self seconds
+    out = {"setting": setting, "wall_ms": (t2 - t0) * 1e3,
+           "host_ms": (t1 - t0) * 1e3, "profiled_wall_ms": prof_wall,
+           "busy_ms": busy, "idle": 1 - busy / prof_wall,
+           "cprofile_host_ms": host_c,
+           "by_class_ms": dict(sorted(by.items(), key=lambda kv: -kv[1]))}
+    return out
+
+
+def _host_state(state) -> dict:
+    """A host copy of a train state's parameters and moments (what
+    rank 0 shares for a held step)."""
+    from repro_torch.models.params import Param, map_params
+    copy = lambda p: Param(p.value.detach().to("cpu", copy=True), p.dims)
+    opt = state["opt"]
+    return {"params": map_params(copy, state["params"]),
+            "m": map_params(copy, opt["m"]), "v": map_params(copy, opt["v"]),
+            "count": opt["count"].detach().to("cpu", copy=True)}
+
+
+def _shared_state(rank: int, host, mesh, cfg, dev):
+    """Rank 0's host state (`_host_state`) on the mesh: each leaf
+    scattered from rank 0 by its weight rules (``distribute_tensor``,
+    ``src_data_rank=0``: the other ranks send nothing), the count
+    broadcast; returns (params, opt state)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models import build_model, param_shardings
+    from repro_torch.models.params import Param, tree_leaves
+
+    tmpl = build_model(cfg).abstract_params()
+    shards = dict(tree_leaves(param_shardings(tmpl, mesh)))
+
+    def place(name):
+        src = dict(tree_leaves(host[name])) if rank == 0 else None
+
+        def one(path, p):
+            whole = (src[path].value.to(dev) if rank == 0 else
+                     torch.empty(p.value.shape, dtype=torch.float32,
+                                 device=dev))
+            return Param(distribute_tensor(whole, mesh,
+                                           shards[path].placements,
+                                           src_data_rank=0), p.dims)
+        return _map_paths(one, tmpl)
+    count = (host["count"].to(dev) if rank == 0 else
+             torch.zeros((), dtype=torch.int32, device=dev))
+    dist.broadcast(count, src=0)
+    return place("params"), {"m": place("m"), "v": place("v"),
+                             "count": count}
+
+
+def _map_paths(fn, tree, path=()):
+    from repro_torch.models.params import Param
+    if isinstance(tree, Param):
+        return fn(path, tree)
+    return {k: _map_paths(fn, v, path + (k,)) for k, v in tree.items()}
+
+
+def _held_steps(rank: int, rep, mesh, cfg, states: dict,
+                plain_final: dict) -> dict:
+    """Each step k of a float32 run held from one shared state: the
+    unmeshed run's state before step k (k = 1: the seed's, which every
+    rank builds; else rank 0's host copy of it, ``states[k - 1]``,
+    scattered onto the mesh), one meshed step from it with batch k, its
+    loss and grad norm, and the parameters after its update against the
+    unmeshed step's (``plain_final`` for the last step): per leaf the
+    norm of the difference over the norm of the unmeshed update, the
+    largest leaf kept.  The placed parameters must be rank 0's state
+    bit for bit."""
+    import torch
+    from repro_torch.models import build_model, device_put, param_shardings
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import init_adamw
+
+    losses, norms, rels, worst, exact = [], [], [], [], []
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device("cpu"))
+    host_params = lambda k: {path: leaf.value for path, leaf in
+                             tree_leaves(states[k]["params"])}
+    for k in range(1, MESH_STEPS + 1):
+        if k == 1:
+            params = build_model(cfg).init(seed=0, device=dev,
+                                           param_dtype=torch.float32)
+            params = device_put(params, param_shardings(params, mesh))
+            opt = init_adamw(params)
+        else:
+            params, opt = _shared_state(rank, states.get(k - 1), mesh, cfg,
+                                        dev)
+        prev = _host_params(params, rank)
+        if k > 1 and rank == 0:
+            saved = host_params(k - 1)
+            exact.append(saved.keys() == prev.keys() and all(
+                torch.equal(prev[path], saved[path]) for path in saved))
+        params, opt, m = rep["train_step"](params, opt,
+                                           rep["make_batch"](k - 1))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        after = _host_params(params, rank)
+        del params, opt, m
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        if rank != 0:
+            continue
+        ref = host_params(k) if k < MESH_STEPS else plain_final
+        rel = {path: float((after[path] - ref[path]).norm()
+                           / max(float((ref[path] - prev[path]).norm()),
+                                 1e-30)) for path in ref}
+        leaf = max(rel, key=rel.get)
+        rels.append(rel[leaf])
+        worst.append(".".join(leaf))
+        del ref, after, prev
+    return {"losses": losses, "grad_norms": norms, "param_rel": rels,
+            "param_leaf": worst, "restored_exact": exact}
+
+
 def _mesh_rank_nccl(rank: int, world: int, arch: str, layers: int,
-                    shape: str, compute: str = "config") -> dict:
+                    shape: str, compute: str = "config",
+                    held: bool = False) -> dict:
     """One rank of phase (a): ``arch`` at full width, ``layers`` layers,
     on the (data, model) mesh ``shape`` over every card, then the
     unmeshed step on this card (rank 0's report is the phase's), both
     in the config's compute type or, with ``compute="float32"``, in
-    float32 with TF32 off.  Each rank counts its own kernel launches
-    (the tuning registry's and the optimizer's) around each run; rank 0
-    compares the two runs' final parameters."""
+    float32 with TF32 off.  The timed steps run under no dispatch mode;
+    one more step of the meshed run counts its collectives
+    (`counted_step`), and `PROFILE_ARCH`'s config-type runs profile one
+    more (`step_profile`).  With ``held`` (float32 on several cards)
+    every step is also held from one shared state (`_held_steps`): rank
+    0's unmeshed run keeps a host copy of its state after each step but
+    the last.  Each rank counts its own kernel
+    launches (the tuning registry's and the optimizer's) around each
+    run; rank 0 compares the two runs' final parameters."""
     import gc
     import torch
-    from torch.distributed.tensor.debug import CommDebugMode
+    import torch.distributed as dist
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.launch import train
@@ -3374,47 +3640,103 @@ def _mesh_rank_nccl(rank: int, world: int, arch: str, layers: int,
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         cfg = dataclasses.replace(cfg, dtype="float32")
+    steps = MESH_STEPS if world > 1 else MESH_TIMED_STEPS
     argv = ["--arch", arch, "--batch", "8", "--seq", "256",
-            "--steps", str(MESH_STEPS), "--log-every", "0"]
+            "--steps", str(steps), "--log-every", "0"]
+    profile = arch == PROFILE_ARCH and compute == "config"
     launched = lambda: {k: v for k, v in kernels.launch_counts().items()
                         if v}
-    comm = CommDebugMode()
     kernels.reset_launch_counts()           # the meshed path starts here
     opt = _reset_opt_launches()
-    rep = train.main(argv + ["--mesh-shape", shape], cfg=cfg,
-                     around_steps=comm)
+    rep = train.main(argv + ["--mesh-shape", shape], cfg=cfg)
     out = {k: rep[k] for k in ("losses", "grad_norms", "step_ms",
-                               "ms_per_step", "peak_bytes", "mesh")}
+                               "host_step_ms", "ms_per_step",
+                               "host_ms_per_step", "peak_bytes", "mesh")}
     out["launches"] = {"meshed": launched()}    # ... and ends here
     out["opt_launches"] = dict(opt)
     out["leaves"] = len(list(tree_leaves(rep["state"]["params"])))
     out["compute"] = cfg.dtype
     out["census"] = _mesh_census(rep["state"]["params"])
-    out["collectives"] = {str(k): v / MESH_STEPS for k, v in
-                          comm.get_comm_counts().items()}
+    mesh = next(iter(tree_leaves(rep["state"]["params"])))[1] \
+        .value.device_mesh
     # every rank joins each gather; rank 0 keeps the host copies
-    final = {}
-    for path, leaf in tree_leaves(rep["state"]["params"]):
-        whole = leaf.value.full_tensor()
-        if rank == 0:
-            final[path] = whole.cpu()
-        del whole
-    del rep, leaf           # nothing of the meshed run stays on the card
+    final = _host_params(rep["state"]["params"], rank)
+    out["collectives"] = counted_step(rep)
+    if profile:
+        out["profile"] = {"meshed": step_profile(rep, "meshed")}
+    rep["state"] = None         # nothing of the meshed run's state stays
     gc.collect()
     torch.cuda.empty_cache()
+    saver, states = None, {}
+    if held and rank == 0:
+        def saver(n, state):
+            if n < MESH_STEPS:
+                states[n] = _host_state(state)
+    plain_final = {}
     if rank == 0:
         kernels.reset_launch_counts()       # the unmeshed path starts here
-        plain = train.main(argv, cfg=cfg)
+        plain = train.main(argv, cfg=cfg, after_step=saver)
         out["launches"]["unmeshed"] = launched()    # ... and ends here
         out["plain"] = {k: plain[k] for k in ("losses", "grad_norms",
-                                              "ms_per_step", "peak_bytes")}
-        out["param_err"] = max(
-            (leaf.value - final[path].to(leaf.value.device)).abs().max()
-            .item() for path, leaf in tree_leaves(plain["state"]["params"]))
+                                              "step_ms", "host_step_ms",
+                                              "ms_per_step",
+                                              "host_ms_per_step",
+                                              "peak_bytes")}
+        plain_final = _host_params(plain["state"]["params"], 0)
+        out["param_err"] = max((plain_final[p] - final[p]).abs().max()
+                               .item() for p in plain_final)
+        if profile:
+            out["profile"]["unmeshed"] = step_profile(plain, "unmeshed")
         del plain
+    del final
+    gc.collect()
+    torch.cuda.empty_cache()
+    if world == 1:
+        _time_again(out, argv, shape, cfg)
+    if held:
+        dist.barrier()          # rank 0's states are kept
+        out["held"] = _held_steps(rank, rep, mesh, cfg, states, plain_final)
+        states.clear()
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def _runs(timing: dict) -> dict:
+    """`_time_again`'s per-run medians, rounded for a log line."""
+    return {name: [[round(x, 2) for x in run] for run in runs]
+            for name, runs in timing.items()}
+
+
+def _time_again(out: dict, argv: list, shape: str, cfg) -> None:
+    """One card: the unmeshed run, then the meshed one, once more after
+    the first two (meshed, unmeshed), so that the four runs go ABBA and
+    a drift of the shared host's load between them cancels; each side's
+    ms/step (wall and host) becomes the median of its two runs' steps
+    past the first two, and ``timing`` keeps each run's own medians."""
+    import gc
+    import statistics
+    import torch
+    from repro_torch.launch import train
+
+    sides = {"unmeshed": out["plain"], "meshed": out}
+    timing = {name: [(d["ms_per_step"], d["host_ms_per_step"])]
+              for name, d in sides.items()}
+    for name, extra in (("unmeshed", []),
+                        ("meshed", ["--mesh-shape", shape])):
+        rep = train.main(argv + extra, cfg=cfg)
+        rep["state"] = None
+        d = sides[name]
+        for key in ("step_ms", "host_step_ms"):
+            d[key] = d[key][2:] + rep[key][2:]
+        timing[name].append((rep["ms_per_step"], rep["host_ms_per_step"]))
+        del rep
+        gc.collect()
+        torch.cuda.empty_cache()
+    for d in sides.values():
+        d["ms_per_step"] = statistics.median(d["step_ms"])
+        d["host_ms_per_step"] = statistics.median(d["host_step_ms"])
+    out["timing"] = timing
 
 
 def _rel(a: float, b: float) -> float:
@@ -3430,19 +3752,27 @@ def _rels(run: dict, key: str) -> list:
 def mesh_verdict(world: int, runs: dict, moe: bool = False):
     """Phase (a)'s decision for one arch: (faults, record).  ``runs``
     maps a compute type ("float32", "bfloat16") to rank 0's report of
-    `_mesh_rank_nccl` (``losses``, ``grad_norms``, ``param_err`` and
-    the unmeshed run's under ``plain``); ``record`` holds each run's
-    relative differences by step.  On one card the bf16 run must equal
-    the unmeshed one (losses and grad norms within TRAIN_LOSS_RTOL,
-    parameters within TRAIN_PARAM_ATOL).  On several, the float32 run
-    is the gate: losses within MESH_F32_LOSS_RTOL and grad norms within
-    MESH_F32_NORM_RTOL of one card's; the bf16 run's losses and grad
-    norms must be finite, its losses within MESH_MULTI_RTOL, its grad
-    norms recorded.  An MoE's gates hold its first MESH_MOE_STEPS steps
-    (the first update's effect included) and record the rest: top-k
-    routing is a step function of the router's logits, so once updates
-    have moved weights by a rounding, a token near a tie may take
-    another expert, which moves the loss by a step, not a rounding."""
+    `_mesh_rank_nccl` (``losses``, ``grad_norms``, ``param_err``, the
+    unmeshed run's under ``plain`` and, for float32 on several cards,
+    the steps held from one shared state under ``held``); ``record``
+    holds each run's relative differences by step.  On one card the
+    bf16 run must equal the unmeshed one (losses and grad norms within
+    TRAIN_LOSS_RTOL, parameters within TRAIN_PARAM_ATOL).  On several,
+    the float32 run is the gate, twice.  Held: every step of every
+    arch, an MoE's too, from the unmeshed run's state before it — losses
+    within MESH_F32_LOSS_RTOL, grad norms within MESH_F32_NORM_RTOL and
+    each leaf's parameters after the update within MESH_F32_PARAM_RTOL
+    of the unmeshed update's norm, the restored state the checkpoint's
+    bit for bit.  Chained (each run from its own previous step): losses
+    and grad norms within the same bounds, an MoE's on its first
+    MESH_MOE_STEPS steps only (the first update's effect included):
+    top-k routing is a step function of the router's logits, so once
+    updates have moved weights by a rounding, a token near a tie may
+    take another expert, which moves the loss by a step, not a
+    rounding, and the chained run lets it compound.  The bf16 run's
+    losses and grad norms must be finite, its losses within
+    MESH_MULTI_RTOL (an MoE's on its first MESH_MOE_STEPS steps), its
+    grad norms recorded."""
     faults, record = [], {}
     for compute, run in runs.items():
         rec = record[compute] = {"losses": _rels(run, "losses"),
@@ -3464,6 +3794,8 @@ def mesh_verdict(world: int, runs: dict, moe: bool = False):
                               f"one (losses {loss:.3g}, grad norms "
                               f"{norm:.3g}, params {run['param_err']:.3g})")
             continue
+        if compute == "float32":
+            faults += _held_faults(tag, run, rec)
         steps = MESH_MOE_STEPS if moe else None
         what = f"steps 1-{steps}'s" if moe else "the"
         loss = max(rec["losses"][:steps])
@@ -3481,12 +3813,63 @@ def mesh_verdict(world: int, runs: dict, moe: bool = False):
     return faults, record
 
 
+def _held_faults(tag: str, run: dict, rec: dict) -> list:
+    """The held check's faults (`mesh_verdict`), each step's readings
+    kept in ``rec["held"]``: the first step past a bound names it."""
+    held = run.get("held")
+    n = len(run["plain"]["losses"])
+    if not held or len(held["losses"]) != n or \
+            len(held["param_rel"]) != n or \
+            not all(map(math.isfinite, held["losses"] + held["grad_norms"]
+                        + held["param_rel"])):
+        return [f"{tag}: the steps held from one shared state are missing, "
+                f"short or not finite"]
+    rec["held"] = {"losses": [_rel(x, y) for x, y in
+                              zip(held["losses"], run["plain"]["losses"])],
+                   "grad_norms": [_rel(x, y) for x, y in
+                                  zip(held["grad_norms"],
+                                      run["plain"]["grad_norms"])],
+                   "param_rel": list(held["param_rel"]),
+                   "param_leaf": list(held.get("param_leaf", []))}
+    faults = []
+    for k in range(n):
+        for key, tol, what in (("losses", MESH_F32_LOSS_RTOL, "loss"),
+                               ("grad_norms", MESH_F32_NORM_RTOL,
+                                "grad norm"),
+                               ("param_rel", MESH_F32_PARAM_RTOL,
+                                "parameters")):
+            got = rec["held"][key][k]
+            if got > tol:
+                leaf = (f" (leaf {rec['held']['param_leaf'][k]})"
+                        if key == "param_rel" and rec["held"]["param_leaf"]
+                        else "")
+                faults.append(f"{tag}: step {k + 1} held from the shared "
+                              f"state: {what} {got:.3g} off one card's"
+                              f"{leaf} (tol {tol:g})")
+    if not all(held.get("restored_exact", [])):
+        faults.append(f"{tag}: a restored shared state is not its "
+                      f"checkpoint bit for bit")
+    return faults
+
+
+def _print_profile(prof: dict, where: str, card: str) -> None:
+    classes = ", ".join(f"{k} {v:.2f}" for k, v in
+                        prof["by_class_ms"].items())
+    print(f"[mesh] (a) profile {PROFILE_ARCH} bf16 8 x 256, {where}: "
+          f"wall {prof['wall_ms']:.2f} ms/step, host {prof['host_ms']:.2f} "
+          f"ms/step (to train_step's return), device busy "
+          f"{prof['busy_ms']:.2f} of {prof['profiled_wall_ms']:.2f} ms "
+          f"profiled (idle share {prof['idle']:.3f}); host ms by op class "
+          f"under cProfile ({prof['cprofile_host_ms']:.2f} ms in all): "
+          f"{classes} ({card})", flush=True)
+
+
 def _mesh_case(arch: str, layers: int, of: int, shape, card: str):
     """Phase (a) for one arch: the meshed run against the unmeshed one
-    (on several cards in float32, then in the config's type), judged by
-    `mesh_verdict` after each; fatal on a fault or on any launch of a
-    tuned kernel, and unless the optimizer's kernels ran on every leaf
-    of every step."""
+    (on several cards in float32, each step also held from one shared
+    state, then in the config's type), judged by `mesh_verdict` after
+    each; fatal on a fault or on any launch of a tuned kernel, and
+    unless the optimizer's kernels ran on every leaf of every step."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import spawn_world
 
@@ -3494,8 +3877,18 @@ def _mesh_case(arch: str, layers: int, of: int, shape, card: str):
     moe = get_config(arch).family == "moe"
     runs = {}
     for compute in ("float32", "config") if world > 1 else ("config",):
+        held = compute == "float32"
+        if held:
+            # the shared states: f32 parameters and two moments after
+            # every step but the last, in rank 0's host memory
+            cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+            print(f"[mesh] (a) {arch}: the shared states take "
+                  f"{12 * cfg.num_params() * (MESH_STEPS - 1) / 1e9:.1f} "
+                  f"GB of rank 0's host memory ({cfg.num_params() / 1e9:.3f}"
+                  f" B parameters x 12 B x {MESH_STEPS - 1} steps)",
+                  flush=True)
         ranks = spawn_world(_mesh_rank_nccl, world, arch, layers,
-                            f"{shape[0]},{shape[1]}", compute,
+                            f"{shape[0]},{shape[1]}", compute, held,
                             backend="nccl", timeout=900)
         a = ranks[0]
         plain = a["plain"]
@@ -3503,31 +3896,64 @@ def _mesh_case(arch: str, layers: int, of: int, shape, card: str):
         faults, record = mesh_verdict(world, runs, moe)
         rec = record[a["compute"]]
         print(f"[mesh] (a) NCCL, {world} card(s), mesh {a['mesh']}: {arch} "
-              f"{layers} of {of} layers in {a['compute']}, {MESH_STEPS} "
-              f"steps of 8 x 256: losses {a['losses']} vs unmeshed "
-              f"{plain['losses']} (rel err by step "
+              f"{layers} of {of} layers in {a['compute']}, "
+              f"{len(a['losses'])} steps of 8 x 256: losses {a['losses']} "
+              f"vs unmeshed {plain['losses']} (rel err by step "
               f"{[f'{x:.3g}' for x in rec['losses']]}), grad norms "
               f"{a['grad_norms']} vs unmeshed {plain['grad_norms']} (rel "
               f"err by step {[f'{x:.3g}' for x in rec['grad_norms']]}), "
               f"final params max|err| {a['param_err']:.3g}; leaf "
-              f"placements {a['census']}; collectives per step (the step "
-              f"loop alone) {a['collectives']}", flush=True)
+              f"placements {a['census']}; collectives of one step "
+              f"counted after the timed ones {a['collectives']}",
+              flush=True)
+        if "held" in rec:
+            h = rec["held"]
+            print(f"[mesh] (a) {arch} {a['compute']}, each step held from "
+                  f"the unmeshed run's state before it (scattered from "
+                  f"rank 0's host copy, bit for bit: "
+                  f"{a['held']['restored_exact']}): losses "
+                  f"{a['held']['losses']} (rel err by step "
+                  f"{[f'{x:.3g}' for x in h['losses']]}), grad norms "
+                  f"{a['held']['grad_norms']} (rel err by step "
+                  f"{[f'{x:.3g}' for x in h['grad_norms']]}), parameters "
+                  f"after the update, |meshed - unmeshed| / |unmeshed "
+                  f"update| of the worst leaf by step "
+                  f"{[f'{x:.3g}' for x in h['param_rel']]} "
+                  f"({h['param_leaf']})", flush=True)
+        wall = a["ms_per_step"] / plain["ms_per_step"]
+        host = a["host_ms_per_step"] / plain["host_ms_per_step"]
         print(f"[mesh] (a) {arch} {a['compute']}: {a['ms_per_step']:.2f} "
               f"ms/step meshed vs {plain['ms_per_step']:.2f} ms/step "
-              f"unmeshed (median past the first two steps), peak "
+              f"unmeshed ({wall:.3f}x), host {a['host_ms_per_step']:.2f} "
+              f"vs {plain['host_ms_per_step']:.2f} ms/step ({host:.3f}x) "
+              f"(medians past the first two steps"
+              + (f" of two runs each, run in the order meshed, unmeshed, "
+                 f"unmeshed, meshed: wall and host ms/step by run "
+                 f"{_runs(a['timing'])}" if "timing" in a else "")
+              + f", no dispatch mode active), peak "
               f"{(a['peak_bytes'] or 0) / 1e9:.2f} GB meshed, "
               f"{(plain['peak_bytes'] or 0) / 1e9:.2f} GB unmeshed "
               f"({card})", flush=True)
+        if world == 1 and (host > MESH_ONE_HOST_RATIO
+                           or wall > MESH_ONE_WALL_RATIO):
+            faults.append(f"one card: the meshed step's host {host:.3f}x "
+                          f"(at most {MESH_ONE_HOST_RATIO}) or wall "
+                          f"{wall:.3f}x (at most {MESH_ONE_WALL_RATIO}) "
+                          f"the unmeshed step's")
+        for where, prof in (a.get("profile") or {}).items():
+            _print_profile(prof, "unmeshed" if where == "unmeshed" else
+                           f"meshed {tuple(shape)}", card)
         if faults:
             fail(f"[mesh] (a) {arch}: the meshed step disagrees with the "
                  f"unmeshed one: {'; '.join(faults)}")
         launches = [r["launches"] for r in ranks]
         opt = [r["opt_launches"] for r in ranks]
-        want = MESH_STEPS * a["leaves"]
+        n_steps = len(a["losses"])
+        want = n_steps * a["leaves"]
         print(f"[mesh] (a) {arch}: hand-written kernel launches, counted in "
               f"each rank around its runs: tuned {launches}, the "
               f"optimizer's on the meshed run {opt} ({want} of each "
-              f"wanted: {MESH_STEPS} steps x {a['leaves']} leaves)",
+              f"wanted: {n_steps} steps x {a['leaves']} leaves)",
               flush=True)
         if any(n for r in launches for run in r.values()
                for n in run.values()):
@@ -3560,6 +3986,20 @@ MESH_MULTI_RTOL = 1e-2
 # by a routing flip (float32 1.43e-4 / 5.57e-3, as far as one card's own
 # run moved one ulp parts) and is recorded, unheld.
 MESH_MOE_STEPS = 2
+# Held from one shared state (float32, several cards): each leaf's
+# parameters after a step's update within 1e-2 of the unmeshed update's
+# norm, |meshed - unmeshed| / |unmeshed - before|.  A float32 reordering
+# moves an AdamW update as it moves the gradient; where a leaf's
+# gradient elements are small, Adam's first update (near lr x sign)
+# moves most.  Read on (2, 2), a sound tree: qwen2-moe-a2.7b 1.0e-3 at
+# step 1 (then 4.25e-4, 6.97e-5), each on blocks.attn.bk, the key bias;
+# gemma-7b 3.68e-4 (embed).  One card, every parameter one ulp off
+# (tools/train_sensitivity.py), moves the same key bias by 8.2e-4 to
+# 8.5e-4: rounding alone.  A rank that skips its shards' update (the
+# planted fault, on qwen2-moe's expert weights) read 0.626, 0.549 and
+# 0.524.  1e-2 sits a decade above the first and fifty times below the
+# second.
+MESH_F32_PARAM_RTOL = 1e-2
 CARD_BYTES = 80e9
 MOE_LAYERS = 2
 
@@ -3568,9 +4008,10 @@ def phase_mesh(card: str, shape=None) -> None:
     """The mesh tier: (a) NCCL over every visible card (a (data, model)
     = ``shape`` mesh, default (1, cards)), gemma-7b and qwen2-moe-a2.7b,
     each rank's launch counters read; (c) the dry-run (meta tensors:
-    nothing runs on the card), left out when ``shape`` is given.  (b), four gloo ranks sharing the card,
-    is left out: DTensor's all-gather over gloo on CUDA tensors hangs
-    there (PERF.md §6); the CPU tests run those worlds."""
+    nothing runs on the card), left out when ``shape`` is given.  (b),
+    four gloo ranks sharing the card, is left out: the functional
+    collectives over gloo on CUDA tensors hang there
+    (`tools/gloo_cuda.py`); the CPU tests run those worlds."""
     import gc
     import tempfile
     import torch
@@ -3584,8 +4025,9 @@ def phase_mesh(card: str, shape=None) -> None:
     _cuda.library()         # built here once; each rank loads it
 
     # (a)
-    _mesh_case("gemma-7b", TRAIN_LAYERS, 28, shape, card)
-    _mesh_case("qwen2-moe-a2.7b", MOE_LAYERS, 24, shape, card)
+    for arch, layers, of in (("gemma-7b", TRAIN_LAYERS, 28),
+                             ("qwen2-moe-a2.7b", MOE_LAYERS, 24)):
+        _mesh_case(arch, layers, of, shape, card)
     if not dryrun:
         print(f"[mesh] phase took {time.perf_counter() - t0:.1f} s",
               flush=True)

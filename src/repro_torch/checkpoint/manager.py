@@ -222,9 +222,10 @@ class CheckpointManager:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
-        if mesh is not None:
-            device = device or (mesh.device_type if mesh.device_type !=
-                                "cuda" else torch.cuda.current_device())
+        if mesh is not None and device is None:
+            # this rank's card: an index, which may be 0
+            device = (torch.device("cuda", torch.cuda.current_device())
+                      if mesh.device_type == "cuda" else mesh.device_type)
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)["leaves"]
@@ -235,7 +236,7 @@ class CheckpointManager:
                 for k in entry["path"][:-1]:
                     node = node.setdefault(k, {})
                 leaf = _from_host(entry, npz[entry["name"]],
-                                  device or "cpu")
+                                  "cpu" if device is None else device)
                 if mesh is not None and isinstance(leaf, Param):
                     leaf = Param(place(leaf.value, named_sharding(
                         leaf.dims, tuple(leaf.shape), rules, mesh)),

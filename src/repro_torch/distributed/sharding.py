@@ -23,11 +23,31 @@ logical layout of what it produces.  Without a mesh it passes each
 tensor through unchanged; on a mesh ``act`` and ``cache`` redistribute
 a DTensor to the rule's placements, the counterpart of the reference's
 ``with_sharding_constraint``.
+
+The meshed training step runs as the reference's compiled SPMD program
+runs: one local program per rank (`make_train_step`).  Its tensors are
+the ranks' plain local shards; each one a mesh site takes or makes
+carries its place on the mesh as a `Lay` (`tag`, `layout`: the mesh,
+one placement per mesh dim, the global shape, and for a parameter its
+index in the tree).  Between two sites the model runs plain torch ops
+on them, and `like` hands an op's result its input's `Lay`.  At a site
+(`Sharder.act`, `settle`, `shard_map` and what is built on it) a layout
+change is one explicit collective on the mesh dim it crosses —
+all-gather, reduce-scatter, all-reduce or all-to-all (`relayout`) —
+written as an autograd function whose backward runs the transposed
+one.  A site whose work is split along a mesh dim over which an input
+is whole hands that input a gradient partial there, and reduces it: an
+activation's at once, a parameter's once after the backward (the
+data-parallel reduction; `pending_reductions`).  The same sites take
+DTensors (serving on a mesh, and the reference's layouts in the tests),
+each site's layouts read the same way from either.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+from contextvars import ContextVar
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -36,7 +56,10 @@ __all__ = ["Rules", "WEIGHT_RULES", "ACT_RULES", "ACT_RULES_SP",
            "CACHE_RULES", "CACHE_RULES_SEQSHARD", "logical_spec",
            "NamedSharding", "named_sharding", "Sharder", "tree_shardings",
            "mesh_sizes", "place", "local", "settle", "per_shard",
-           "shard_map", "shard_einsum", "shard_range", "batch_only"]
+           "shard_map", "shard_einsum", "shard_range", "batch_only",
+           "Lay", "tag", "layout", "is_local", "like", "gshape", "relayout",
+           "weight_like", "shard_mean", "pending_reductions", "layer_of",
+           "to_layout"]
 
 AxisCand = Union[str, Tuple[str, ...]]
 Rule = Tuple[str, Tuple[AxisCand, ...]]
@@ -160,6 +183,13 @@ class NamedSharding:
     @property
     def placements(self) -> tuple:
         """One ``Shard(tensor dim)`` or ``Replicate()`` per mesh dim."""
+        got = self.__dict__.get("_placements")
+        if got is None:
+            got = self._resolve()
+            object.__setattr__(self, "_placements", got)
+        return got
+
+    def _resolve(self) -> tuple:
         from torch.distributed.tensor import Replicate, Shard
         sizes = mesh_sizes(self.mesh)
         names = list(sizes)
@@ -181,9 +211,22 @@ class NamedSharding:
         return tuple(out)
 
 
+# resolved shardings by (dims, shape, id(rules), id(mesh)): a step
+# resolves the same few hundred at every site, every step
+_RESOLVED: Dict[tuple, tuple] = {}
+
+
 def named_sharding(dims: Sequence[Optional[str]], shape: Sequence[int],
                    rules: Rules, mesh) -> NamedSharding:
-    return NamedSharding(mesh, logical_spec(dims, shape, rules, mesh))
+    key = (tuple(dims), tuple(shape), id(rules), id(mesh))
+    hit = _RESOLVED.get(key)
+    if hit is not None and hit[0] is rules and hit[1] is mesh:
+        return hit[2]
+    out = NamedSharding(mesh, logical_spec(dims, shape, rules, mesh))
+    if len(_RESOLVED) > 4096:
+        _RESOLVED.clear()
+    _RESOLVED[key] = (rules, mesh, out)
+    return out
 
 
 def tree_shardings(mesh, tree_shapes, tree_dims, rules: Rules):
@@ -195,6 +238,314 @@ def tree_shardings(mesh, tree_shapes, tree_dims, rules: Rules):
     return named_sharding(tree_dims, tree_shapes.shape, rules, mesh)
 
 
+# ---------------------------------------------------------------------------
+# the local program: tagged local shards and explicit collectives
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Lay:
+    """A local tensor's place on a mesh: one placement per mesh dim
+    (``Shard(d)``, ``Replicate()`` or ``Partial()``, DTensor's types),
+    the global shape, and for a parameter's shard its index in the
+    parameter tree (``key``: its gradient's pending reductions)."""
+
+    mesh: Any
+    placements: tuple
+    shape: tuple
+    key: Optional[int] = None
+
+
+_TAG = "_repro_lay"
+
+
+def tag(x, lay: Lay):
+    """``x`` (a plain tensor) with ``lay`` attached; returns ``x``."""
+    setattr(x, _TAG, lay)
+    return x
+
+
+def layout(x) -> Optional[Lay]:
+    """A DTensor's or a tagged local tensor's `Lay`; None for anything
+    else (a plain tensor off the mesh, or the same on every rank)."""
+    lay = getattr(x, _TAG, None)
+    if lay is not None:
+        return lay
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return Lay(x.device_mesh, tuple(x.placements), tuple(x.shape))
+    return None
+
+
+def is_local(x) -> bool:
+    """Whether ``x`` is a tagged local shard (the local program's)."""
+    return getattr(x, _TAG, None) is not None
+
+
+def gshape(x) -> tuple:
+    """The global shape of ``x``: a tagged local tensor's `Lay` shape,
+    else ``x.shape``."""
+    lay = getattr(x, _TAG, None)
+    return tuple(lay.shape) if lay is not None else tuple(x.shape)
+
+
+def _global_of(local_shape, placements, mesh) -> tuple:
+    out = list(local_shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            out[p.dim] *= mesh.shape[i]
+    return tuple(out)
+
+
+def _tag_out(y, mesh, placements):
+    return tag(y, Lay(mesh, tuple(placements),
+                      _global_of(y.shape, placements, mesh)))
+
+
+def like(y, x):
+    """``y`` tagged with ``x``'s placements (its global shape by them):
+    for a plain op's result that keeps its input's layout.  ``y`` as is
+    when ``x`` is no tagged local."""
+    lay = getattr(x, _TAG, None)
+    if lay is None:
+        return y
+    if any(p.is_partial() for p in lay.placements):
+        raise ValueError("an op on a pending sum: settle it first")
+    return _tag_out(y, lay.mesh, lay.placements)
+
+
+# a step's pending reductions of parameter gradients: {key: mesh dims}
+_PENDING: "ContextVar[Optional[Dict[int, set]]]" = ContextVar(
+    "repro_torch_pending_reductions", default=None)
+
+
+@contextlib.contextmanager
+def pending_reductions():
+    """Within it a parameter shard (a tagged local with a ``key``) that a
+    site uses whole along a mesh dim over which the site's work is
+    split leaves its gradient partial there, and the dims are recorded
+    in the dict it yields ({key: mesh dims}) for the step to reduce
+    once after the backward — the data-parallel reduction.  Outside it
+    the site reduces the gradient at once."""
+    pend: Dict[int, set] = {}
+    tok = _PENDING.set(pend)
+    try:
+        yield pend
+    finally:
+        _PENDING.reset(tok)
+
+
+def _wait(t):
+    from torch.distributed._functional_collectives import \
+        AsyncCollectiveTensor
+    return t.wait() if isinstance(t, AsyncCollectiveTensor) else t
+
+
+def _gather(x, d: int, group):
+    import torch.distributed._functional_collectives as funcol
+    return _wait(funcol.all_gather_tensor(x.contiguous(), d, group))
+
+
+def _reduce(x, group):
+    import torch.distributed._functional_collectives as funcol
+    return _wait(funcol.all_reduce(x.contiguous(), "sum", group))
+
+
+def _scatter(x, d: int, group):
+    import torch.distributed._functional_collectives as funcol
+    return _wait(funcol.reduce_scatter_tensor(x.contiguous(), "sum", d,
+                                              group))
+
+
+def _all_to_all(x, src: int, dst: int, group, n: int):
+    """Move a shard from tensor dim ``src`` to ``dst``: every rank sends
+    piece j of its ``dst`` dim to rank j and joins what it gets along
+    ``src``."""
+    import torch.distributed._functional_collectives as funcol
+    parts = torch.stack(x.chunk(n, dim=dst)).contiguous()
+    got = _wait(funcol.all_to_all_single(parts, None, None, group))
+    return torch.cat(got.unbind(0), dim=src)
+
+
+def _relayout(x, mesh, src: tuple, dst: tuple):
+    """``x`` (a local shard laid out by ``src``) laid out by ``dst``,
+    one collective on each mesh dim whose placement changes: Partial ->
+    Shard a reduce-scatter, Partial -> Replicate an all-reduce, Shard ->
+    Replicate an all-gather, Shard -> Shard an all-to-all, Replicate ->
+    Shard a local slice; Partial -> Partial and Replicate -> Partial
+    keep the summand.  The reductions run first and the gathers last,
+    so each collective moves the smallest piece; a tensor dim split
+    over several mesh dims is gathered whole before it is split again,
+    the innermost mesh dim first."""
+    from torch.distributed.tensor import Replicate
+    if tuple(src) == tuple(dst):
+        return x
+    coord = mesh.get_coordinate()
+    rep = Replicate()
+    dst = list(dst)
+
+    def dims_of(pl, d):
+        return [i for i, p in enumerate(pl) if p.is_shard() and p.dim == d]
+
+    # tensor dims whose shards move across several mesh dims: whole first
+    tangled = {p.dim for pl in (src, dst) for p in pl if p.is_shard()
+               and (len(dims_of(src, p.dim)) > 1
+                    or len(dims_of(dst, p.dim)) > 1)
+               and dims_of(src, p.dim) != dims_of(dst, p.dim)}
+    cur = list(src)
+    # the pending sums: reduce-scattered where one mesh dim alone shards
+    # the target dim, else all-reduced
+    for i in range(mesh.ndim):
+        s, t = cur[i], dst[i]
+        if not s.is_partial() or t.is_partial():
+            continue
+        if t.is_shard() and t.dim not in tangled and \
+                len(dims_of(dst, t.dim)) == 1 and not dims_of(cur, t.dim):
+            x = _scatter(x, t.dim, (mesh, i))
+            cur[i] = t
+        else:
+            x = _reduce(x, (mesh, i))
+            cur[i] = rep
+    for i in reversed(range(mesh.ndim)):
+        s, t = cur[i], dst[i]
+        if s == t or not s.is_shard():
+            continue
+        group, n = (mesh, i), mesh.shape[i]
+        if t.is_shard() and s.dim not in tangled and t.dim not in tangled:
+            x = _all_to_all(x, s.dim, t.dim, group, n)
+            cur[i] = t
+        else:
+            x = _gather(x, s.dim, group)
+            cur[i] = rep
+    for i in range(mesh.ndim):
+        s, t = cur[i], dst[i]
+        if s == t or t.is_partial():
+            continue
+        if s.is_replicate() and t.is_shard():
+            x = x.chunk(mesh.shape[i], dim=t.dim)[coord[i]]
+        else:
+            raise ValueError(f"no relayout from {src} to {dst}")
+    return x
+
+
+class _Relayout(torch.autograd.Function):
+    """`_relayout` under autograd.  The backward takes the gradient,
+    which is whole on the mesh dims ``pgrad`` does not name and partial
+    on those it does, back to ``src``: the transposed collectives.  A
+    partial gradient of a source whole along a mesh dim is summed there,
+    unless that dim is in ``keep``, where it stays partial (a
+    parameter's, reduced after the backward)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, src, dst, pgrad, keep):
+        ctx.args = (mesh, src, dst, pgrad, keep)
+        return _relayout(x, mesh, src, dst)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial, Replicate
+        mesh, src, dst, pgrad, keep = ctx.args
+        have = tuple(Partial() if i in pgrad else p
+                     for i, p in enumerate(dst))
+        want = tuple(Partial() if i in keep else
+                     (Replicate() if p.is_partial() else p)
+                     for i, p in enumerate(src))
+        return (_relayout(g, mesh, have, want), None, None, None, None,
+                None)
+
+
+def relayout(x, placements, pgrad: Sequence[int] = ()):
+    """A tagged local ``x`` laid out by ``placements`` (tagged), under
+    autograd; ``pgrad`` names the mesh dims along which the consumer's
+    gradient comes back partial (its work split there, ``x`` whole).
+    A parameter's shard keeps such a gradient partial on the dims it is
+    whole over, for the step's data-parallel reduction, when a
+    `pending_reductions` is open."""
+    lay = getattr(x, _TAG)
+    if not pgrad and lay.placements == tuple(placements):
+        return x                    # no collective either way
+    src, dst = tuple(lay.placements), tuple(placements)
+    pgrad = tuple(sorted(set(pgrad)))
+    keep: tuple = ()
+    pend = _PENDING.get()
+    if lay.key is not None and pend is not None:
+        keep = tuple(i for i in pgrad if src[i].is_replicate())
+        if keep:
+            pend.setdefault(lay.key, set()).update(keep)
+    if src == dst and not (set(pgrad) - set(keep)):
+        return x
+    y = _Relayout.apply(x, lay.mesh, src, dst, pgrad, keep)
+    return tag(y, Lay(lay.mesh, dst, lay.shape))
+
+
+def layer_of(v, stacked):
+    """``v``, one layer of a stacked parameter (``stacked.unbind(0)``), a
+    tagged local again when ``stacked`` is: its placements' tensor dims
+    shifted past the layers dim (never sharded), its key kept."""
+    lay = getattr(stacked, _TAG, None)
+    if lay is None:
+        return v
+    from torch.distributed.tensor import Shard
+    if any(p.is_shard() and p.dim == 0 for p in lay.placements):
+        raise ValueError("a stacked parameter sharded over its layers")
+    pl = tuple(Shard(p.dim - 1) if p.is_shard() else p
+               for p in lay.placements)
+    return tag(v, Lay(lay.mesh, pl, tuple(lay.shape[1:]), lay.key))
+
+
+def to_layout(x, placements):
+    """A tagged local or a DTensor laid out by ``placements``."""
+    if is_local(x):
+        return relayout(x, placements)
+    if tuple(x.placements) == tuple(placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def weight_like(w, x):
+    """A parameter ``w`` laid out to meet ``x`` in an elementwise op
+    (its dims aligned with ``x``'s trailing ones): sharded where ``x``
+    is sharded on the aligned dim, whole elsewhere — a gain of an FSDP
+    weight is gathered — its gradient reduced over the mesh dims along
+    which ``x`` is split and ``w`` whole.  Anything but a tagged local
+    ``w`` as is (a DTensor meets ``x`` by DTensor's rules)."""
+    if not is_local(w):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+    xl = getattr(x, _TAG)
+    off = len(xl.shape) - len(getattr(w, _TAG).shape)
+    pl, pgrad = [], []
+    for i, p in enumerate(xl.placements):
+        if p.is_shard() and p.dim >= off:
+            pl.append(Shard(p.dim - off))
+        else:
+            pl.append(Replicate())
+            if not p.is_replicate():
+                pgrad.append(i)
+    return relayout(w, tuple(pl), pgrad)
+
+
+def shard_mean(x):
+    """The mean of every element of ``x``.  A tagged local's: its
+    elements' sum over the global count, summed over the mesh dims that
+    shard it (an all-reduce; each rank's gradient is its own rows'),
+    whole on every rank; anything else ``x.mean()``."""
+    lay = getattr(x, _TAG, None)
+    if lay is None:
+        return x.mean()
+    from torch.distributed.tensor import Partial, Replicate
+    if any(p.is_partial() for p in lay.placements):
+        raise ValueError("the mean of a pending sum: settle it first")
+    part = x.sum() / math.prod(lay.shape)
+    pl = tuple(Partial() if p.is_shard() else Replicate()
+               for p in lay.placements)
+    tag(part, Lay(lay.mesh, pl, ()))
+    rep = (Replicate(),) * len(pl)
+    out = relayout(part, rep)
+    delattr(out, _TAG)
+    return out
+
+
 def place(x, sharding: NamedSharding):
     """``x`` laid out by ``sharding``: a DTensor is redistributed (the
     collective the layout change needs); a plain tensor — the same
@@ -203,6 +554,8 @@ def place(x, sharding: NamedSharding):
     each rank keeping its own shard."""
     from torch.distributed.tensor import DTensor, distribute_tensor
     pl = sharding.placements
+    if is_local(x):
+        return relayout(x, pl)
     if isinstance(x, DTensor):
         if tuple(x.placements) == pl:
             return x
@@ -210,18 +563,71 @@ def place(x, sharding: NamedSharding):
     return distribute_tensor(x, sharding.mesh, pl, src_data_rank=None)
 
 
-def settle(x):
+def settle(x, split=None):
     """A DTensor with every pending (``Partial``) placement reduced to
     ``Replicate()``, its shards kept; anything else as is.  For a result
     DTensor cannot carry through the next op in its pending form (a
     gather along a sharded dim leaves a masked partial that no view
-    keeps)."""
+    keeps).  In the local program ``split`` names a tensor the result
+    meets in elementwise ops: along the mesh dims where that one is
+    sharded and the result whole, the result's gradient comes back
+    partial and is summed there."""
     from torch.distributed.tensor import DTensor, Replicate
-    if not isinstance(x, DTensor) or not any(p.is_partial()
-                                             for p in x.placements):
+    lay = layout(x)
+    if lay is None or not any(p.is_partial() for p in lay.placements):
         return x
-    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
-                                          else p for p in x.placements])
+    pl = [Replicate() if p.is_partial() else p for p in lay.placements]
+    if not isinstance(x, DTensor):
+        other = layout(split) if split is not None else None
+        pgrad = [] if other is None else [
+            i for i, (p, q) in enumerate(zip(pl, other.placements))
+            if p.is_replicate() and not q.is_replicate()]
+        return relayout(x, pl, pgrad)
+    return x.redistribute(x.device_mesh, pl)
+
+
+# `shard_map`'s layout plans by (in, out and grad placements, inputs,
+# id(mesh)): a step lays out the same few dozen sites at every step
+_MAP_PLANS: Dict[tuple, tuple] = {}
+
+
+def _map_plan(in_placements, out_placements, grad_placements, n: int,
+              mesh):
+    """(the outputs' placements, one per output; per input None, or
+    (its placements, its gradient's, the mesh dims where that is
+    partial))."""
+    ins = tuple(None if pl is None else tuple(pl) for pl in in_placements)
+    single = not isinstance(out_placements[0], (tuple, list))
+    outs = tuple(out_placements) if single else tuple(
+        tuple(p) for p in out_placements)
+    grads = (tuple(None if g is None else tuple(g) for g in grad_placements)
+             if grad_placements is not None else None)
+    key = (ins, outs, single, grads, n, id(mesh))
+    hit = _MAP_PLANS.get(key)
+    if hit is not None and hit[0] is mesh:
+        return hit[1], hit[2]
+    from torch.distributed.tensor import Partial, Replicate
+    outs = [outs] if single else list(outs)
+    busy = [any(not o[i].is_replicate() for o in outs)
+            for i in range(mesh.ndim)]
+    if any(busy[i] and any(o[i].is_replicate() for o in outs)
+           for i in range(mesh.ndim)):
+        raise ValueError(f"outputs {outs} mix replicated and partitioned "
+                         f"layouts along one mesh dim")
+    plan = []
+    for pl, grad in zip(ins, grads or [None] * n):
+        if pl is None:
+            plan.append(None)
+            continue
+        grad = grad if grad is not None else tuple(
+            p if p.is_shard() else Partial() if busy[i] else Replicate()
+            for i, p in enumerate(pl))
+        plan.append((pl, grad, [i for i, g in enumerate(grad)
+                                if g.is_partial()]))
+    if len(_MAP_PLANS) > 4096:
+        _MAP_PLANS.clear()
+    _MAP_PLANS[key] = (mesh, outs, tuple(plan))
+    return outs, tuple(plan)
 
 
 def shard_map(fn, in_placements, out_placements, *xs, mesh=None,
@@ -244,35 +650,30 @@ def shard_map(fn, in_placements, out_placements, *xs, mesh=None,
     None for the rule) overrides that, for an ``fn`` whose backward
     splits work the forward repeats.  Without a mesh it is
     ``fn(*xs)``."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor import DTensor, Replicate
     if mesh is None:
-        mesh = next((x.device_mesh for x in xs if isinstance(x, DTensor)),
+        mesh = next((layout(x).mesh for x in xs if layout(x) is not None),
                     None)
     if mesh is None:
         return fn(*xs)
-    from torch.distributed.tensor import Placement
-    outs = ([tuple(out_placements)] if isinstance(out_placements[0],
-                                                  Placement)
-            else [tuple(p) for p in out_placements])
-    busy = [any(not o[i].is_replicate() for o in outs)
-            for i in range(mesh.ndim)]
-    if any(busy[i] and any(o[i].is_replicate() for o in outs)
-           for i in range(mesh.ndim)):
-        raise ValueError(f"outputs {outs} mix replicated and partitioned "
-                         f"layouts along one mesh dim")
-    rep = (Replicate(),) * mesh.ndim
+    loc = any(is_local(x) for x in xs)
+    outs, plan = _map_plan(in_placements, out_placements, grad_placements,
+                           len(xs), mesh)
     args = []
-    grads = grad_placements or [None] * len(xs)
-    for x, pl, grad in zip(xs, in_placements, grads):
-        if pl is None or not isinstance(x, torch.Tensor):
+    for x, entry in zip(xs, plan):
+        if entry is None or not isinstance(x, torch.Tensor):
             args.append(x)
             continue
+        pl, grad, pgrad = entry
+        if loc:
+            if not is_local(x):        # the same on every rank
+                x = tag(x.view_as(x), Lay(mesh, (Replicate(),) * mesh.ndim,
+                                          tuple(x.shape)))
+            args.append(relayout(x, pl, pgrad))
+            continue
         if not isinstance(x, DTensor):
-            x = DTensor.from_local(x, mesh, rep, run_check=False)
-        pl = tuple(pl)
-        grad = tuple(grad) if grad is not None else tuple(
-            p if p.is_shard() else Partial() if busy[i] else Replicate()
-            for i, p in enumerate(pl))
+            x = DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim,
+                                   run_check=False)
         if tuple(x.placements) != pl:
             x = x.redistribute(mesh, pl)
         args.append(x.to_local(grad_placements=grad))
@@ -284,6 +685,8 @@ def shard_map(fn, in_placements, out_placements, *xs, mesh=None,
         if isinstance(y, torch.Tensor):
             pl = outs[min(n_out[0], len(outs) - 1)]
             n_out[0] += 1
+            if loc:
+                return _tag_out(y, mesh, pl)
             return DTensor.from_local(y, mesh, pl, run_check=False)
         return y
     return back(fn(*args))
@@ -300,13 +703,13 @@ def per_shard(fn, placements, *xs, whole: Sequence[int] = ()):
     ``placements``.  Plain ``xs`` (a mask bias, the same on every rank)
     pass as they are; without DTensors it is ``fn(*xs)`` (`shard_map`
     with one layout)."""
-    from torch.distributed.tensor import DTensor, Replicate
-    mesh = next((x.device_mesh for x in xs if isinstance(x, DTensor)),
+    from torch.distributed.tensor import Replicate
+    mesh = next((layout(x).mesh for x in xs if layout(x) is not None),
                 None)
     if mesh is None:
         return fn(*xs)
     pl = tuple(placements)
-    ins = [None if not isinstance(x, DTensor)
+    ins = [None if layout(x) is None
            else (Replicate(),) * mesh.ndim if i in whole else pl
            for i, x in enumerate(xs)]
     return shard_map(fn, ins, pl, *xs, mesh=mesh)
@@ -320,8 +723,8 @@ def local(fn, *xs):
     call sites use it (a kernel takes whole operands, as the
     reference's Pallas calls do under GSPMD).  Without DTensors it is
     ``fn(*xs)``."""
-    from torch.distributed.tensor import DTensor, Replicate
-    mesh = next((x.device_mesh for x in xs if isinstance(x, DTensor)),
+    from torch.distributed.tensor import Replicate
+    mesh = next((layout(x).mesh for x in xs if layout(x) is not None),
                 None)
     if mesh is None:
         return fn(*xs)
@@ -352,21 +755,49 @@ def shard_einsum(eq: str, x, w, whole: Sequence[int] = ()):
     which ``x`` contracts.  The reference's compiled program runs so
     where a layout leaves the lm head's result whole (a vocab the model
     dim does not divide)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    if not isinstance(x, DTensor) and not isinstance(w, DTensor):
+    if layout(x) is None and layout(w) is None:
         return torch.einsum(eq, x, w.to(x.dtype))
-    mesh = (x if isinstance(x, DTensor) else w).device_mesh
-    ins, out = eq.replace(" ", "").split("->")
-    a, b = ins.split(",")
+    mesh = (layout(x) or layout(w)).mesh
     x, w = settle(x), settle(w)
     if not torch.is_grad_enabled():
-        w = w.to(x.dtype)     # serving: a gathered weight moves cast
+        w = like(w.to(x.dtype), w)   # serving: a gathered weight moves cast
+    lx, lw = layout(x), layout(w)
+    px, pw, po, xgrad, grad, cut_dim = _einsum_plan(
+        eq, lx.placements if lx is not None else None,
+        lw.placements if lw is not None else None, tuple(whole), mesh)
+    if cut_dim is None:
+        return shard_map(lambda xx, ww: torch.einsum(
+            eq, xx, ww.to(xx.dtype)), (px, pw), po, x, w, mesh=mesh)
+    # torch.chunk's split of the weight's first dim
+    size, k = gshape(w)[0], mesh.shape[cut_dim]
+    lo = min(mesh.get_coordinate()[cut_dim] * -(-size // k), size)
+    cut = (lo, min(-(-size // k), size - lo))
+    return shard_map(lambda xx, ww: _SlicedWeightGrad.apply(
+        eq, xx, ww.to(xx.dtype), *cut), (px, pw), po, x, w, mesh=mesh,
+        grad_placements=[xgrad, grad])
+
+
+# `shard_einsum`'s layout plans by (equation, operand placements, whole,
+# id(mesh))
+_EINSUM_PLANS: Dict[tuple, tuple] = {}
+
+
+def _einsum_plan(eq: str, xpl, wpl, whole: tuple, mesh):
+    """`shard_einsum`'s layouts along each mesh dim, read off the
+    operands' placements: (x's, w's, the result's, x's gradient's, w's
+    gradient's, the mesh dim along which the weight's gradient is cut,
+    or None)."""
+    key = (eq, xpl, wpl, whole, id(mesh))
+    hit = _EINSUM_PLANS.get(key)
+    if hit is not None and hit[0] is mesh:
+        return hit[1]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    ins, out = eq.replace(" ", "").split("->")
+    a, b = ins.split(",")
     if len(whole) > 1:
         raise ValueError(f"a weight gathered along {len(whole)} mesh dims "
                          f"(one at most)")
-    xpl = x.placements if isinstance(x, DTensor) else None
-    wpl = w.placements if isinstance(w, DTensor) else None
-    px, pw, po, grad, xgrad, cut = [], [], [], [], [], None
+    px, pw, po, grad, xgrad, cut_dim = [], [], [], [], [], None
     for i in range(mesh.ndim):
         lx = (a[xpl[i].dim] if xpl is not None and xpl[i].is_shard()
               else None)
@@ -376,10 +807,7 @@ def shard_einsum(eq: str, x, w, whole: Sequence[int] = ()):
             if lx is not None or lw is not None or b[0] not in a:
                 raise ValueError(f"whole along mesh dim {i} takes whole "
                                  f"operands and a contracted weight dim 0")
-            # torch.chunk's split of the weight's first dim
-            size, k = w.shape[0], mesh.shape[i]
-            lo = min(mesh.get_coordinate()[i] * -(-size // k), size)
-            cut = (lo, min(-(-size // k), size - lo))
+            cut_dim = i
             px.append(Replicate()), pw.append(Replicate())
             po.append(Replicate()), grad.append(Partial())
             xgrad.append(Replicate())
@@ -397,13 +825,12 @@ def shard_einsum(eq: str, x, w, whole: Sequence[int] = ()):
         po.append(Shard(out.index(letter)) if letter in out else Partial())
         grad.append(pw[-1] if pw[-1].is_shard() else Partial())
         xgrad.append(px[-1] if px[-1].is_shard() else Partial())
-    if cut is None:
-        return shard_map(lambda xx, ww: torch.einsum(
-            eq, xx, ww.to(xx.dtype)), (tuple(px), tuple(pw)), tuple(po),
-            x, w, mesh=mesh)
-    return shard_map(lambda xx, ww: _SlicedWeightGrad.apply(
-        eq, xx, ww.to(xx.dtype), *cut), (tuple(px), tuple(pw)), tuple(po),
-        x, w, mesh=mesh, grad_placements=[tuple(xgrad), tuple(grad)])
+    plan = (tuple(px), tuple(pw), tuple(po), tuple(xgrad), tuple(grad),
+            cut_dim)
+    if len(_EINSUM_PLANS) > 4096:
+        _EINSUM_PLANS.clear()
+    _EINSUM_PLANS[key] = (mesh, plan)
+    return plan
 
 
 class _SlicedWeightGrad(torch.autograd.Function):
@@ -434,13 +861,17 @@ class _SlicedWeightGrad(torch.autograd.Function):
 def batch_only(x):
     """A DTensor laid out over its batch (dim 0) shards alone, every
     other shard or pending sum gathered; anything else as is."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    if not isinstance(x, DTensor):
+    from torch.distributed.tensor import DTensor, Replicate
+    lay = layout(x)
+    if lay is None:
         return x
     pl = tuple(p if p.is_shard() and p.dim == 0 else Replicate()
-               for p in x.placements)
-    return x if tuple(x.placements) == pl else x.redistribute(
-        x.device_mesh, pl)
+               for p in lay.placements)
+    if tuple(lay.placements) == pl:
+        return x
+    if not isinstance(x, DTensor):
+        return relayout(x, pl)
+    return x.redistribute(x.device_mesh, pl)
 
 
 def shard_range(mesh, placements, dim: int, size: int) -> Tuple[int, int]:
@@ -465,23 +896,64 @@ class Sharder:
 
     def __init__(self, mesh=None, act_rules: Rules = ACT_RULES,
                  cache_rules: Rules = CACHE_RULES,
-                 weight_rules: Rules = WEIGHT_RULES):
+                 weight_rules: Rules = WEIGHT_RULES, local: bool = False):
         self.mesh = mesh
         self.act_rules = act_rules
         self.cache_rules = cache_rules
         self.weight_rules = weight_rules
+        # the local program: a plain tensor at a site is a whole global
+        # value only through `enter`
+        self.local = local and mesh is not None
 
     def act(self, x, dims: Sequence[Optional[str]]):
         if self.mesh is None:
             return x
-        return place(x, named_sharding(dims, x.shape, self.act_rules,
+        self._check(x)
+        return place(x, named_sharding(dims, gshape(x), self.act_rules,
                                        self.mesh))
 
     def cache(self, x, dims: Sequence[Optional[str]]):
         if self.mesh is None:
             return x
-        return place(x, named_sharding(dims, x.shape, self.cache_rules,
+        self._check(x)
+        return place(x, named_sharding(dims, gshape(x), self.cache_rules,
                                        self.mesh))
+
+    def _check(self, x):
+        if self.local and layout(x) is None:
+            raise ValueError(f"a local tensor {tuple(x.shape)} without a "
+                             f"layout reached a mesh site")
+
+    def enter(self, x, dims: Sequence[Optional[str]]):
+        """A global value (a host batch, the same on every rank) laid
+        out by the activation rules: a DTensor, or in the local program
+        this rank's tagged shard (a slice: no communication)."""
+        if not self.local:
+            return self.act(x, dims)
+        from torch.distributed.tensor import DTensor, Replicate
+        pl = named_sharding(dims, x.shape, self.act_rules,
+                            self.mesh).placements
+        if isinstance(x, DTensor):          # already on the mesh
+            whole = tuple(x.shape)
+            x = x.redistribute(x.device_mesh, pl).to_local()
+            return tag(x.view_as(x), Lay(self.mesh, pl, whole))
+        part = _relayout(x, self.mesh, (Replicate(),) * self.mesh.ndim, pl)
+        return tag(part if part is not x else x.view_as(x),
+                   Lay(self.mesh, pl, tuple(x.shape)))
+
+    def rows(self, t, x, dims: Sequence[Optional[str]]):
+        """``t``, made by this rank for the rows of ``x`` (its dim 0
+        ``x``'s batch rows, the rest whole), laid out as ``dims`` say:
+        in the local program tagged with ``x``'s batch layout, else
+        `act` (a whole plain tensor joins the mesh)."""
+        lay = getattr(x, _TAG, None)
+        if lay is None:
+            return self.act(t, dims)
+        from torch.distributed.tensor import Replicate
+        pl = tuple(p if p.is_shard() and p.dim == 0 else Replicate()
+                   for p in lay.placements)
+        return self.act(tag(t, Lay(lay.mesh, pl, _global_of(
+            t.shape, pl, lay.mesh))), dims)
 
     def batch_placements(self, x) -> Optional[tuple]:
         """The placements of ``x`` sharded over its leading (batch) dim
@@ -490,7 +962,7 @@ class Sharder:
         if self.mesh is None:
             return None
         return named_sharding(("batch",) + (None,) * (x.dim() - 1),
-                              x.shape, self.act_rules,
+                              gshape(x), self.act_rules,
                               self.mesh).placements
 
     def weight_sharding(self, dims, shape) -> Optional[NamedSharding]:

@@ -21,16 +21,25 @@ reference's Pallas kernels, have no backward.
 
 On a mesh (a ``DeviceMesh`` over one rank per device) the parameters
 and moments are DTensors laid out by `param_shardings` (the caller
-places them with `models.params.device_put`).  Each host batch — the
-same global batch on every rank — is split into its microbatches as the
-reference splits it, and each microbatch is laid out by the activation
-rules (``batch -> ("pod", "data")``): every rank keeps its rows.  The
-`Sharder` constrains the activations; plain tensors a layer makes
-(positions, masks) join the mesh replicated.  After the backward each
-gradient is redistributed to its parameter's placements — the data-
-parallel all-reduce or reduce-scatter GSPMD inserts in the reference —
-and, with ``compress_pod_grads`` on a mesh with a ``pod`` dim, passes
-through the int8 error-feedback compression.  As in the reference, the
+places them with `models.params.device_put`), and the step runs as the
+reference's compiled SPMD program: one local program per rank
+(`sharding`'s local program).  At its start each rank takes its
+parameters' local shards (tagged with their layouts) and its rows of
+each microbatch — the host batch, the same on every rank, split into
+microbatches as the reference splits it, then laid out by the
+activation rules (``batch -> ("pod", "data")``).  The forward, remat
+and backward run plain torch ops on local tensors; each mesh site is
+the collective GSPMD inserts there, under autograd.  A weight a site
+gathers takes its gradient reduce-scattered in the backward; one whole
+along a mesh dim over which its site's work is split leaves its
+gradient partial there, and after the backward the data-parallel
+all-reduce sums it.  The update (`optim.adamw`) takes the gradients as
+local shards tagged with their parameters' layouts and runs on the
+parameters' and moments' local shards, the norm summed over the mesh
+dims that shard each leaf; with ``compress_pod_grads`` on a mesh with a
+``pod`` dim the gradients join the mesh as DTensors of their
+parameters' placements and pass through the int8 error-feedback
+compression first.  As in the reference, the
 residual does not outlive the step: the reference's ``adamw_update``
 returns a fresh state of ``m``, ``v`` and ``count``, so every step
 compresses with a zero residual.  The metrics come back as plain
@@ -45,9 +54,10 @@ from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import (ACT_RULES, CACHE_RULES, Rules,
-                                              Sharder, WEIGHT_RULES,
-                                              mesh_sizes)
+from repro_torch.distributed.sharding import (ACT_RULES, CACHE_RULES, Lay,
+                                              Rules, Sharder, WEIGHT_RULES,
+                                              _reduce, mesh_sizes,
+                                              pending_reductions, tag)
 from repro_torch.models.layers import tuned_layers_enabled
 from repro_torch.models.params import tree_leaves
 from repro_torch.optim import adamw
@@ -128,7 +138,7 @@ def place_batch(batch: Dict, shd: Sharder) -> Dict:
     rules; as is without a mesh."""
     if shd.mesh is None:
         return batch
-    return {name: shd.act(x, batch_dims(name, x.dim()))
+    return {name: shd.enter(x, batch_dims(name, x.dim()))
             for name, x in batch.items()}
 
 
@@ -153,7 +163,7 @@ def make_train_step(model: "Model", opt_cfg: AdamWConfig, mesh=None,
     _refuse_tuned_layers()
     shd = Sharder(mesh, act_rules=step_cfg.act_rules,
                   cache_rules=step_cfg.cache_rules,
-                  weight_rules=step_cfg.weight_rules)
+                  weight_rules=step_cfg.weight_rules, local=True)
     n_micro = max(step_cfg.microbatches, 1)
     compress = (step_cfg.compress_pod_grads and mesh is not None
                 and "pod" in (mesh.mesh_dim_names or ()))
@@ -162,32 +172,10 @@ def make_train_step(model: "Model", opt_cfg: AdamWConfig, mesh=None,
         _refuse_tuned_layers()
         mbs = [place_batch(mb, shd)
                for mb in _split_microbatches(batch, n_micro)]
-        masters = [leaf.value for _, leaf in tree_leaves(params)]
-        for v in masters:
-            v.requires_grad_(True)
-            v.grad = None
-        try:
-            with _on_mesh(mesh):
-                loss_sum = torch.zeros((), dtype=torch.float32,
-                                       device=masters[0].device)
-                for mb in mbs:
-                    loss, metrics = model.loss(params, mb, shd)
-                    loss.backward()
-                    loss_sum = loss_sum + _full(loss.detach())
-        finally:
-            for v in masters:
-                v.requires_grad_(False)
-        grads = []
-        for v in masters:
-            g = v.grad if v.grad is not None else torch.zeros_like(v)
-            if mesh is not None and tuple(g.placements) != \
-                    tuple(v.placements):
-                # the data-parallel reduction: partial sums over the
-                # batch shards reduced to the parameter's layout
-                g = g.redistribute(v.device_mesh, v.placements)
-            grads.append(g.float().div_(n_micro) if n_micro > 1
-                         else g.float())
-            v.grad = None
+        if mesh is None:
+            grads, loss_sum, metrics = _backward(params, mbs)
+        else:
+            grads, loss_sum, metrics = _local_backward(params, mbs)
         grads = _rebuild(params, iter(grads))
         with _on_mesh(mesh):
             if compress:
@@ -201,6 +189,69 @@ def make_train_step(model: "Model", opt_cfg: AdamWConfig, mesh=None,
         metrics = {name: _full(m.detach()) for name, m in metrics.items()}
         return params, opt_state, {"loss": loss_sum / n_micro, **metrics,
                                    **{k: _full(v) for k, v in om.items()}}
+
+    def _backward(params, mbs):
+        masters = [leaf.value for _, leaf in tree_leaves(params)]
+        for v in masters:
+            v.requires_grad_(True)
+            v.grad = None
+        try:
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=masters[0].device)
+            for mb in mbs:
+                loss, metrics = model.loss(params, mb, shd)
+                loss.backward()
+                loss_sum = loss_sum + loss.detach()
+        finally:
+            for v in masters:
+                v.requires_grad_(False)
+        grads = []
+        for v in masters:
+            g = v.grad if v.grad is not None else torch.zeros_like(v)
+            grads.append(g.float().div_(n_micro) if n_micro > 1
+                         else g.float())
+            v.grad = None
+        return grads, loss_sum, metrics
+
+    def _local_backward(params, mbs):
+        """The step's body as one local program: every parameter's local
+        shard a leaf (tagged with its layout and its index), the loss
+        and its backward on local tensors, then the data-parallel
+        reduction of each gradient over the mesh dims its sites left it
+        partial on; the gradients come back as local shards tagged with
+        their parameters' layouts, which the update takes as they are
+        (DTensors of those layouts for the int8 compression)."""
+        from torch.distributed.tensor import DTensor
+        from repro_torch.models.params import Param, map_params
+        leaves = [leaf for _, leaf in tree_leaves(params)]
+        locs = {}
+        for key, leaf in enumerate(leaves):
+            v = leaf.value
+            loc = v._local_tensor.detach().requires_grad_(True)
+            locs[id(leaf)] = tag(loc, Lay(mesh, tuple(v.placements),
+                                          tuple(v.shape), key))
+        lparams = map_params(lambda p: Param(locs[id(p)], p.dims), params)
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=leaves[0].value.device)
+        with pending_reductions() as pend:
+            for mb in mbs:
+                loss, metrics = model.loss(lparams, mb, shd)
+                loss.backward()
+                loss_sum = loss_sum + loss.detach()
+        grads = []
+        for key, leaf in enumerate(leaves):
+            v, loc = leaf.value, locs[id(leaf)]
+            g = loc.grad if loc.grad is not None else torch.zeros_like(loc)
+            for i in sorted(pend.get(key, ())):
+                g = _reduce(g, (mesh, i))
+            g = g.float().div_(n_micro) if n_micro > 1 else g.float()
+            grads.append(DTensor.from_local(g, mesh, v.placements,
+                                            shape=v.shape,
+                                            stride=v.stride(),
+                                            run_check=False) if compress
+                         else tag(g, Lay(mesh, tuple(v.placements),
+                                         tuple(v.shape))))
+        return grads, loss_sum, metrics
 
     return train_step
 

@@ -35,10 +35,9 @@ through the int8 error-feedback compression.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import statistics
 import time
-from typing import Any, Callable, ContextManager, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -117,14 +116,20 @@ def make_mesh_from_args(args, device: torch.device):
 
 def main(argv: Optional[Sequence[str]] = None, *, cfg=None,
          inject_fault: Optional[Callable[[int], None]] = None,
-         around_steps: Optional[ContextManager] = None) -> Dict[str, Any]:
+         after_step: Optional[Callable[[int, Dict], None]] = None
+         ) -> Dict[str, Any]:
     """Train; returns the run's report (device, losses, grad norms,
-    ms/step, tokens/s, peak memory, the final state).  ``cfg``
-    overrides the ``--arch`` config (e.g. a depth cut made with
-    ``dataclasses.replace``); ``inject_fault`` is handed to the
-    supervisor (with ``--checkpoint-dir``); ``around_steps`` is entered
-    around the step loop alone (e.g. a ``CommDebugMode``, which then
-    counts no set-up collective)."""
+    ms/step — wall, and the host's: the step's start until
+    ``train_step`` returns, before the loss is read —, tokens/s, peak
+    memory, the final state, and the run's
+    ``train_step`` and ``make_batch``, with which a caller takes more
+    steps after the timed ones: one under a ``CommDebugMode`` counts a
+    step's collectives and leaves the timed steps free of any dispatch
+    mode).  ``cfg`` overrides the ``--arch`` config (e.g. a depth cut
+    made with ``dataclasses.replace``); ``inject_fault`` is handed to
+    the supervisor (with ``--checkpoint-dir``); ``after_step(n, state)``
+    is called after the n-th step with the state it left (without
+    ``--checkpoint-dir``), outside the step's time."""
     args = parse_args(argv)
 
     from repro_torch.configs import get_config, get_smoke
@@ -171,12 +176,13 @@ def main(argv: Optional[Sequence[str]] = None, *, cfg=None,
                                     seq_len=args.seq, seed=args.seed))
     make_batch = make_batch_fn(cfg, stream, args.seed, device)
     state = {"params": params, "opt": opt, "step": 0}
-    losses, norms, step_s = [], [], []
+    losses, norms, step_s, host_s = [], [], [], []
 
     def timed_step(p, o, batch):
         _sync(device)
         t0 = time.perf_counter()
         p, o, metrics = train_step(p, o, batch)
+        host_s.append(time.perf_counter() - t0)   # the host's share
         losses.append(float(metrics["loss"]))     # waits for the card
         norms.append(float(metrics["grad_norm"]))
         step_s.append(time.perf_counter() - t0)
@@ -188,29 +194,32 @@ def main(argv: Optional[Sequence[str]] = None, *, cfg=None,
         return p, o, metrics
 
     t_start = time.perf_counter()
-    with around_steps or contextlib.nullcontext():
-        if args.checkpoint_dir:
-            from repro_torch.checkpoint import CheckpointManager
-            from repro_torch.runtime import FaultPolicy, TrainSupervisor
-            mgr = CheckpointManager(args.checkpoint_dir, keep=3)
-            sup = TrainSupervisor(
-                mgr, FaultPolicy(checkpoint_every=args.checkpoint_every),
-                inject_fault=inject_fault)
-            try:
-                state = sup.run(timed_step, state, make_batch, args.steps,
-                                log_every=0)
-            finally:
-                mgr.close()
-            say(f"[train] done at step {state['step']}")
-        else:
-            for step in range(args.steps):
-                state["params"], state["opt"], _ = timed_step(
-                    state["params"], state["opt"], make_batch(step))
-                state["step"] = step + 1
+    if args.checkpoint_dir:
+        from repro_torch.checkpoint import CheckpointManager
+        from repro_torch.runtime import FaultPolicy, TrainSupervisor
+        mgr = CheckpointManager(args.checkpoint_dir, keep=3)
+        sup = TrainSupervisor(
+            mgr, FaultPolicy(checkpoint_every=args.checkpoint_every),
+            inject_fault=inject_fault)
+        try:
+            state = sup.run(timed_step, state, make_batch, args.steps,
+                            log_every=0)
+        finally:
+            mgr.close()
+        say(f"[train] done at step {state['step']}")
+    else:
+        for step in range(args.steps):
+            state["params"], state["opt"], _ = timed_step(
+                state["params"], state["opt"], make_batch(step))
+            state["step"] = step + 1
+            if after_step is not None:
+                after_step(step + 1, state)
     wall = time.perf_counter() - t_start
     # steady state: the median step past the first two (warm-up)
     steady = step_s[2:] or step_s
     ms = statistics.median(steady) * 1e3 if steady else float("nan")
+    host = host_s[2:] or host_s
+    host_ms = statistics.median(host) * 1e3 if host else float("nan")
     tokens = args.batch * args.seq
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else None)
@@ -223,8 +232,11 @@ def main(argv: Optional[Sequence[str]] = None, *, cfg=None,
             "steps": state["step"], "batch": args.batch, "seq": args.seq,
             "losses": losses, "grad_norms": norms,
             "step_ms": [s * 1e3 for s in step_s], "ms_per_step": ms,
+            "host_step_ms": [s * 1e3 for s in host_s],
+            "host_ms_per_step": host_ms,
             "tokens_per_s": tokens / ms * 1e3, "wall_s": wall,
             "peak_bytes": peak, "state": state, "rank": rank,
+            "train_step": train_step, "make_batch": make_batch,
             "mesh": (None if mesh is None
                      else dict(zip(mesh.mesh_dim_names, mesh.shape)))}
 

@@ -19,7 +19,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import Sharder
+from repro_torch.distributed.sharding import (Sharder, gshape, like,
+                                              settle, weight_like)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (AttnConfig, _decode_core, attention,
                                        attention_decode, head_proj,
@@ -132,7 +133,9 @@ def _cross_attention(p: Dict, x: torch.Tensor, ek: torch.Tensor,
     # on each rank's head_dim shard where the rules split head_dim
     out = _decode_core(q, ek, ev, torch.zeros((), device=x.device),
                        1.0 / math.sqrt(cfg.hd))
-    return head_proj("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+    # its partial sums over the head shards reduced before the residual
+    return settle(head_proj("bshk,hkd->bsd", like(out.to(x.dtype), out),
+                            p["wo"]))
 
 
 # ---------------------------------------------------------------------------
@@ -143,16 +146,17 @@ def _cross_attention(p: Dict, x: torch.Tensor, ek: torch.Tensor,
 def encode(params: Dict, frames: torch.Tensor, cfg: ModelConfig,
            shd: Sharder) -> torch.Tensor:
     """frames: (B, T_enc, d_model) stub embeddings -> encoder output."""
-    h = frames.to(getattr(torch, cfg.dtype))
-    h = h + params["enc_pos"].value.to(h.dtype)[None, :h.shape[1]]
+    h = like(frames.to(getattr(torch, cfg.dtype)), frames)
+    pos = weight_like(params["enc_pos"].value, h).to(h.dtype)
+    h = like(h + pos[None, :gshape(h)[1]], h)
     h = shd.act(h, ("batch", "residual_seq", "embed"))
     acfg = _acfg(cfg, causal=False)
     for blk in _unstack(params["enc_blocks"], cfg.enc_layers):
         def layer(hh, blk=blk):
-            hh = hh + attention(blk["attn"], rms_norm(hh, blk["ln1"]), acfg,
-                                shd)
-            return hh + mlp(blk["mlp"], rms_norm(hh, blk["ln2"]), cfg.act,
-                            shd)
+            hh = like(hh + attention(blk["attn"], rms_norm(hh, blk["ln1"]),
+                                     acfg, shd), hh)
+            return like(hh + mlp(blk["mlp"], rms_norm(hh, blk["ln2"]),
+                                 cfg.act, shd), hh)
         h = remat(layer, cfg)(h)
     return rms_norm(h, params["enc_norm"])
 
@@ -170,11 +174,13 @@ def _decode_stack(params, h, enc_out, cfg: ModelConfig, shd: Sharder,
             a, kv = attention(blk["attn"], a_in, acfg, shd, return_kv=True)
         else:
             a, kv = attention(blk["attn"], a_in, acfg, shd), None
-        hh = hh + a
+        hh = like(hh + a, hh)
         ek, ev = _cross_kv(blk["xattn"], enc_out)
-        hh = hh + _cross_attention(blk["xattn"], rms_norm(hh, blk["ln_x"]),
-                                   ek, ev, cfg)
-        hh = hh + mlp(blk["mlp"], rms_norm(hh, blk["ln2"]), cfg.act, shd)
+        hh = like(hh + _cross_attention(blk["xattn"],
+                                        rms_norm(hh, blk["ln_x"]), ek, ev,
+                                        cfg), hh)
+        hh = like(hh + mlp(blk["mlp"], rms_norm(hh, blk["ln2"]), cfg.act,
+                           shd), hh)
         return hh, kv, (ek, ev)
 
     ys = []

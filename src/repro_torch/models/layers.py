@@ -26,9 +26,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import (Sharder, local, per_shard,
+from repro_torch.distributed.sharding import (Sharder, gshape, is_local,
+                                              layout, like, local,
+                                              per_shard, relayout,
                                               settle, shard_einsum,
-                                              shard_map)
+                                              shard_map, to_layout,
+                                              weight_like)
 from repro_torch.models.params import Param, param
 
 __all__ = ["rms_norm", "make_rope", "apply_rope", "init_attention",
@@ -93,7 +96,7 @@ def rms_norm(x: torch.Tensor, w: Param, eps: float = 1e-6) -> torch.Tensor:
         return local(lambda xx, ww: _ops().rms_norm(
             xx.reshape(-1, xx.shape[-1]), ww, eps=eps).reshape(xx.shape),
             x, w.value)
-    return _rms(x, w.value, eps)
+    return like(_rms(x, weight_like(w.value, x), eps), x)
 
 
 def _rms(x, w, eps=1e-6):
@@ -174,20 +177,30 @@ def head_proj(eq: str, x: torch.Tensor, w: Param) -> torch.Tensor:
     return shard_einsum(eq, x, w.value)
 
 
-def _project_qkv(p: Dict, x: torch.Tensor, cfg: AttnConfig, positions):
-    q = head_proj("bsd,dhk->bshk", x, p["wq"])
-    k = head_proj("bsd,dhk->bshk", x, p["wk"])
-    v = head_proj("bsd,dhk->bshk", x, p["wv"])
+_QKV_DIMS = (("batch", "seq", "heads", "head_dim"),
+             ("batch", "seq", "kv_heads", "head_dim"),
+             ("batch", "seq", "kv_heads", "head_dim"))
+
+
+def _project_qkv(p: Dict, x: torch.Tensor, cfg: AttnConfig, positions,
+                 shd: Optional[Sharder] = None):
+    """q, k, v (rope applied).  In the local program (``shd.local``) each
+    projection is laid out by its dims first: the bias, the norm over
+    head_dim and rope's halves of head_dim then run on whole heads."""
+    q, k, v = (head_proj("bsd,dhk->bshk", x, p[n])
+               for n in ("wq", "wk", "wv"))
+    if shd is not None and shd.local:
+        q, k, v = (shd.act(t, dims) for t, dims in zip((q, k, v),
+                                                       _QKV_DIMS))
     if cfg.qkv_bias:
-        q = q + p["bq"].value.to(x.dtype)
-        k = k + p["bk"].value.to(x.dtype)
-        v = v + p["bv"].value.to(x.dtype)
+        q, k, v = (like(t + weight_like(p[n].value, t).to(x.dtype), t)
+                   for t, n in ((q, "bq"), (k, "bk"), (v, "bv")))
     if cfg.qk_norm:
-        q = _rms(q, p["q_norm"].value)
-        k = _rms(k, p["k_norm"].value)
+        q = like(_rms(q, weight_like(p["q_norm"].value, q)), q)
+        k = like(_rms(k, weight_like(p["k_norm"].value, k)), k)
     inv = make_rope(cfg.head_dim, cfg.rope_theta, device=x.device)
-    q = apply_rope(q, positions[:, :, None], inv)
-    k = apply_rope(k, positions[:, :, None], inv)
+    q = like(apply_rope(q, positions[:, :, None], inv), q)
+    k = like(apply_rope(k, positions[:, :, None], inv), k)
     return q, k, v
 
 
@@ -201,12 +214,18 @@ def causal_mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor,
 
 
 def _repeat_kv(k, h):
-    """Broadcast GQA KV heads (B, S, KV, hd) up to H heads."""
-    b, s, kvh, hd = k.shape
-    if kvh == h:
+    """Broadcast GQA KV heads (B, S, KV, hd) up to H heads (a tagged
+    local ``k`` has its KV heads gathered first, and stays tagged)."""
+    if gshape(k)[2] == h:
         return k
-    return k[:, :, :, None, :].expand(b, s, kvh, h // kvh, hd) \
-        .reshape(b, s, h, hd)
+    pl = layout(k).placements if is_local(k) else ()
+    if any(p.is_shard() and p.dim == 2 for p in pl):
+        from torch.distributed.tensor import Replicate
+        k = relayout(k, tuple(Replicate() if p.is_shard() and p.dim == 2
+                              else p for p in pl))
+    b, s, kvh, hd = k.shape
+    return like(k[:, :, :, None, :].expand(b, s, kvh, h // kvh, hd)
+                .reshape(b, s, h, hd), k)
 
 
 def _sdpa(q, k, v, bias, scale, split: Tuple[int, ...] = ()):
@@ -219,11 +238,11 @@ def _sdpa(q, k, v, bias, scale, split: Tuple[int, ...] = ()):
     head_dim, the heads being whole) each rank forms P.V on its own
     head_dim shard only, as the reference's program does, and the
     output comes back sharded there."""
-    h = q.shape[2]
+    h = gshape(q)[2]
     k, v = _repeat_kv(k, h), _repeat_kv(v, h)
     q = settle(q)           # a decode step's q may be a pending sum
     core = functools.partial(_sdpa_core, scale=scale)
-    qp = getattr(q, "placements", None)
+    qp = layout(q).placements if layout(q) is not None else None
     if qp is None or not split:
         return per_shard(core, qp, q, k, v, bias)
     from torch.distributed.tensor import Shard
@@ -234,7 +253,8 @@ def _sdpa(q, k, v, bias, scale, split: Tuple[int, ...] = ()):
 def _head_dim_split(w: Param) -> Tuple[int, ...]:
     """The mesh dims over which an output projection ``w`` (heads,
     head_dim, d) shards head_dim, its heads being whole."""
-    pl = getattr(w.value, "placements", None)
+    lay = layout(w.value)
+    pl = lay.placements if lay is not None else None
     if pl is None or any(p.is_shard() and p.dim == 0 for p in pl):
         return ()
     return tuple(i for i, p in enumerate(pl) if p.is_shard() and p.dim == 1)
@@ -255,8 +275,9 @@ def _sdpa_chunked(q, k, v, q_positions, k_positions, window, scale,
     for c0 in range(0, q.shape[1], chunk):
         bias = causal_mask_bias(q_positions[0, c0:c0 + chunk],
                                 k_positions[0], window)
-        outs.append(_sdpa(q[:, c0:c0 + chunk], k, v, bias, scale, split))
-    return torch.cat(outs, dim=1)
+        outs.append(_sdpa(like(q[:, c0:c0 + chunk], q), k, v, bias, scale,
+                          split))
+    return like(torch.cat(outs, dim=1), outs[0])
 
 
 def _attention_tuned(q, k, v, causal: bool):
@@ -289,10 +310,9 @@ def attention(p: Dict, x: torch.Tensor, cfg: AttnConfig, shd: Sharder,
         positions = torch.arange(s, device=x.device).expand(b, s)
     # on a mesh the positions (and the rope angles made from them) take
     # the batch's layout: a plain table would join the mesh whole
-    q, k, v = _project_qkv(p, x, cfg, shd.act(positions, ("batch", "seq")))
-    q = shd.act(q, ("batch", "seq", "heads", "head_dim"))
-    k = shd.act(k, ("batch", "seq", "kv_heads", "head_dim"))
-    v = shd.act(v, ("batch", "seq", "kv_heads", "head_dim"))
+    q, k, v = _project_qkv(p, x, cfg, shd.rows(positions, x,
+                                                ("batch", "seq")), shd)
+    q, k, v = (shd.act(t, dims) for t, dims in zip((q, k, v), _QKV_DIMS))
     scale = 1.0 / math.sqrt(cfg.head_dim)
     split = _head_dim_split(p["wo"])
     if tuned:
@@ -306,7 +326,7 @@ def attention(p: Dict, x: torch.Tensor, cfg: AttnConfig, shd: Sharder,
     else:
         out = _sdpa_chunked(q, k, v, positions, positions, window,
                             scale, cfg.chunk_q, split)
-    out = out.to(x.dtype)
+    out = like(out.to(x.dtype), out)
     y = head_proj("bshk,hkd->bsd", out, p["wo"])
     y = shd.act(y, ("batch", "residual_seq", "embed"))
     if return_kv:
@@ -373,15 +393,15 @@ def _decode_core(q, k, v, bias, scale):
     the logits are partial sums over the shards, reduced once (one
     value per cached position), and P.V is each shard's; otherwise
     `_sdpa` on the cache's (batch, heads) shards."""
-    kp = getattr(k, "placements", None)
+    kp = layout(k).placements if layout(k) is not None else None
     if kp is None or not any(p.is_shard() and p.dim == 3 for p in kp):
         if kp is not None:
             # q on the cache's layout, not the whole batch DTensor's
             # projection may leave it in
-            q = q.redistribute(q.device_mesh, kp)
+            q = to_layout(q, kp)
         return _sdpa(q, k, v, bias, scale)
     from torch.distributed.tensor import Partial, Replicate
-    h = q.shape[2]
+    h = gshape(q)[2]
     kp = tuple(kp)
     split = lambda part: tuple(part if p.is_shard() and p.dim == 3 else p
                                for p in kp)
@@ -389,12 +409,13 @@ def _decode_core(q, k, v, bias, scale):
         lambda qq, kk: torch.einsum("bqhd,bshd->bhqs", qq.float(),
                                     _repeat_kv(kk, h).float()) * scale,
         (kp, kp), split(Partial()), q, k)
-    probs = torch.softmax(settle(logits) + bias, dim=-1).to(v.dtype)
+    logits = settle(logits)
+    probs = like(torch.softmax(logits + bias, dim=-1).to(v.dtype), logits)
     out = shard_map(
         lambda pp, vv: torch.einsum("bhqs,bshd->bqhd", pp,
                                     _repeat_kv(vv, h)),
         (split(Replicate()), kp), kp, probs, v)
-    return out.to(q.dtype)
+    return like(out.to(q.dtype), out)
 
 
 # ---------------------------------------------------------------------------
@@ -439,9 +460,10 @@ def mlp(p: Dict, x: torch.Tensor, act: str, shd: Sharder) -> torch.Tensor:
                                             "embed"))
     up = shard_einsum("bsd,df->bsf", x, p["w_up"].value)
     if "w_gate" in p:
-        h = a(shard_einsum("bsd,df->bsf", x, p["w_gate"].value)) * up
+        h = like(a(shard_einsum("bsd,df->bsf", x, p["w_gate"].value)) * up,
+                 up)
     else:
-        h = a(up)
+        h = like(a(up), up)
     h = shd.act(h, ("batch", "seq", "mlp"))
     y = shard_einsum("bsf,fd->bsd", h, p["w_down"].value)
     return shd.act(y, ("batch", "residual_seq", "embed"))

@@ -32,9 +32,9 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import (Sharder, named_sharding,
-                                              settle, shard_map,
-                                              shard_range)
+from repro_torch.distributed.sharding import (Sharder, gshape, like,
+                                              named_sharding, settle,
+                                              shard_map, shard_range)
 from repro_torch.models.layers import _ACTS, init_mlp, mlp
 from repro_torch.models.params import param
 
@@ -260,7 +260,7 @@ def _layouts(shd: Sharder, x, e_pad: int, cap: int, f: int,
     weights; the output's; this rank's experts (first, count); its
     capacity slots, or None)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
-    b, s, d = x.shape
+    b, s, d = gshape(x)
     mesh, rules = shd.mesh, shd.act_rules
     if grouped:
         buf = named_sharding(("batch", "experts", None, None),
@@ -315,7 +315,7 @@ def moe_layer(p: Dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     partial over those dims, reduced back to the activations' layout.
     DTensor has no rule for the dispatch's ``index_copy_`` and
     ``scatter_add_``: they run on local tensors (`shard_map`)."""
-    b, s, d = x.shape
+    b, s, d = gshape(x)
     t = b * s
     e = n_experts
     e_pad = max(e, pad_to) if pad_to else e
@@ -338,12 +338,12 @@ def moe_layer(p: Dict, x: torch.Tensor, *, n_experts: int, top_k: int,
             route, (bp, rep), [bp, bp, part, part], x, p["router"].value)
         me, ce = settle(me), settle(ce)
         ins, out, er, cr = _layouts(shd, x, e_pad, cap,
-                                    wts[0].shape[-1], grouped)
+                                    gshape(wts[0])[-1], grouped)
         y = shard_map(functools.partial(run, er=er, cr=cr), ins, out, x,
                       top_p, top_i, *wts)
         y = shd.act(y, ("batch", "residual_seq", "embed"))
     aux = e * torch.sum((me / t) * ce)
     if "shared" in p:
-        y = y + mlp(p["shared"], x, act, shd)
+        y = like(y + mlp(p["shared"], x, act, shd), y)
 
     return shd.act(y, ("batch", "residual_seq", "embed")), aux.float()

@@ -24,10 +24,13 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import (Sharder, batch_only,
-                                              named_sharding, per_shard,
-                                              settle, shard_einsum,
-                                              shard_map, shard_range)
+from repro_torch.distributed.sharding import (Sharder, batch_only, gshape,
+                                              is_local, layout, like,
+                                              named_sharding,
+                                              per_shard, settle,
+                                              shard_einsum, shard_map,
+                                              shard_range, to_layout,
+                                              weight_like)
 from repro_torch.models.params import param
 
 __all__ = ["SsdConfig", "init_ssd", "ssd_block", "ssd_decode",
@@ -202,22 +205,22 @@ def _project_in(x, w):
     its chunk from its own rows of the weight and only the chunk is
     gathered over the dims that shard the rows; serving casts the
     weight before it moves, training gathers the float32 master."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    if not isinstance(x, DTensor):
+    from torch.distributed.tensor import Replicate, Shard
+    if layout(x) is None:
         return shard_einsum("bsd,de->bse", x, w)
-    x, mesh = batch_only(x), x.device_mesh
-    spare = [i for i, (a, b) in enumerate(zip(x.placements, w.placements))
+    x, mesh = batch_only(x), layout(x).mesh
+    xpl, wpl = layout(x).placements, layout(w).placements
+    spare = [i for i, (a, b) in enumerate(zip(xpl, wpl))
              if a.is_replicate() and b.is_replicate() and mesh.shape[i] > 1]
     if not spare:
         return shard_einsum("bsd,de->bse", x, w)
-    op = tuple(Shard(2) if i in spare else p
-               for i, p in enumerate(x.placements))
-    e = w.shape[1]
+    op = tuple(Shard(2) if i in spare else p for i, p in enumerate(xpl))
+    e = gshape(w)[1]
     pad = (-e) % math.prod(mesh.shape[i] for i in spare)
     lo, n = shard_range(mesh, op, 2, e + pad)
     if not torch.is_grad_enabled():
-        w = w.to(x.dtype)
-    rows = tuple(p if p.is_shard(0) else Replicate() for p in w.placements)
+        w = like(w.to(x.dtype), w)
+    rows = tuple(p if p.is_shard(0) else Replicate() for p in wpl)
     cols = tuple(Shard(1) if i in spare else Replicate()
                  for i in range(mesh.ndim))
     wc = shard_map(lambda ww: F.pad(ww, (0, pad))[:, lo:lo + n], (rows,),
@@ -225,7 +228,7 @@ def _project_in(x, w):
                          for i, p in enumerate(rows)), w, mesh=mesh)
     return shard_map(
         lambda xx, ww: torch.einsum("bsd,de->bse", xx, ww.to(xx.dtype)),
-        (x.placements, cols), op, x, wc, mesh=mesh)
+        (xpl, cols), op, x, wc, mesh=mesh)
 
 
 def _core_layouts(shd: Sharder, zx, pl, n_state: int):
@@ -238,7 +241,11 @@ def _core_layouts(shd: Sharder, zx, pl, n_state: int):
     from torch.distributed.tensor import Replicate
     bp = shd.batch_placements(zx)
     ins = [bp] * n_state + [(Replicate(),) * len(bp)] * len(_CORE)
-    return ins, _layouts(pl, bp), zx.redistribute(zx.device_mesh, bp)
+    if is_local(zx):
+        # the core's `shard_map` gathers it, its gradient reduce-scattered
+        # in one collective
+        return ins, _layouts(pl, bp), zx
+    return ins, _layouts(pl, bp), to_layout(zx, bp)
 
 
 def ssd_block(p: Dict, x: torch.Tensor, cfg: SsdConfig, shd: Sharder,
@@ -258,7 +265,7 @@ def ssd_block(p: Dict, x: torch.Tensor, cfg: SsdConfig, shd: Sharder,
     sum of squares is reduced once."""
     bsz, t, _ = x.shape
     zx = _project_in(x, p["w_in"].value)
-    pl, h0, hl = _inner_layout(shd, x.shape, cfg)
+    pl, h0, hl = _inner_layout(shd, gshape(x), cfg)
     ins, outs, zx = _core_layouts(shd, zx, pl, 1)
     core = lambda zz, *w: _ssd_core(zz, *w, cfg=cfg, h0=h0, hl=hl,
                                     return_state=return_state)
@@ -308,9 +315,9 @@ def _ssd_core(zx, conv_w, conv_b, a_log, dt_bias, d_skip, *,
 def _ssd_out(p: Dict, g, ssq, cfg: SsdConfig, shd: Sharder, eps=1e-6):
     """The gated RMS norm over d_inner (its sum of squares reduced over
     the ranks' heads) and the output projection."""
-    var = settle(ssq) / cfg.d_inner
-    y = (g.float() * torch.rsqrt(var + eps)
-         * p["norm_w"].value.float()).to(g.dtype)
+    var = settle(ssq, split=g) / cfg.d_inner
+    y = like((g.float() * torch.rsqrt(var + eps)
+              * weight_like(p["norm_w"].value, g).float()).to(g.dtype), g)
     out = shard_einsum("bse,ed->bsd", y, p["w_out"].value)
     return shd.act(out, ("batch", "residual_seq", "embed"))
 
@@ -334,7 +341,7 @@ def ssd_decode(p: Dict, x: torch.Tensor, state: Dict, cfg: SsdConfig,
     rules shard it so), with the conv window gathered over the model
     dim; the new window and state come back in the cache's layout."""
     zx = _project_in(x, p["w_in"].value)
-    pl, h0, hl = _inner_layout(shd, x.shape, cfg)
+    pl, h0, hl = _inner_layout(shd, gshape(x), cfg)
     ins, outs, zx = _core_layouts(shd, zx, pl, 3)
     if ins is not None:
         # the state on the heads' layout

@@ -15,16 +15,19 @@ products' outputs.  Serving runs without grad and takes none of it.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import (Sharder, batch_only,
+from repro_torch.distributed.sharding import (Sharder, batch_only, gshape,
+                                              layer_of, layout, like,
                                               per_shard, settle,
                                               shard_einsum, shard_map,
-                                              shard_range)
+                                              shard_mean, shard_range, tag,
+                                              to_layout, weight_like)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (AttnConfig, _rms, attention,
                                        attention_decode, init_attention,
@@ -138,7 +141,8 @@ def _unstack(tree, n: int) -> List[Dict]:
     per weight: its backward stacks the layers' gradients once, where
     ``n`` indexings would each add a full-stack buffer."""
     if isinstance(tree, Param):
-        return [Param(v, tree.dims[1:]) for v in tree.value.unbind(0)]
+        return [Param(layer_of(v, tree.value), tree.dims[1:])
+                for v in tree.value.unbind(0)]
     per = {k: _unstack(v, n) for k, v in tree.items()}
     return [{k: per[k][i] for k in per} for i in range(n)]
 
@@ -158,10 +162,10 @@ def _full_attention(cfg: ModelConfig) -> bool:
 def _hybrid_mix(blk: Dict, a: torch.Tensor, m: torch.Tensor, dtype):
     """Hymba's parallel heads: the normed attention and SSD outputs,
     each with its gain, averaged."""
-    return 0.5 * (_rms(a, blk["norm_a"].value)
-                  * blk["beta_a"].value.to(dtype)
-                  + _rms(m, blk["norm_m"].value)
-                  * blk["beta_m"].value.to(dtype))
+    g = lambda name, x: weight_like(blk[name].value, x)
+    return like(0.5 * (_rms(a, g("norm_a", a)) * g("beta_a", a).to(dtype)
+                       + _rms(m, g("norm_m", m)) * g("beta_m", m).to(dtype)),
+                a)
 
 
 def _moe(blk: Dict, x: torch.Tensor, cfg: ModelConfig, shd: Sharder):
@@ -189,7 +193,7 @@ def _block_apply(blk: Dict, h: torch.Tensor, cfg: ModelConfig,
                                   return_state=True)
         else:
             y = ssd_block(blk["ssd"], x, ssd_config(cfg), shd)
-        return h + y, aux, (kv, sstate)
+        return like(h + y, h), aux, (kv, sstate)
     if collect_kv:
         a, kv = attention(blk["attn"], x, acfg, shd, return_kv=True,
                           window_override=window)
@@ -201,15 +205,15 @@ def _block_apply(blk: Dict, h: torch.Tensor, cfg: ModelConfig,
                                   return_state=True)
         else:
             m = ssd_block(blk["ssd"], x, ssd_config(cfg), shd)
-        h = h + _hybrid_mix(blk, a, m, h.dtype)
+        h = like(h + _hybrid_mix(blk, a, m, h.dtype), h)
     else:
-        h = h + a
+        h = like(h + a, h)
     x2 = rms_norm(h, blk["ln2"])
     if moe:
         y, aux = _moe(blk, x2, cfg, shd)
     else:
         y = mlp(blk["mlp"], x2, cfg.act, shd)
-    return h + y, aux, (kv, sstate)
+    return like(h + y, h), aux, (kv, sstate)
 
 
 # the matrix products a ``dots`` layer keeps for its backward (einsum
@@ -284,11 +288,12 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, shd: Sharder,
     dim whole.  The lookup indexes local tensors (`shard_map`): DTensor's
     rules for indexing a sharded table differ between torch releases
     (indexing fails on 2.11, the embedding op's backward on 2.13)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    if not isinstance(table, DTensor):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    lay = layout(table)
+    if lay is None:
         return per_shard(lambda t, w: w.to(dtype)[t],
                          shd.batch_placements(tokens), tokens, table)
-    mesh, wp = table.device_mesh, tuple(table.placements)
+    mesh, wp = lay.mesh, tuple(lay.placements)
     bp = shd.batch_placements(tokens) or (Replicate(),) * mesh.ndim
     tp, op = [], []
     for w, b in zip(wp, bp):
@@ -298,11 +303,12 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, shd: Sharder,
             tp.append(Replicate()), op.append(Partial())
         else:
             tp.append(b), op.append(b)
-    lo, n = shard_range(mesh, wp, 0, table.shape[0])
+    vocab = gshape(table)[0]
+    lo, n = shard_range(mesh, wp, 0, vocab)
 
     def look(t, w):
         w = w.to(dtype)
-        if n == table.shape[0]:
+        if n == vocab:
             return w[t]
         idx = t - lo
         ok = (idx >= 0) & (idx < n)
@@ -310,7 +316,7 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, shd: Sharder,
                            torch.zeros((), dtype=dtype, device=w.device))
     h = shard_map(look, (tuple(tp), wp), tuple(op), tokens, table,
                   mesh=mesh)
-    return h.redistribute(mesh, bp)
+    return to_layout(h, bp)
 
 
 def _embed(params, tokens, shd: Sharder, dtype) -> torch.Tensor:
@@ -332,11 +338,12 @@ def lm_head_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     logits once;
     training keeps the logits whole on every rank there and splits only
     the weight's gradient, each rank forming its own embed rows."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    if not isinstance(h, DTensor):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if layout(h) is None:
         return shard_einsum("bsd,dv->bsv", h, w)
-    h, mesh = batch_only(h), h.device_mesh
-    spare = [i for i, (a, b) in enumerate(zip(h.placements, w.placements))
+    h, mesh = batch_only(h), layout(h).mesh
+    spare = [i for i, (a, b) in enumerate(zip(layout(h).placements,
+                                              layout(w).placements))
              if a.is_replicate() and b.is_replicate() and mesh.shape[i] > 1]
     if not spare:
         return shard_einsum("bsd,dv->bsv", h, w)
@@ -385,9 +392,9 @@ def lm_logits(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     """Forward pass.  tokens: (B, S) -> (logits (B, S, V), aux loss)
     [, (prefix (kvs, states), main (kvs, states)) when ``collect_kv``]."""
     dtype = getattr(torch, cfg.dtype)
-    h = (inputs_embeds.to(dtype) if inputs_embeds is not None
-         else _embed(params, tokens, shd, dtype))
-    s = h.shape[1]
+    h = (like(inputs_embeds.to(dtype), inputs_embeds)
+         if inputs_embeds is not None else _embed(params, tokens, shd, dtype))
+    s = gshape(h)[1]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     pre = None
     if "prefix_blocks" in params:
@@ -484,13 +491,17 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor
     vocab is sharded, the logsumexp's max and sum are reduced over the
     vocab's mesh dims and each rank picks the targets in its own vocab
     range, the per-position losses a partial sum over those dims."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor import Partial, Replicate
     target = tokens[:, 1:].long()
-    if not isinstance(logits, DTensor):
+    if layout(logits) is None:
         return _nll_positions(logits, target).mean()
-    mesh, pl = logits.device_mesh, tuple(logits.placements)
+    if layout(tokens) is not None and layout(target) is None:
+        b, s = gshape(tokens)
+        target = tag(target, dataclasses.replace(layout(tokens),
+                                                 shape=(b, s - 1)))
+    mesh, pl = layout(logits).mesh, tuple(layout(logits).placements)
     split = [i for i, p in enumerate(pl) if p.is_shard() and p.dim == 2]
-    lo, _ = shard_range(mesh, pl, 2, logits.shape[-1])
+    lo, _ = shard_range(mesh, pl, 2, gshape(logits)[-1])
     coord = mesh.get_coordinate()
     tp = tuple(Replicate() if i in split else p for i, p in enumerate(pl))
     op = tuple(Partial() if i in split else p for i, p in enumerate(pl))
@@ -498,7 +509,7 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor
         functools.partial(_nll_positions, groups=[(mesh, i) for i in split],
                           lo=lo, own_lse=all(coord[i] == 0 for i in split)),
         (pl, tp), op, logits, target, mesh=mesh)
-    return settle(nll).mean()
+    return shard_mean(settle(nll))
 
 
 def lm_loss(params: Dict, batch: Dict, cfg: ModelConfig, shd: Sharder

@@ -8,9 +8,13 @@ the same order.  `adamw_update` updates parameters and moments in place
 under ``torch.no_grad()`` — the counterpart of the reference donating
 both to its jitted step — and returns them with the metrics.  Every
 scalar stays a tensor on the state's device: a step never waits for
-the card.  On a mesh parameters, gradients and moments are DTensors of
-one layout per leaf, updated in place shard by shard; the norm is
-reduced over the whole mesh.
+the card.  On a mesh parameters and moments are DTensors of one layout
+per leaf, and gradients DTensors or the local program's tagged local
+shards (`distributed.sharding.tag`) of the same layouts.  Both routes
+run on local shards alone: each leaf is updated in place shard by
+shard, and its sum of squares is summed over the mesh dims that shard
+it (one all-reduce each), so no op of the update passes through
+DTensor's dispatcher.
 
 Two routes, by where the leaves lie (a DTensor's: its local shard).
 On the CPU, the plain version: `global_norm_plain` and
@@ -38,7 +42,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import settle
+from repro_torch.distributed.sharding import _reduce, layout
 from repro_torch.models.params import Param, map_params, tree_leaves
 
 __all__ = ["AdamWConfig", "init_adamw", "adamw_update", "global_norm",
@@ -88,10 +92,10 @@ def _values(tree):
 
 
 def _local(x):
-    """A DTensor's local shard (a view: writes land in the DTensor);
-    anything else as is."""
+    """A DTensor's local shard (its own storage: writes land in the
+    DTensor); anything else as is."""
     from torch.distributed.tensor import DTensor
-    return x.to_local() if isinstance(x, DTensor) else x
+    return x._local_tensor if isinstance(x, DTensor) else x
 
 
 def on_card(tree) -> bool:
@@ -174,32 +178,34 @@ def _adamw_leaf_fake(p, g, m, v, scal, b1, b2, eps, weight_decay):
     return None
 
 
-def _leaf_sumsq(v):
-    """`sumsq` of one leaf; a DTensor's on its local shard, summed over
-    the mesh dims that shard it (replicated dims hold it whole)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-    if not isinstance(v, DTensor):
-        return sumsq(v)
-    if any(p.is_partial() for p in v.placements):
+def _leaf_sumsq(v, sq):
+    """``sq`` (a local sum of squares) of one leaf: of a DTensor's or a
+    tagged local's shard, summed over the mesh dims that shard it (an
+    all-reduce each, in mesh order: replicated dims hold it whole);
+    of anything else whole."""
+    lay = layout(v)
+    if lay is None:
+        return sq(v)
+    if any(p.is_partial() for p in lay.placements):
         raise ValueError(f"global_norm: a leaf of pending sums "
-                         f"{v.placements} has no norm yet")
-    s = DTensor.from_local(
-        sumsq(v.to_local()), v.device_mesh,
-        [Partial() if p.is_shard() else Replicate() for p in v.placements],
-        run_check=False)
-    return settle(s)
+                         f"{lay.placements} has no norm yet")
+    s = sq(_local(v))
+    for i, p in enumerate(lay.placements):
+        if p.is_shard():
+            s = _reduce(s, (lay.mesh, i))
+    return s
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves (in flatten order) of each leaf's f32
     sum of squares — by `sumsq` off the CPU, else `global_norm_plain`.
-    A DTensor leaf's sum is reduced over its shards (`settle`), so a
+    A leaf on a mesh is summed over its shards (`_leaf_sumsq`), so a
     gradient sharded over the mesh is normed whole."""
     if not on_card(tree):
         return global_norm_plain(tree)
     total = 0
     for v in _values(tree):
-        total = total + _leaf_sumsq(v)
+        total = total + _leaf_sumsq(v, sumsq)
     return torch.sqrt(torch.as_tensor(total))
 
 
@@ -207,7 +213,8 @@ def global_norm_plain(tree) -> torch.Tensor:
     """`global_norm` in eager ops, on any device."""
     total = 0
     for v in _values(tree):
-        total = total + settle(torch.sum(torch.square(v.float())))
+        total = total + _leaf_sumsq(
+            v, lambda x: torch.sum(torch.square(x.float())))
     return torch.sqrt(torch.as_tensor(total))
 
 
@@ -244,6 +251,7 @@ def update_with_norm(params, grads, state: Dict, cfg: AdamWConfig,
     """The step from a given global norm ``gnorm``: by `adamw_leaf` on
     every leaf (``kernels``) or by `leaf_update_plain`.  Bias correction
     uses the incremented count."""
+    gnorm = _local(gnorm)           # a replicated DTensor's whole value
     count = state["count"] + 1
     lr = schedule(cfg, count)
     clip = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
@@ -259,7 +267,8 @@ def update_with_norm(params, grads, state: Dict, cfg: AdamWConfig,
                        cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay)
     else:
         for p, g, m, v in leaves:
-            leaf_update_plain(p, g, m, v, clip, lr, bc1, bc2, cfg)
+            leaf_update_plain(_local(p), _local(g), _local(m), _local(v),
+                              clip, lr, bc1, bc2, cfg)
     state["count"] = count
     return params, state, {"grad_norm": gnorm, "lr": lr}
 

@@ -12,8 +12,10 @@
   training on the CPU; ``--mesh single|multi`` in a world smaller than
   the production mesh, and ``--compress-pod-grads`` without a mesh,
   raise;
-* ``around_steps`` is entered around the step loop alone: before the
-  first step and left after the last;
+* the timed steps run under no dispatch mode, and a step taken after
+  them with the run's ``train_step`` (chip_smoke's `counted_step`) runs
+  under ``CommDebugMode``: ``[mesh]`` (a) counts collectives there and
+  times the meshed and the unmeshed steps the same way;
 * under ``torchrun`` with two ranks on gloo, ``--mesh-shape 1,2`` trains
   gemma-smoke on a (data, model) mesh, only rank 0 printing, its first
   loss within 2e-3 relative of the unmeshed run's (bf16 compute).
@@ -68,30 +70,33 @@ def test_a_fault_and_restart_give_the_uninterrupted_parameters(tmp_path,
                        faulted["state"]["opt"]["count"])
 
 
-def test_around_steps_wraps_the_step_loop_alone():
+def test_the_timed_steps_run_under_no_dispatch_mode():
     import unittest.mock as mock
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    import chip_smoke
     from repro_torch import distributed
 
-    seen, steps = [], []
+    modes = []
 
-    class Around:
-        def __enter__(self):
-            seen.append(("enter", len(steps)))
-
-        def __exit__(self, *exc):
-            seen.append(("exit", len(steps)))
-
-    def counting(*a, **k):
+    def recording(*a, **k):
         step = make_step(*a, **k)
-        return lambda *args: (steps.append(1), step(*args))[1]
+
+        def run(*args):
+            modes.append((
+                [type(m).__name__ for m in _get_current_dispatch_mode_stack()],
+                [type(m).__name__ for m in
+                 torch.overrides._get_current_function_mode_stack()]))
+            return step(*args)
+        return run
 
     make_step = distributed.make_train_step
-    with mock.patch.object(distributed, "make_train_step", counting):
+    with mock.patch.object(distributed, "make_train_step", recording):
         rep = train.main(["--arch", "gemma-7b", "--smoke", "--steps", "3",
-                          "--batch", "2", "--seq", "16", *CPU],
-                         around_steps=Around())
-    assert rep["steps"] == 3
-    assert seen == [("enter", 0), ("exit", 3)]
+                          "--batch", "2", "--seq", "16", *CPU])
+    assert rep["steps"] == 3 and modes == [([], [])] * 3
+    assert rep["host_ms_per_step"] <= rep["ms_per_step"]
+    assert chip_smoke.counted_step(rep) == {}       # no mesh: none
+    assert len(modes) == 4 and "CommDebugMode" in modes[3][0]
 
 
 def test_without_a_card_it_raises_instead_of_using_the_cpu(monkeypatch):

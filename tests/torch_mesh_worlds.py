@@ -436,8 +436,8 @@ def meshed_and_plain(rank, world, mesh_shape, archs):
 def optimizer_routes(rank, world, mesh_shape, arch="gemma-7b"):
     """``arch``'s smoke config in float32, two train steps on a (data,
     model) = ``mesh_shape`` mesh by each of the optimizer's routes from
-    the same seed-0 parameters and batch: the plain route (DTensor ops),
-    then the kernel route (`optim.adamw.on_card` made true) with its two
+    the same seed-0 parameters and batch: the plain route (eager ops on
+    local shards), then the kernel route (`optim.adamw.on_card` made true) with its two
     custom ops stood in for by the plain arithmetic on the operands they
     are handed, each checked to be a whole, contiguous local shard.
     {route: {"steps": [(loss, grad_norm)], "params": host tree}, "calls":
@@ -564,3 +564,122 @@ def check_cell(port, ref):
         assert row["ref_coll_kept"] < 0.9 * row["ref_coll"], row
         ratio = row["coll_ratio_kept"]
     assert 0.5 <= ratio <= 2.0, row
+
+
+def held_step_case(rank, world, arch, ckpt_dir, steps=2):
+    """A meshed step from an unmeshed checkpoint: rank 0 trains
+    ``arch``'s smoke config (float32) unmeshed for ``steps`` steps and
+    writes its state after step ``steps - 1`` with the port's
+    `CheckpointManager`; every rank restores it on a (data, model) mesh
+    of the world (``restore(step, mesh=)``) and takes the last step from
+    it.  Returns (rank 0) the unmeshed and the meshed step's loss and
+    grad norm, the largest |meshed - unmeshed| parameter after it, and
+    whether the restored parameters were the checkpoint's bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed import make_train_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, init_adamw
+
+    torch.set_num_threads(1)
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    model = build_model(cfg)
+    g = torch.Generator().manual_seed(0)
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (8, 32), generator=g)}
+               for _ in range(steps)]
+    mgr = CheckpointManager(ckpt_dir, keep=2, async_save=False)
+    out = {}
+    if rank == 0:
+        params = model.init(seed=0, device="cpu", param_dtype=torch.float32)
+        opt = init_adamw(params)
+        step = make_train_step(model, AdamWConfig(**OPT))
+        for s, b in enumerate(batches):
+            if s == steps - 1:
+                mgr.save(s, {"params": params, "opt": opt, "step": s})
+                # copies: the update runs in place
+                saved = {k: v.copy() for k, v in host_tree(params).items()}
+            params, opt, m = step(params, opt, dict(b))
+        out["plain"] = (float(m["loss"]), float(m["grad_norm"]))
+        plain = host_tree(params)
+    dist.barrier()
+    mesh = make_mesh((2, world // 2), ("data", "model"))
+    st = mgr.restore(steps - 1, mesh=mesh)
+    restored = host_tree(st["params"])
+    step = make_train_step(model, AdamWConfig(**OPT), mesh=mesh)
+    params, opt, m = step(st["params"], st["opt"], dict(batches[-1]))
+    meshed = host_tree(params)
+    if rank == 0:
+        out["mesh"] = (float(m["loss"]), float(m["grad_norm"]))
+        out["params"] = max(float(np.abs(meshed[k] - v).max())
+                            for k, v in plain.items())
+        out["restored_exact"] = all(np.array_equal(restored[k], v)
+                                    for k, v in saved.items())
+        out["step"] = st["step"]
+    return out
+
+
+def dtensor_dispatches(rank, world, archs):
+    """Ops with a DTensor operand (each one DTensor's dispatcher runs:
+    sharding propagation, then the local op) in one meshed float32
+    training step of each arch's smoke config on a (data, model) = (2,
+    2) mesh, the step after one warm-up step, counted by a dispatch mode
+    that sees every op before DTensor does: {arch: (in the step's body —
+    from the step's start until the optimizer's update is entered: the
+    batch's layout, the loss, its backward and the gradients' reduction
+    —, in the whole step)}.  It counts any tree of the port whose
+    `make_train_step` calls `optim.adamw.adamw_update` (a parent's
+    too)."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves as leaves
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed import make_train_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.params import device_put, param_shardings
+    from repro_torch.optim import AdamWConfig, adamw, init_adamw
+
+    torch.set_num_threads(1)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    counts = {"all": 0, "body": 0}
+    in_body = [False]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(isinstance(t, DTensor) for t in leaves((args, kwargs))):
+                counts["all"] += 1
+                counts["body"] += in_body[0]
+            return func(*args, **(kwargs or {}))
+
+    update = adamw.adamw_update
+
+    def body_ends(*a, **k):
+        in_body[0] = False
+        return update(*a, **k)
+
+    out = {}
+    adamw.adamw_update = body_ends
+    try:
+        for arch in archs:
+            cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+            model = build_model(cfg)
+            g = torch.Generator().manual_seed(0)
+            batch = {"tokens": torch.randint(0, cfg.vocab, (8, 32),
+                                             generator=g)}
+            params = model.init(seed=0, device="cpu",
+                                param_dtype=torch.float32)
+            params = device_put(params, param_shardings(params, mesh))
+            opt = init_adamw(params)
+            step = make_train_step(model, AdamWConfig(**OPT), mesh=mesh)
+            params, opt, _ = step(params, opt, dict(batch))
+            counts.update(all=0, body=0)
+            with Count():
+                in_body[0] = True
+                params, opt, m = step(params, opt, dict(batch))
+                float(m["loss"])
+            out[arch] = (counts["body"], counts["all"])
+    finally:
+        adamw.adamw_update = update
+    return out

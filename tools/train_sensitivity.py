@@ -15,8 +15,11 @@ all down, and up or down by a seeded coin, ``--coins`` seeds.  A mesh
 sums the same products in another order, which moves the first
 gradients by a few ulps; this moves the first parameters by one.
 Prints each step's losses and grad norms of every moved run beside the
-first and their relative differences.  ``--dtype float32`` computes in
-float32 with TF32 off in place of the config's type.  Needs a card."""
+first and their relative differences, and what the held gate of
+``[mesh]`` (a) reads on the first step's update: per leaf, |moved -
+as drawn| / |as drawn's update| of the parameters after it, the
+largest leaves first.  ``--dtype float32`` computes in float32 with
+TF32 off in place of the config's type.  Needs a card."""
 from __future__ import annotations
 
 import argparse
@@ -43,9 +46,18 @@ def _moved(v, how: str):
                        < 0.5, up, down)
 
 
-def trajectory(cfg, steps: int, how=None):
-    """(losses, grad norms) of ``steps`` unmeshed train steps, the
-    parameters moved by `_moved` ``how`` first (not at all: None)."""
+def _host(params) -> dict:
+    """{path: a host copy} of a Param tree's leaves (the update runs in
+    place)."""
+    from repro_torch.models.params import tree_leaves
+    return {path: leaf.value.detach().to("cpu", copy=True)
+            for path, leaf in tree_leaves(params)}
+
+
+def trajectory(cfg, steps: int, how=None, dev: str = "cuda"):
+    """(losses, grad norms, the parameters before and after the first
+    step (`_host`)) of ``steps`` unmeshed train steps, the parameters
+    moved by `_moved` ``how`` first (not at all: None)."""
     import torch
     from repro_torch.data import DataConfig, TokenStream
     from repro_torch.distributed import make_train_step
@@ -54,7 +66,7 @@ def trajectory(cfg, steps: int, how=None):
     from repro_torch.models.params import Param
     from repro_torch.optim import AdamWConfig, init_adamw
 
-    dev = torch.device("cuda")
+    dev = torch.device(dev)
     model = build_model(cfg)
     params = model.init(seed=0, device=dev, param_dtype=torch.float32)
     if how is not None:
@@ -65,14 +77,28 @@ def trajectory(cfg, steps: int, how=None):
         peak_lr=3e-3, warmup_steps=steps // 10, decay_steps=steps))
     batch = make_batch_fn(cfg, TokenStream(DataConfig(
         vocab=cfg.vocab, global_batch=8, seq_len=256, seed=0)), 0, dev)
-    losses, norms = [], []
+    losses, norms, first = [], [], None
     for s in range(steps):
+        before = _host(params) if s == 0 else None
         params, opt, m = step(params, opt, batch(s))
+        if before is not None:
+            first = (before, _host(params))
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     del params, opt
     torch.cuda.empty_cache()
-    return losses, norms
+    return losses, norms, first
+
+
+def update_rel(moved, base) -> list:
+    """[(leaf, |moved - base| / |base's update|)] of the parameters
+    after the first step, the largest first: what the held gate reads
+    on a leaf (``moved``, ``base``: `trajectory`'s ``first``)."""
+    (b0, b1), (_, m1) = base, moved
+    rel = {".".join(path): float((m1[path] - b1[path]).norm()
+                                 / max(float((b1[path] - b0[path]).norm()),
+                                       1e-30)) for path in b1}
+    return sorted(rel.items(), key=lambda kv: -kv[1])
 
 
 def main() -> None:
@@ -103,8 +129,11 @@ def main() -> None:
                  f"seed {how})")
               + f": losses {b[0]} vs {base[0]} (rel err by step "
               f"{rel(b[0], base[0])}), grad norms {b[1]} vs {base[1]} "
-              f"(rel err by step {rel(b[1], base[1])}) "
-              f"({torch.cuda.get_device_name(0)})", flush=True)
+              f"(rel err by step {rel(b[1], base[1])}); step 1's "
+              f"parameters after the update, |moved - as drawn| / |as "
+              f"drawn's update|, the largest leaves "
+              f"{[(k, f'{v:.3g}') for k, v in update_rel(b[2], base[2])[:4]]}"
+              f" ({torch.cuda.get_device_name(0)})", flush=True)
 
 
 if __name__ == "__main__":
