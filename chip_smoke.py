@@ -177,7 +177,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
              one step's leaves beside their bytes bound, the plain
              version, ``torch.dot`` and ``torch._fused_adamw_``, and
              ``adamw_update`` timed alone on both routes;
-11. mesh   — the device mesh (`launch.mesh`, DTensor): (a) an NCCL
+11. mesh   — the device mesh (`launch.mesh`, the local program): (a) an NCCL
              world of every visible card, one process each, on a
              (data, model) = (1, cards) mesh: gemma-7b at published
              width, 4 of 28 layers, and qwen2-moe-a2.7b at published
@@ -210,7 +210,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
              class); each rank sets its launch counters to 0
              before each run and reads them after (0 tuned kernel
              launches: they have no backward; the optimizer's kernels
-             on every leaf of every step); (b), four gloo
+             on every leaf of every step); (s) serving on the same
+             mesh: gemma-7b and qwen2-moe-a2.7b at published width, 2
+             layers, float32 with TF32 off, a prefill of 4 x 64 tokens
+             and 4 greedy decode steps through ``make_serve_fns(mesh=)``,
+             held to the unmeshed path on rank 0's card fed the meshed
+             tokens (`mesh_serve_verdict`: on one card logits and tokens
+             bit for bit; on more, each row's logits within 1e-4 x (1 +
+             its largest), the greedy tokens the same or parted only at
+             a tie within that tolerance), prefill ms and decode
+             ms/step beside the unmeshed ones (each path's second run);
+             (b), four gloo
              ranks sharing the card, is left out (the functional
              collectives over gloo on CUDA tensors hang there,
              `tools/gloo_cuda.py`; the CPU tests run four-rank gloo
@@ -224,8 +234,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
              collective bytes and H100 roofline terms printed; fatal if
              qwen2-moe's flops ratio passes 2.0 (the reference's 1.61
              x 1.25).  ``python3 chip_smoke.py --mesh-only [--mesh-shape
-             D,M]`` runs this phase alone (with a shape: (a) alone, on
-             a D x M mesh of cards) and prints no result line;
+             D,M]`` runs this phase alone (with a shape: (a) and (s)
+             alone, on a D x M mesh of cards) and prints no result line;
 12. memory — the memory accounting held to the card
              (`tools/train_memory.py`): whisper-tiny at published width
              and depth, unmeshed, one train step of 16 x 4096 tokens
@@ -3964,6 +3974,164 @@ def _mesh_case(arch: str, layers: int, of: int, shape, card: str):
                  f"leaf of every step: {opt}")
 
 
+# (s): serving on the mesh, float32 with TF32 off, each arch cut to a
+# depth; a prefill of MESH_SERVE_BATCH prompts x tokens, then
+# MESH_SERVE_STEPS greedy decode steps
+MESH_SERVE_ARCHS = ("gemma-7b", "qwen2-moe-a2.7b")
+MESH_SERVE_LAYERS = 2
+MESH_SERVE_BATCH = (4, 64)
+MESH_SERVE_STEPS = 4
+# on more than one card: each row's largest |meshed - unmeshed| logit
+# within MESH_SERVE_TOL x (1 + the row's largest |unmeshed| logit), and a
+# greedy token the two part on a tie within the same
+MESH_SERVE_TOL = 1e-4
+
+
+def _mesh_serve_rank(rank: int, world: int, archs, shape) -> dict:
+    """One rank of phase (s): each arch served on the (data, model) mesh
+    ``shape`` over every card (`make_serve_fns(mesh=)`: the parameters'
+    local shards, the logits whole on every rank), then on rank 0 the
+    unmeshed path on its own card from the same seed, fed the meshed
+    path's tokens; rank 0's {arch: comparison and times}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import make_serve_fns
+    from repro_torch.examples.serve_lm import compare
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model, device_put, param_shardings
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(shape, ("data", "model"))
+    sync = torch.cuda.synchronize
+
+    def serve(params, mesh_, tokens, feed=None):
+        """(prefill logits, each greedy step's logits, the tokens chosen
+        or fed, prefill ms, decode ms/step), from the second of two
+        runs (the first warms the card's libraries up)."""
+        for _ in range(2):
+            got = serve_once(params, mesh_, tokens, feed)
+        return got
+
+    def serve_once(params, mesh_, tokens, feed):
+        prefill, decode = make_serve_fns(model, mesh=mesh_)
+        with torch.no_grad():
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, {"tokens": tokens})
+            sync()
+            t_pre = (time.perf_counter() - t0) * 1e3
+            steps, toks = [logits[:, -1]], []
+            t0 = time.perf_counter()
+            for i in range(MESH_SERVE_STEPS):
+                tok = (feed[:, i:i + 1] if feed is not None else
+                       steps[-1].argmax(-1, keepdim=True).to(torch.int32))
+                toks.append(tok)
+                lg, cache = decode(params, cache, tok)
+                steps.append(lg[:, -1])
+            sync()
+            t_dec = (time.perf_counter() - t0) * 1e3 / MESH_SERVE_STEPS
+        return (logits, torch.stack(steps, 1), torch.cat(toks, 1), t_pre,
+                t_dec)
+
+    out = {}
+    for arch in archs:
+        cfg = dataclasses.replace(get_config(arch),
+                                  n_layers=MESH_SERVE_LAYERS,
+                                  dtype="float32")
+        model = build_model(cfg)
+        params = model.init(seed=0, device=dev, param_dtype=torch.float32)
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, MESH_SERVE_BATCH).astype(np.int32)).to(dev)
+        meshed = device_put(params, param_shardings(params, mesh))
+        m_pre, m_steps, m_toks, m_tpre, m_tdec = serve(meshed, mesh, tokens)
+        del meshed
+        if rank == 0:
+            p_pre, p_steps, _, p_tpre, p_tdec = serve(params, None, tokens,
+                                                      feed=m_toks)
+            # each step's choice: the meshed path's against the
+            # unmeshed path's on the same stream (the last step's
+            # logits choose a token no step is fed)
+            chosen = m_steps.argmax(-1)
+            cmp = compare(chosen, m_steps, p_steps.argmax(-1), p_steps,
+                          atol=MESH_SERVE_TOL, rtol=MESH_SERVE_TOL)
+            err = (m_pre - p_pre).abs()
+            lim = MESH_SERVE_TOL * (1 + p_pre.abs().amax(-1))
+            out[arch] = {
+                "bitwise": bool(torch.equal(m_pre, p_pre)
+                                and torch.equal(m_steps, p_steps)),
+                "finite": bool(torch.isfinite(m_pre).all()
+                               and torch.isfinite(m_steps).all()),
+                "prefill_max_abs_err": float(err.max()),
+                "prefill_within_tol": bool((err.amax(-1) <= lim).all()),
+                "decode_max_abs_err": cmp["max_abs_err"],
+                "decode_within_tol": cmp["within_tol"],
+                "parts": cmp["parts"],
+                "tokens": m_toks.tolist(),
+                "ms": {"meshed": [m_tpre, m_tdec],
+                       "unmeshed": [p_tpre, p_tdec]}}
+            del p_pre, p_steps
+        del params, m_pre, m_steps
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve_verdict(world: int, rec: dict) -> list:
+    """Phase (s)'s faults for one arch's comparison (`_mesh_serve_rank`):
+    on one card the meshed path must be the unmeshed one bit for bit; on
+    more, the logits finite and within MESH_SERVE_TOL (prefill and every
+    decode step), and every greedy token the same or parted only at a
+    tie."""
+    if world == 1:
+        return [] if rec["bitwise"] else [
+            f"on one card the meshed logits are not the unmeshed ones bit "
+            f"for bit (prefill {rec['prefill_max_abs_err']:.3g}, decode "
+            f"{rec['decode_max_abs_err']:.3g} max|err|)"]
+    faults = []
+    if not rec["finite"]:
+        faults.append("a meshed logit is not finite")
+    if not (rec["prefill_within_tol"] and rec["decode_within_tol"]):
+        faults.append(f"logits off the unmeshed ones past {MESH_SERVE_TOL:g}"
+                      f" x (1 + the row's largest): prefill "
+                      f"{rec['prefill_max_abs_err']:.3g}, decode "
+                      f"{rec['decode_max_abs_err']:.3g} max|err|")
+    off = [p for p in rec["parts"] if not p["tie"]]
+    if off:
+        faults.append(f"greedy tokens part off a tie: {off}")
+    return faults
+
+
+def _mesh_serve_case(shape, card: str) -> None:
+    """Phase (s): `_mesh_serve_rank` on every card, judged by
+    `mesh_serve_verdict`; fatal on a fault."""
+    from repro_torch.launch.mesh import spawn_world
+
+    world = shape[0] * shape[1]
+    got = spawn_world(_mesh_serve_rank, world, MESH_SERVE_ARCHS, shape,
+                      backend="nccl", timeout=600)[0]
+    for arch in MESH_SERVE_ARCHS:
+        r = got[arch]
+        faults = mesh_serve_verdict(world, r)
+        (mp, md), (up, ud) = r["ms"]["meshed"], r["ms"]["unmeshed"]
+        print(f"[mesh] (s) NCCL, {world} card(s), mesh {tuple(shape)}: "
+              f"{arch} {MESH_SERVE_LAYERS} layers float32, prefill "
+              f"{MESH_SERVE_BATCH[0]} x {MESH_SERVE_BATCH[1]} + "
+              f"{MESH_SERVE_STEPS} greedy steps through make_serve_fns("
+              f"mesh=): bit for bit with the unmeshed path "
+              f"{r['bitwise']}, max|err| prefill "
+              f"{r['prefill_max_abs_err']:.3g}, decode "
+              f"{r['decode_max_abs_err']:.3g} (tol {MESH_SERVE_TOL:g} x (1 "
+              f"+ row max)), tokens {r['tokens']}, parted at "
+              f"{[(p['row'], p['step'], p['tie']) for p in r['parts']]}; "
+              f"prefill {mp:.2f} ms meshed vs {up:.2f} ms unmeshed, decode "
+              f"{md:.2f} vs {ud:.2f} ms/step ({card})", flush=True)
+        if faults:
+            fail(f"[mesh] (s) {arch}: meshed serving disagrees with the "
+                 f"unmeshed path: {'; '.join(faults)}")
+
+
 # (c)'s cells: (arch, shape, --multi-pod)
 DRYRUN_CELLS = (("gemma-7b", "train_4k", True),
                 ("qwen2-moe-a2.7b", "train_4k", False))
@@ -4028,6 +4196,8 @@ def phase_mesh(card: str, shape=None) -> None:
     for arch, layers, of in (("gemma-7b", TRAIN_LAYERS, 28),
                              ("qwen2-moe-a2.7b", MOE_LAYERS, 24)):
         _mesh_case(arch, layers, of, shape, card)
+    # (s)
+    _mesh_serve_case(shape, card)
     if not dryrun:
         print(f"[mesh] phase took {time.perf_counter() - t0:.1f} s",
               flush=True)

@@ -44,8 +44,8 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.sharding import (Rules, WEIGHT_RULES,
-                                              named_sharding, place)
-from repro_torch.models.params import Param, tree_leaves
+                                              named_sharding)
+from repro_torch.models.params import Param, distribute, tree_leaves
 
 __all__ = ["CheckpointManager"]
 
@@ -238,7 +238,7 @@ class CheckpointManager:
                 leaf = _from_host(entry, npz[entry["name"]],
                                   "cpu" if device is None else device)
                 if mesh is not None and isinstance(leaf, Param):
-                    leaf = Param(place(leaf.value, named_sharding(
+                    leaf = Param(distribute(leaf.value, named_sharding(
                         leaf.dims, tuple(leaf.shape), rules, mesh)),
                         leaf.dims)
                 node[entry["path"][-1]] = leaf

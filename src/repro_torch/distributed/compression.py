@@ -21,18 +21,27 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import settle
-
 _RECIP_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)
 
 __all__ = ["quantize_int8", "dequantize_int8", "ef_compress_grads",
            "init_ef_state"]
 
 
+def _settled(x):
+    """A DTensor's pending sums or maxima reduced to ``Replicate()`` (the
+    compression takes the gradients as DTensors); anything else as
+    is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) or not any(p.is_partial()
+                                             for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
 def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     xf = x.float()
     # a DTensor's max is pending over its shards until settled
-    amax = settle(torch.max(torch.abs(xf)))
+    amax = _settled(torch.max(torch.abs(xf)))
     scale = torch.clamp(amax, min=1e-30) / 127.0
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -66,7 +75,7 @@ def _compress_one(g, r, group, n: int):
     # multiply by the f32 reciprocal, and fuses the residual's multiply-
     # subtract into one rounding (emulated in float64, where q * scale
     # is exact)
-    amax = settle(torch.max(torch.abs(target)))
+    amax = _settled(torch.max(torch.abs(target)))
     scale = torch.clamp(amax, min=1e-30) * _RECIP_127.to(amax.device)
     q = torch.clamp(torch.round(target / scale), -127, 127).to(torch.int8)
     local = lambda t: t.to_local() if isinstance(t, DTensor) else t

@@ -20,12 +20,13 @@ mesh dim, so the axes must appear in mesh order (the rule tables' do).
 
 `Sharder` keeps the reference's call sites — every layer names the
 logical layout of what it produces.  Without a mesh it passes each
-tensor through unchanged; on a mesh ``act`` and ``cache`` redistribute
-a DTensor to the rule's placements, the counterpart of the reference's
+tensor through unchanged; on a mesh ``act`` and ``cache`` lay a local
+shard out by the rule's placements, the counterpart of the reference's
 ``with_sharding_constraint``.
 
-The meshed training step runs as the reference's compiled SPMD program
-runs: one local program per rank (`make_train_step`).  Its tensors are
+The meshed steps — training, prefill and decode — run as the reference's
+compiled SPMD program runs: one local program per rank
+(`make_train_step`, `make_serve_fns`).  Its tensors are
 the ranks' plain local shards; each one a mesh site takes or makes
 carries its place on the mesh as a `Lay` (`tag`, `layout`: the mesh,
 one placement per mesh dim, the global shape, and for a parameter its
@@ -38,9 +39,11 @@ written as an autograd function whose backward runs the transposed
 one.  A site whose work is split along a mesh dim over which an input
 is whole hands that input a gradient partial there, and reduces it: an
 activation's at once, a parameter's once after the backward (the
-data-parallel reduction; `pending_reductions`).  The same sites take
-DTensors (serving on a mesh, and the reference's layouts in the tests),
-each site's layouts read the same way from either.
+data-parallel reduction; `pending_reductions`).  A weight moves in
+the type its site computes in: `cast` first, then the collective, as
+the reference's program gathers the cast shard and reduces the narrow
+gradient.  DTensors stay at the steps' edges (the parameter state,
+checkpoints, the int8 gradient compression).
 """
 from __future__ import annotations
 
@@ -57,9 +60,9 @@ __all__ = ["Rules", "WEIGHT_RULES", "ACT_RULES", "ACT_RULES_SP",
            "NamedSharding", "named_sharding", "Sharder", "tree_shardings",
            "mesh_sizes", "place", "local", "settle", "per_shard",
            "shard_map", "shard_einsum", "shard_range", "batch_only",
-           "Lay", "tag", "layout", "is_local", "like", "gshape", "relayout",
+           "Lay", "tag", "layout", "like", "gshape", "relayout", "cast",
            "weight_like", "shard_mean", "pending_reductions", "layer_of",
-           "to_layout"]
+           "stack_layers", "whole"]
 
 AxisCand = Union[str, Tuple[str, ...]]
 Rule = Tuple[str, Tuple[AxisCand, ...]]
@@ -266,20 +269,9 @@ def tag(x, lay: Lay):
 
 
 def layout(x) -> Optional[Lay]:
-    """A DTensor's or a tagged local tensor's `Lay`; None for anything
-    else (a plain tensor off the mesh, or the same on every rank)."""
-    lay = getattr(x, _TAG, None)
-    if lay is not None:
-        return lay
-    from torch.distributed.tensor import DTensor
-    if isinstance(x, DTensor):
-        return Lay(x.device_mesh, tuple(x.placements), tuple(x.shape))
-    return None
-
-
-def is_local(x) -> bool:
-    """Whether ``x`` is a tagged local shard (the local program's)."""
-    return getattr(x, _TAG, None) is not None
+    """A tagged local tensor's `Lay`; None for anything else (a plain
+    tensor off the mesh, or the same on every rank)."""
+    return getattr(x, _TAG, None)
 
 
 def gshape(x) -> tuple:
@@ -314,9 +306,24 @@ def like(y, x):
     return _tag_out(y, lay.mesh, lay.placements)
 
 
-# a step's pending reductions of parameter gradients: {key: mesh dims}
-_PENDING: "ContextVar[Optional[Dict[int, set]]]" = ContextVar(
-    "repro_torch_pending_reductions", default=None)
+def cast(x, dtype):
+    """``x`` in ``dtype``, a tagged local's `Lay` kept whole — a
+    parameter's cast keeps its key, so its gradient's pending reductions
+    are still recorded; ``x`` itself when it is of ``dtype`` already (a
+    float32 run casts nothing).  Under autograd the cast's backward
+    widens the gradient on the shard, after the collectives that moved
+    it in ``dtype``."""
+    if x.dtype == dtype:
+        return x
+    lay = getattr(x, _TAG, None)
+    y = x.to(dtype)
+    return y if lay is None else tag(y, lay)
+
+
+# a step's pending reductions of parameter gradients: {key: {mesh dim:
+# the type the gradient is reduced in}}
+_PENDING: "ContextVar[Optional[Dict[int, Dict[int, torch.dtype]]]]" = \
+    ContextVar("repro_torch_pending_reductions", default=None)
 
 
 @contextlib.contextmanager
@@ -324,10 +331,11 @@ def pending_reductions():
     """Within it a parameter shard (a tagged local with a ``key``) that a
     site uses whole along a mesh dim over which the site's work is
     split leaves its gradient partial there, and the dims are recorded
-    in the dict it yields ({key: mesh dims}) for the step to reduce
-    once after the backward — the data-parallel reduction.  Outside it
-    the site reduces the gradient at once."""
-    pend: Dict[int, set] = {}
+    in the dict it yields ({key: {mesh dim: type}}) for the step to
+    reduce once after the backward — the data-parallel reduction — in
+    the type the site used the parameter in (float32 where any site
+    used it so).  Outside it the site reduces the gradient at once."""
+    pend: Dict[int, Dict[int, torch.dtype]] = {}
     tok = _PENDING.set(pend)
     try:
         yield pend
@@ -470,8 +478,10 @@ def relayout(x, placements, pgrad: Sequence[int] = ()):
     pend = _PENDING.get()
     if lay.key is not None and pend is not None:
         keep = tuple(i for i in pgrad if src[i].is_replicate())
-        if keep:
-            pend.setdefault(lay.key, set()).update(keep)
+        got = pend.setdefault(lay.key, {}) if keep else None
+        for i in keep:
+            # a float32 use widens the reduction of every use
+            got[i] = torch.promote_types(got.get(i, x.dtype), x.dtype)
     if src == dst and not (set(pgrad) - set(keep)):
         return x
     y = _Relayout.apply(x, lay.mesh, src, dst, pgrad, keep)
@@ -479,8 +489,8 @@ def relayout(x, placements, pgrad: Sequence[int] = ()):
 
 
 def layer_of(v, stacked):
-    """``v``, one layer of a stacked parameter (``stacked.unbind(0)``), a
-    tagged local again when ``stacked`` is: its placements' tensor dims
+    """``v``, one layer of a stacked parameter or cache (``stacked[i]``),
+    a tagged local again when ``stacked`` is: its placements' tensor dims
     shifted past the layers dim (never sharded), its key kept."""
     lay = getattr(stacked, _TAG, None)
     if lay is None:
@@ -493,13 +503,23 @@ def layer_of(v, stacked):
     return tag(v, Lay(lay.mesh, pl, tuple(lay.shape[1:]), lay.key))
 
 
-def to_layout(x, placements):
-    """A tagged local or a DTensor laid out by ``placements``."""
-    if is_local(x):
-        return relayout(x, placements)
-    if tuple(x.placements) == tuple(placements):
-        return x
-    return x.redistribute(x.device_mesh, placements)
+def stack_layers(vs):
+    """``torch.stack(vs)`` of one tensor a layer (a stacked cache), a
+    tagged local again when they are: the layers dim whole, each
+    placement's tensor dim shifted past it (`layer_of` takes a layer
+    back out)."""
+    out = torch.stack(vs)
+    lay = getattr(vs[0], _TAG, None)
+    if lay is None:
+        return out
+    if any(getattr(v, _TAG, None) != lay for v in vs) or \
+            any(p.is_partial() for p in lay.placements):
+        raise ValueError("layers stacked from different layouts or "
+                         "pending sums")
+    from torch.distributed.tensor import Shard
+    pl = tuple(Shard(p.dim + 1) if p.is_shard() else p
+               for p in lay.placements)
+    return tag(out, Lay(lay.mesh, pl, (len(vs),) + tuple(lay.shape)))
 
 
 def weight_like(w, x):
@@ -507,12 +527,12 @@ def weight_like(w, x):
     (its dims aligned with ``x``'s trailing ones): sharded where ``x``
     is sharded on the aligned dim, whole elsewhere — a gain of an FSDP
     weight is gathered — its gradient reduced over the mesh dims along
-    which ``x`` is split and ``w`` whole.  Anything but a tagged local
-    ``w`` as is (a DTensor meets ``x`` by DTensor's rules)."""
-    if not is_local(w):
+    which ``x`` is split and ``w`` whole.  Off the mesh (``x`` no tagged
+    local) ``w`` as is."""
+    xl = getattr(x, _TAG, None)
+    if xl is None:
         return w
     from torch.distributed.tensor import Replicate, Shard
-    xl = getattr(x, _TAG)
     off = len(xl.shape) - len(getattr(w, _TAG).shape)
     pl, pgrad = [], []
     for i, p in enumerate(xl.placements):
@@ -539,51 +559,46 @@ def shard_mean(x):
     part = x.sum() / math.prod(lay.shape)
     pl = tuple(Partial() if p.is_shard() else Replicate()
                for p in lay.placements)
-    tag(part, Lay(lay.mesh, pl, ()))
-    rep = (Replicate(),) * len(pl)
-    out = relayout(part, rep)
-    delattr(out, _TAG)
-    return out
+    return whole(tag(part, Lay(lay.mesh, pl, ())))
+
+
+def whole(x):
+    """A tagged local's whole value as a plain tensor, the same on every
+    rank (its shards gathered, its pending sums reduced); anything else
+    as is."""
+    lay = getattr(x, _TAG, None)
+    if lay is None:
+        return x
+    from torch.distributed.tensor import Replicate
+    out = relayout(x, (Replicate(),) * len(lay.placements))
+    return out.view_as(out)          # a new tensor: no tag
 
 
 def place(x, sharding: NamedSharding):
-    """``x`` laid out by ``sharding``: a DTensor is redistributed (the
-    collective the layout change needs); a plain tensor — the same
-    global value on every rank, as a host batch or a parameter tree
-    loaded on every rank is — is distributed without communication,
-    each rank keeping its own shard."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
-    pl = sharding.placements
-    if is_local(x):
-        return relayout(x, pl)
-    if isinstance(x, DTensor):
-        if tuple(x.placements) == pl:
-            return x
-        return x.redistribute(sharding.mesh, pl)
-    return distribute_tensor(x, sharding.mesh, pl, src_data_rank=None)
+    """A tagged local ``x`` laid out by ``sharding`` (`relayout`)."""
+    if layout(x) is None:
+        raise ValueError(f"a local tensor {tuple(x.shape)} without a "
+                         f"layout reached a mesh site")
+    return relayout(x, sharding.placements)
 
 
 def settle(x, split=None):
-    """A DTensor with every pending (``Partial``) placement reduced to
-    ``Replicate()``, its shards kept; anything else as is.  For a result
-    DTensor cannot carry through the next op in its pending form (a
-    gather along a sharded dim leaves a masked partial that no view
-    keeps).  In the local program ``split`` names a tensor the result
-    meets in elementwise ops: along the mesh dims where that one is
-    sharded and the result whole, the result's gradient comes back
-    partial and is summed there."""
-    from torch.distributed.tensor import DTensor, Replicate
+    """A tagged local with every pending (``Partial``) placement reduced
+    to ``Replicate()``, its shards kept; anything else as is — for a
+    result the next plain op cannot take in its pending form.  ``split``
+    names a tensor the result meets in elementwise ops: along the mesh
+    dims where that one is sharded and the result whole, the result's
+    gradient comes back partial and is summed there."""
+    from torch.distributed.tensor import Replicate
     lay = layout(x)
     if lay is None or not any(p.is_partial() for p in lay.placements):
         return x
     pl = [Replicate() if p.is_partial() else p for p in lay.placements]
-    if not isinstance(x, DTensor):
-        other = layout(split) if split is not None else None
-        pgrad = [] if other is None else [
-            i for i, (p, q) in enumerate(zip(pl, other.placements))
-            if p.is_replicate() and not q.is_replicate()]
-        return relayout(x, pl, pgrad)
-    return x.redistribute(x.device_mesh, pl)
+    other = layout(split) if split is not None else None
+    pgrad = [] if other is None else [
+        i for i, (p, q) in enumerate(zip(pl, other.placements))
+        if p.is_replicate() and not q.is_replicate()]
+    return relayout(x, pl, pgrad)
 
 
 # `shard_map`'s layout plans by (in, out and grad placements, inputs,
@@ -594,8 +609,7 @@ _MAP_PLANS: Dict[tuple, tuple] = {}
 def _map_plan(in_placements, out_placements, grad_placements, n: int,
               mesh):
     """(the outputs' placements, one per output; per input None, or
-    (its placements, its gradient's, the mesh dims where that is
-    partial))."""
+    (its placements, the mesh dims where its gradient is partial))."""
     ins = tuple(None if pl is None else tuple(pl) for pl in in_placements)
     single = not isinstance(out_placements[0], (tuple, list))
     outs = tuple(out_placements) if single else tuple(
@@ -606,7 +620,6 @@ def _map_plan(in_placements, out_placements, grad_placements, n: int,
     hit = _MAP_PLANS.get(key)
     if hit is not None and hit[0] is mesh:
         return hit[1], hit[2]
-    from torch.distributed.tensor import Partial, Replicate
     outs = [outs] if single else list(outs)
     busy = [any(not o[i].is_replicate() for o in outs)
             for i in range(mesh.ndim)]
@@ -618,12 +631,12 @@ def _map_plan(in_placements, out_placements, grad_placements, n: int,
     for pl, grad in zip(ins, grads or [None] * n):
         if pl is None:
             plan.append(None)
-            continue
-        grad = grad if grad is not None else tuple(
-            p if p.is_shard() else Partial() if busy[i] else Replicate()
-            for i, p in enumerate(pl))
-        plan.append((pl, grad, [i for i, g in enumerate(grad)
-                                if g.is_partial()]))
+        elif grad is not None:
+            plan.append((pl, [i for i, g in enumerate(grad)
+                              if g.is_partial()]))
+        else:
+            plan.append((pl, [i for i, p in enumerate(pl)
+                              if not p.is_shard() and busy[i]]))
     if len(_MAP_PLANS) > 4096:
         _MAP_PLANS.clear()
     _MAP_PLANS[key] = (mesh, outs, tuple(plan))
@@ -633,13 +646,13 @@ def _map_plan(in_placements, out_placements, grad_placements, n: int,
 def shard_map(fn, in_placements, out_placements, *xs, mesh=None,
               grad_placements=None):
     """``fn`` on each rank's local shards, every layout given, as JAX's
-    ``shard_map``: each DTensor among ``xs`` is redistributed to its
-    entry of ``in_placements`` (a plain tensor there joins the mesh
-    replicated first; an entry of None passes its argument as it is),
-    ``fn`` runs on the local tensors, and each tensor it returns becomes
-    a DTensor of ``out_placements`` (one tuple for every output, or a
-    list with one tuple per output; ``Partial()`` where the outputs of
-    the ranks along a mesh dim are summands).
+    ``shard_map``: each tagged local among ``xs`` is laid out by its
+    entry of ``in_placements`` (`relayout`; a plain tensor there, the
+    same on every rank, is whole; an entry of None passes its argument
+    as it is), ``fn`` runs on the local tensors, and each tensor it
+    returns is tagged with ``out_placements`` (one tuple for every
+    output, or a list with one tuple per output; ``Partial()`` where the
+    outputs of the ranks along a mesh dim are summands).
 
     Gradients: an input sharded along a mesh dim takes its gradient
     sharded there; one replicated along a mesh dim along which the
@@ -650,13 +663,12 @@ def shard_map(fn, in_placements, out_placements, *xs, mesh=None,
     None for the rule) overrides that, for an ``fn`` whose backward
     splits work the forward repeats.  Without a mesh it is
     ``fn(*xs)``."""
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import Replicate
     if mesh is None:
         mesh = next((layout(x).mesh for x in xs if layout(x) is not None),
                     None)
     if mesh is None:
         return fn(*xs)
-    loc = any(is_local(x) for x in xs)
     outs, plan = _map_plan(in_placements, out_placements, grad_placements,
                            len(xs), mesh)
     args = []
@@ -664,19 +676,11 @@ def shard_map(fn, in_placements, out_placements, *xs, mesh=None,
         if entry is None or not isinstance(x, torch.Tensor):
             args.append(x)
             continue
-        pl, grad, pgrad = entry
-        if loc:
-            if not is_local(x):        # the same on every rank
-                x = tag(x.view_as(x), Lay(mesh, (Replicate(),) * mesh.ndim,
-                                          tuple(x.shape)))
-            args.append(relayout(x, pl, pgrad))
-            continue
-        if not isinstance(x, DTensor):
-            x = DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim,
-                                   run_check=False)
-        if tuple(x.placements) != pl:
-            x = x.redistribute(mesh, pl)
-        args.append(x.to_local(grad_placements=grad))
+        pl, pgrad = entry
+        if layout(x) is None:           # the same on every rank
+            x = tag(x.view_as(x), Lay(mesh, (Replicate(),) * mesh.ndim,
+                                      tuple(x.shape)))
+        args.append(relayout(x, pl, pgrad))
     n_out = [0]
 
     def back(y):
@@ -685,9 +689,7 @@ def shard_map(fn, in_placements, out_placements, *xs, mesh=None,
         if isinstance(y, torch.Tensor):
             pl = outs[min(n_out[0], len(outs) - 1)]
             n_out[0] += 1
-            if loc:
-                return _tag_out(y, mesh, pl)
-            return DTensor.from_local(y, mesh, pl, run_check=False)
+            return _tag_out(y, mesh, pl)
         return y
     return back(fn(*args))
 
@@ -695,14 +697,14 @@ def shard_map(fn, in_placements, out_placements, *xs, mesh=None,
 def per_shard(fn, placements, *xs, whole: Sequence[int] = ()):
     """``fn`` run on each rank's shards, for an ``fn`` whose every output
     element depends only on the inputs at the same index of the tensor
-    dims ``placements`` shards (batch, heads): each DTensor among ``xs``
-    is laid out by ``placements``, except those at the indices in
+    dims ``placements`` shards (batch, heads): each tagged local among
+    ``xs`` is laid out by ``placements``, except those at the indices in
     ``whole``, which go whole (``Replicate()``) and take back a gradient
     partial over the mesh dims ``placements`` shards.  ``fn`` runs on
-    the local tensors and each tensor it returns is a DTensor of
+    the local tensors and each tensor it returns is tagged with
     ``placements``.  Plain ``xs`` (a mask bias, the same on every rank)
-    pass as they are; without DTensors it is ``fn(*xs)`` (`shard_map`
-    with one layout)."""
+    pass as they are; off the mesh it is ``fn(*xs)`` (`shard_map` with
+    one layout)."""
     from torch.distributed.tensor import Replicate
     mesh = next((layout(x).mesh for x in xs if layout(x) is not None),
                 None)
@@ -716,13 +718,12 @@ def per_shard(fn, placements, *xs, whole: Sequence[int] = ()):
 
 
 def local(fn, *xs):
-    """``fn`` on whole operands: every DTensor among ``xs`` is gathered
-    to ``Replicate()`` (the all-gather GSPMD inserts around an op it
-    cannot partition), ``fn`` runs on the local copies, and each tensor
-    it returns goes back on the mesh replicated.  Only the tuned ops'
-    call sites use it (a kernel takes whole operands, as the
-    reference's Pallas calls do under GSPMD).  Without DTensors it is
-    ``fn(*xs)``."""
+    """``fn`` on whole operands: every tagged local among ``xs`` is
+    gathered to ``Replicate()`` (the all-gather GSPMD inserts around an
+    op it cannot partition), ``fn`` runs on the whole copies, and each
+    tensor it returns is tagged replicated.  Only the tuned ops' call
+    sites use it (a kernel takes whole operands, as the reference's
+    Pallas calls do under GSPMD).  Off the mesh it is ``fn(*xs)``."""
     from torch.distributed.tensor import Replicate
     mesh = next((layout(x).mesh for x in xs if layout(x) is not None),
                 None)
@@ -732,8 +733,8 @@ def local(fn, *xs):
 
 
 def shard_einsum(eq: str, x, w, whole: Sequence[int] = ()):
-    """``einsum(eq, x, w)`` with ``w`` cast to ``x``'s type.  On
-    DTensors, the layout along each mesh dim is read off the operands,
+    """``einsum(eq, x, w)`` with ``w`` cast to ``x``'s type.  On a
+    mesh, the layout along each mesh dim is read off the operands,
     as the reference's FSDP x tensor-parallel program runs: where ``x``
     is sharded along a dim the weight is not (a batch shard against the
     weight's FSDP ``embed`` shard) the weight is gathered (``x`` is,
@@ -741,12 +742,11 @@ def shard_einsum(eq: str, x, w, whole: Sequence[int] = ()):
     on either side stays sharded in the result, or, contracted, leaves
     it partial over that mesh dim (the other operand then takes the
     matching shard, a local slice when it was whole).  The product runs
-    on local tensors (`shard_map`), so no DTensor strategy re-plans it,
-    in the backward either: each rank does its shard's share of the
-    work, never a whole weight's.  Without grad (serving) the weight is
-    cast to ``x``'s type before it moves, as the reference's program
-    gathers the cast; with grad the float32 master is gathered, so its
-    gradient is reduced in float32.
+    on local tensors (`shard_map`), in the backward too: each rank does
+    its shard's share of the work, never a whole weight's.  The weight
+    is cast to ``x``'s type before it moves (`cast`), as the reference's
+    program gathers the cast: a float32 master moves in bf16, and its
+    gradient is reduced in bf16 and widened on the shard.
 
     Along the mesh dims ``whole`` (one at most), where both operands are
     whole, the result is whole on every rank, the product repeated; the
@@ -758,22 +758,20 @@ def shard_einsum(eq: str, x, w, whole: Sequence[int] = ()):
     if layout(x) is None and layout(w) is None:
         return torch.einsum(eq, x, w.to(x.dtype))
     mesh = (layout(x) or layout(w)).mesh
-    x, w = settle(x), settle(w)
-    if not torch.is_grad_enabled():
-        w = like(w.to(x.dtype), w)   # serving: a gathered weight moves cast
+    x, w = settle(x), cast(settle(w), x.dtype)
     lx, lw = layout(x), layout(w)
     px, pw, po, xgrad, grad, cut_dim = _einsum_plan(
         eq, lx.placements if lx is not None else None,
         lw.placements if lw is not None else None, tuple(whole), mesh)
     if cut_dim is None:
-        return shard_map(lambda xx, ww: torch.einsum(
-            eq, xx, ww.to(xx.dtype)), (px, pw), po, x, w, mesh=mesh)
+        return shard_map(lambda xx, ww: torch.einsum(eq, xx, ww),
+                         (px, pw), po, x, w, mesh=mesh)
     # torch.chunk's split of the weight's first dim
     size, k = gshape(w)[0], mesh.shape[cut_dim]
     lo = min(mesh.get_coordinate()[cut_dim] * -(-size // k), size)
     cut = (lo, min(-(-size // k), size - lo))
     return shard_map(lambda xx, ww: _SlicedWeightGrad.apply(
-        eq, xx, ww.to(xx.dtype), *cut), (px, pw), po, x, w, mesh=mesh,
+        eq, xx, ww, *cut), (px, pw), po, x, w, mesh=mesh,
         grad_placements=[xgrad, grad])
 
 
@@ -859,19 +857,14 @@ class _SlicedWeightGrad(torch.autograd.Function):
 
 
 def batch_only(x):
-    """A DTensor laid out over its batch (dim 0) shards alone, every
+    """A tagged local laid out over its batch (dim 0) shards alone, every
     other shard or pending sum gathered; anything else as is."""
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import Replicate
     lay = layout(x)
     if lay is None:
         return x
-    pl = tuple(p if p.is_shard() and p.dim == 0 else Replicate()
-               for p in lay.placements)
-    if tuple(lay.placements) == pl:
-        return x
-    if not isinstance(x, DTensor):
-        return relayout(x, pl)
-    return x.redistribute(x.device_mesh, pl)
+    return relayout(x, tuple(p if p.is_shard() and p.dim == 0
+                             else Replicate() for p in lay.placements))
 
 
 def shard_range(mesh, placements, dim: int, size: int) -> Tuple[int, int]:
@@ -892,51 +885,42 @@ def shard_range(mesh, placements, dim: int, size: int) -> Tuple[int, int]:
 
 
 class Sharder:
-    """Threaded through model code; a pass-through without a mesh."""
+    """Threaded through model code; a pass-through without a mesh.  On a
+    mesh every tensor at a site is a tagged local shard: a plain tensor
+    joins the local program only through `enter`."""
 
     def __init__(self, mesh=None, act_rules: Rules = ACT_RULES,
                  cache_rules: Rules = CACHE_RULES,
-                 weight_rules: Rules = WEIGHT_RULES, local: bool = False):
+                 weight_rules: Rules = WEIGHT_RULES):
         self.mesh = mesh
         self.act_rules = act_rules
         self.cache_rules = cache_rules
         self.weight_rules = weight_rules
-        # the local program: a plain tensor at a site is a whole global
-        # value only through `enter`
-        self.local = local and mesh is not None
 
     def act(self, x, dims: Sequence[Optional[str]]):
         if self.mesh is None:
             return x
-        self._check(x)
         return place(x, named_sharding(dims, gshape(x), self.act_rules,
                                        self.mesh))
 
     def cache(self, x, dims: Sequence[Optional[str]]):
         if self.mesh is None:
             return x
-        self._check(x)
         return place(x, named_sharding(dims, gshape(x), self.cache_rules,
                                        self.mesh))
 
-    def _check(self, x):
-        if self.local and layout(x) is None:
-            raise ValueError(f"a local tensor {tuple(x.shape)} without a "
-                             f"layout reached a mesh site")
-
     def enter(self, x, dims: Sequence[Optional[str]]):
-        """A global value (a host batch, the same on every rank) laid
-        out by the activation rules: a DTensor, or in the local program
-        this rank's tagged shard (a slice: no communication)."""
-        if not self.local:
-            return self.act(x, dims)
-        from torch.distributed.tensor import DTensor, Replicate
-        pl = named_sharding(dims, x.shape, self.act_rules,
+        """A global value laid out by the activation rules: a plain
+        tensor (a host batch, the same on every rank) becomes this rank's
+        tagged shard (a slice: no communication); a tagged local is laid
+        out by the rules."""
+        if self.mesh is None:
+            return x
+        pl = named_sharding(dims, gshape(x), self.act_rules,
                             self.mesh).placements
-        if isinstance(x, DTensor):          # already on the mesh
-            whole = tuple(x.shape)
-            x = x.redistribute(x.device_mesh, pl).to_local()
-            return tag(x.view_as(x), Lay(self.mesh, pl, whole))
+        if layout(x) is not None:
+            return relayout(x, pl)
+        from torch.distributed.tensor import Replicate
         part = _relayout(x, self.mesh, (Replicate(),) * self.mesh.ndim, pl)
         return tag(part if part is not x else x.view_as(x),
                    Lay(self.mesh, pl, tuple(x.shape)))

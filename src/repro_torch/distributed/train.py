@@ -29,25 +29,30 @@ each microbatch — the host batch, the same on every rank, split into
 microbatches as the reference splits it, then laid out by the
 activation rules (``batch -> ("pod", "data")``).  The forward, remat
 and backward run plain torch ops on local tensors; each mesh site is
-the collective GSPMD inserts there, under autograd.  A weight a site
-gathers takes its gradient reduce-scattered in the backward; one whole
-along a mesh dim over which its site's work is split leaves its
-gradient partial there, and after the backward the data-parallel
-all-reduce sums it.  The update (`optim.adamw`) takes the gradients as
-local shards tagged with their parameters' layouts and runs on the
-parameters' and moments' local shards, the norm summed over the mesh
-dims that shard each leaf; with ``compress_pod_grads`` on a mesh with a
-``pod`` dim the gradients join the mesh as DTensors of their
-parameters' placements and pass through the int8 error-feedback
-compression first.  As in the reference, the
+the collective GSPMD inserts there, under autograd.  A weight moves in
+the type its site computes in (`sharding.cast`): in a bf16 step its
+float32 master's shard is cast, the cast gathered, and its bf16
+gradient reduce-scattered in the backward and widened on the shard.
+One whole along a mesh dim over which its site's work is split leaves
+its gradient partial there, and after the backward the data-parallel
+all-reduce sums it, in the type the site used it in.  The update
+(`optim.adamw`) takes the gradients as local shards tagged with their
+parameters' layouts and runs on the parameters' and moments' local
+shards, the norm summed over the mesh dims that shard each leaf; with
+``compress_pod_grads`` on a mesh with a ``pod`` dim the gradients join
+the mesh as DTensors of their parameters' placements and pass through
+the int8 error-feedback compression first.  As in the reference, the
 residual does not outlive the step: the reference's ``adamw_update``
 returns a fresh state of ``m``, ``v`` and ``count``, so every step
 compresses with a zero residual.  The metrics come back as plain
 tensors, the same on every rank.
+
+`make_serve_fns` builds prefill and decode the same way: on a mesh each
+runs as one local program per rank, the caches tagged local shards and
+the logits whole at the step's edge.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Tuple
 
@@ -56,8 +61,8 @@ import torch
 
 from repro_torch.distributed.sharding import (ACT_RULES, CACHE_RULES, Lay,
                                               Rules, Sharder, WEIGHT_RULES,
-                                              _reduce, mesh_sizes,
-                                              pending_reductions, tag)
+                                              _reduce, cast, mesh_sizes,
+                                              pending_reductions, tag, whole)
 from repro_torch.models.layers import tuned_layers_enabled
 from repro_torch.models.params import tree_leaves
 from repro_torch.optim import adamw
@@ -134,27 +139,32 @@ def batch_dims(name: str, ndim: int) -> Tuple[Optional[str], ...]:
 
 
 def place_batch(batch: Dict, shd: Sharder) -> Dict:
-    """A host batch laid out on the Sharder's mesh by its activation
-    rules; as is without a mesh."""
+    """A batch laid out on the Sharder's mesh by its activation rules
+    (`Sharder.enter`: a host batch, the same on every rank, or one a
+    caller laid out on the mesh); as is without a mesh."""
     if shd.mesh is None:
         return batch
-    return {name: shd.enter(x, batch_dims(name, x.dim()))
+    return {name: shd.enter(_local(x), batch_dims(name, x.dim()))
             for name, x in batch.items()}
 
 
-def _full(x):
-    """A DTensor's whole value (a plain tensor, the same on every
-    rank); anything else as is."""
+def _local(v, key: Optional[int] = None):
+    """A DTensor as its local shard, tagged with its layout (and
+    ``key``, a parameter's index): a step's edge, where the parameter
+    state, or a batch or cache a caller laid out on the mesh, enters the
+    local program; anything else as is."""
     from torch.distributed.tensor import DTensor
-    return x.full_tensor() if isinstance(x, DTensor) else x
+    if not isinstance(v, DTensor):
+        return v
+    return tag(v._local_tensor.detach(), Lay(v.device_mesh,
+                                             tuple(v.placements),
+                                             tuple(v.shape), key))
 
 
-def _on_mesh(mesh):
-    """Plain tensors a layer makes join the mesh replicated."""
-    if mesh is None:
-        return contextlib.nullcontext()
-    from torch.distributed.tensor.experimental import implicit_replication
-    return implicit_replication()
+def _local_params(params):
+    """A Param tree of DTensors as tagged local shards."""
+    from repro_torch.models.params import Param, map_params
+    return map_params(lambda p: Param(_local(p.value), p.dims), params)
 
 
 def make_train_step(model: "Model", opt_cfg: AdamWConfig, mesh=None,
@@ -163,7 +173,7 @@ def make_train_step(model: "Model", opt_cfg: AdamWConfig, mesh=None,
     _refuse_tuned_layers()
     shd = Sharder(mesh, act_rules=step_cfg.act_rules,
                   cache_rules=step_cfg.cache_rules,
-                  weight_rules=step_cfg.weight_rules, local=True)
+                  weight_rules=step_cfg.weight_rules)
     n_micro = max(step_cfg.microbatches, 1)
     compress = (step_cfg.compress_pod_grads and mesh is not None
                 and "pod" in (mesh.mesh_dim_names or ()))
@@ -177,18 +187,17 @@ def make_train_step(model: "Model", opt_cfg: AdamWConfig, mesh=None,
         else:
             grads, loss_sum, metrics = _local_backward(params, mbs)
         grads = _rebuild(params, iter(grads))
-        with _on_mesh(mesh):
-            if compress:
-                from repro_torch.distributed.compression import \
-                    ef_compress_grads
-                grads, opt_state = ef_compress_grads(grads, opt_state, mesh)
-            params, opt_state, om = adamw.adamw_update(
-                params, grads, opt_state, opt_cfg)
-            # the reference's update drops the "ef" residual it was handed
-            opt_state.pop("ef", None)
-        metrics = {name: _full(m.detach()) for name, m in metrics.items()}
+        if compress:
+            from repro_torch.distributed.compression import \
+                ef_compress_grads
+            grads, opt_state = ef_compress_grads(grads, opt_state, mesh)
+        params, opt_state, om = adamw.adamw_update(
+            params, grads, opt_state, opt_cfg)
+        # the reference's update drops the "ef" residual it was handed
+        opt_state.pop("ef", None)
+        metrics = {name: m.detach() for name, m in metrics.items()}
         return params, opt_state, {"loss": loss_sum / n_micro, **metrics,
-                                   **{k: _full(v) for k, v in om.items()}}
+                                   **om}
 
     def _backward(params, mbs):
         masters = [leaf.value for _, leaf in tree_leaves(params)]
@@ -218,18 +227,15 @@ def make_train_step(model: "Model", opt_cfg: AdamWConfig, mesh=None,
         shard a leaf (tagged with its layout and its index), the loss
         and its backward on local tensors, then the data-parallel
         reduction of each gradient over the mesh dims its sites left it
-        partial on; the gradients come back as local shards tagged with
-        their parameters' layouts, which the update takes as they are
-        (DTensors of those layouts for the int8 compression)."""
+        partial on, in the type they used it in; the gradients come back
+        as local shards tagged with their parameters' layouts, which the
+        update takes as they are (DTensors of those layouts for the int8
+        compression)."""
         from torch.distributed.tensor import DTensor
         from repro_torch.models.params import Param, map_params
         leaves = [leaf for _, leaf in tree_leaves(params)]
-        locs = {}
-        for key, leaf in enumerate(leaves):
-            v = leaf.value
-            loc = v._local_tensor.detach().requires_grad_(True)
-            locs[id(leaf)] = tag(loc, Lay(mesh, tuple(v.placements),
-                                          tuple(v.shape), key))
+        locs = {id(leaf): _local(leaf.value, key).requires_grad_(True)
+                for key, leaf in enumerate(leaves)}
         lparams = map_params(lambda p: Param(locs[id(p)], p.dims), params)
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=leaves[0].value.device)
@@ -242,8 +248,8 @@ def make_train_step(model: "Model", opt_cfg: AdamWConfig, mesh=None,
         for key, leaf in enumerate(leaves):
             v, loc = leaf.value, locs[id(leaf)]
             g = loc.grad if loc.grad is not None else torch.zeros_like(loc)
-            for i in sorted(pend.get(key, ())):
-                g = _reduce(g, (mesh, i))
+            for i, width in sorted(pend.get(key, {}).items()):
+                g = _reduce(cast(g, width), (mesh, i))
             g = g.float().div_(n_micro) if n_micro > 1 else g.float()
             grads.append(DTensor.from_local(g, mesh, v.placements,
                                             shape=v.shape,
@@ -265,20 +271,34 @@ def _rebuild(tree, it):
 
 
 def make_serve_fns(model: "Model", mesh=None,
-                   step_cfg: TrainStepConfig = TrainStepConfig()
+                   step_cfg: TrainStepConfig = TrainStepConfig(), *,
+                   whole_logits: bool = True
                    ) -> Tuple[Callable, Callable]:
-    """(prefill, decode_step) closures with the Sharder bound."""
+    """(prefill, decode_step) closures with the Sharder bound.  On a mesh
+    each runs as one local program per rank, as the training step does:
+    each parameter's local shard tagged with its layout, the tokens (and
+    frames) this rank's rows by the activation rules (`place_batch`).
+    The caches prefill returns are tagged local shards laid out by the
+    cache rules; decode takes them (or a cache a caller laid out on the
+    mesh as DTensors) and writes them in place.  The logits leave whole,
+    the same on every rank — or, with ``whole_logits=False``, in their
+    layout, as the reference's compiled program leaves them (the
+    dry-run's per-device program)."""
     shd = Sharder(mesh, act_rules=step_cfg.act_rules,
                   cache_rules=step_cfg.cache_rules,
                   weight_rules=step_cfg.weight_rules)
+    out = whole if whole_logits else (lambda x: x)
 
     def prefill(params, batch):
-        with _on_mesh(mesh):
-            return model.prefill(params, place_batch(batch, shd), shd)
+        logits, cache = model.prefill(_local_params(params),
+                                      place_batch(batch, shd), shd)
+        return out(logits), cache
 
     def decode_step(params, cache, token):
-        with _on_mesh(mesh):
-            token = place_batch({"token": token}, shd)["token"]
-            return model.decode_step(params, cache, token, shd)
+        token = place_batch({"token": token}, shd)["token"]
+        logits, cache = model.decode_step(
+            _local_params(params), {k: _local(v) for k, v in cache.items()},
+            token, shd)
+        return out(logits), cache
 
     return prefill, decode_step

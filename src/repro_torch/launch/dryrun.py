@@ -5,9 +5,11 @@ mesh, the production mesh stands on a fake process group of 256 or 512
 ranks (``torch.distributed``'s ``"fake"`` backend, this process rank 0)
 and every input is a ``meta`` DTensor laid out by the rule tables
 (`launch.specs`).  The cell's step — the meshed train step, prefill or
-one decode step — then runs once under `core.mix.trace_fn`: DTensor
-turns each op into rank 0's local ops and collectives on its shards, so
-the trace is the per-device program, and nothing is allocated.
+one decode step — then runs once under `core.mix.trace_fn` as its local
+program (rank 0's local ops and explicit collectives on its shards, its
+logits left in their layout as the reference's compiled program leaves
+them), so the trace is the per-device program, and nothing is
+allocated.
 
 One JSON record per cell goes under ``experiments/dryrun/``, with the
 reference's keys.  The analytic fields (``chips``, ``microbatches``,
@@ -23,9 +25,8 @@ HLO accounting; the counts also from ``CommDebugMode``);
 ``arg_bytes_per_device``), ``output_bytes``, ``temp_bytes`` (the peak of
 the storages the step makes while it runs) and ``generated_code_bytes``
 (null); ``peak_storages`` names the largest storages alive at that peak
-(the aten op that made each, shape, dtype, bytes).  A shard moved from
-one tensor dim to another is traced as the card moves it, one
-all-to-all (`_card_all_to_all`).  The fields an XLA compile gives and a trace does not
+(the aten op that made each, shape, dtype, bytes).  The fields an XLA
+compile gives and a trace does not
 (``hlo_instructions``, ``xla_cost_analysis``, ``compile_s``,
 ``generated_code_bytes``) are null, each with its reason under
 ``"why"``.  ``roofline`` holds the three
@@ -39,7 +40,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import time
@@ -99,7 +99,8 @@ def _build_step_fn(model, shape, mesh, microbatches: int = 0,
         return make_train_step(model, AdamWConfig(), mesh=mesh,
                                step_cfg=step_cfg), mb
     step_cfg = TrainStepConfig(**overrides)
-    prefill, decode = make_serve_fns(model, mesh=mesh, step_cfg=step_cfg)
+    prefill, decode = make_serve_fns(model, mesh=mesh, step_cfg=step_cfg,
+                                     whole_logits=False)
     if shape.kind == "prefill":
         return prefill, 1
     return decode, 1
@@ -179,39 +180,6 @@ def _storage_bytes(tensors) -> int:
     return int(sum(t.untyped_storage().nbytes() for t in tensors))
 
 
-@contextlib.contextmanager
-def _card_all_to_all():
-    """DTensor moves a shard from one tensor dim to another with one
-    all-to-all on the card (NCCL), but on a CPU mesh — the fake group's
-    — with an all-gather of the whole dim and a slice.  Within it a
-    trace on ``meta`` tensors takes the card's route: one all-to-all of
-    the shard's bytes, its result the new shard's shape (no values: a
-    meta trace has none)."""
-    import torch.distributed._functional_collectives as funcol
-    from torch.distributed.tensor import placement_types as pt
-    orig = getattr(pt, "shard_dim_alltoall", None)
-    if orig is None:
-        yield
-        return
-
-    def on_card(x, gather_dim, shard_dim, mesh, mesh_dim):
-        if x.device.type != "meta":
-            return orig(x, gather_dim, shard_dim, mesh, mesh_dim)
-        y = funcol.all_to_all_single(x.reshape(-1), None, None,
-                                     (mesh, mesh_dim))
-        if isinstance(y, funcol.AsyncCollectiveTensor):
-            y = y.wait()
-        shape = list(x.shape)
-        shape[gather_dim] *= mesh.size(mesh_dim)
-        shape[shard_dim] //= mesh.size(mesh_dim)
-        return y.view(shape)
-    pt.shard_dim_alltoall = on_card
-    try:
-        yield
-    finally:
-        pt.shard_dim_alltoall = orig
-
-
 def lower_step(step_fn, *args, grad: bool = True, top: int = 10):
     """Trace ``step_fn(*args)`` (DTensors on a mesh, meta locals) as the
     per-device program: its `InstructionMix` and its collectives, each
@@ -233,8 +201,7 @@ def lower_step(step_fn, *args, grad: bool = True, top: int = 10):
     arg_locals = _local_tensors(args)
     result = []
     with torch.enable_grad() if grad else torch.no_grad(), \
-            _card_all_to_all(), CommDebugMode() as comm, \
-            live_bytes(keep=arg_locals) as live:
+            CommDebugMode() as comm, live_bytes(keep=arg_locals) as live:
         graph = trace_meta_fn(lambda *a: result.append(step_fn(*a)), *args)
     memory = {"argument_bytes": _storage_bytes(arg_locals),
               "output_bytes": _storage_bytes(_local_tensors(result)),

@@ -19,8 +19,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import (Sharder, gshape, like,
-                                              settle, weight_like)
+from repro_torch.distributed.sharding import (Sharder, cast, gshape, like,
+                                              layer_of, settle,
+                                              stack_layers, weight_like)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (AttnConfig, _decode_core, attention,
                                        attention_decode, head_proj,
@@ -146,8 +147,8 @@ def _cross_attention(p: Dict, x: torch.Tensor, ek: torch.Tensor,
 def encode(params: Dict, frames: torch.Tensor, cfg: ModelConfig,
            shd: Sharder) -> torch.Tensor:
     """frames: (B, T_enc, d_model) stub embeddings -> encoder output."""
-    h = like(frames.to(getattr(torch, cfg.dtype)), frames)
-    pos = weight_like(params["enc_pos"].value, h).to(h.dtype)
+    h = cast(frames, getattr(torch, cfg.dtype))
+    pos = weight_like(cast(params["enc_pos"].value, h.dtype), h)
     h = like(h + pos[None, :gshape(h)[1]], h)
     h = shd.act(h, ("batch", "residual_seq", "embed"))
     acfg = _acfg(cfg, causal=False)
@@ -190,7 +191,7 @@ def _decode_stack(params, h, enc_out, cfg: ModelConfig, shd: Sharder,
             ys.append(kv + ekv)
     if not collect_kv:
         return h, None
-    k, v, ek, ev = (torch.stack(t) for t in zip(*ys))
+    k, v, ek, ev = (stack_layers(t) for t in zip(*ys))
     return h, ((k, v), (ek, ev))
 
 
@@ -240,20 +241,19 @@ def init_encdec_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 def encdec_prefill(params: Dict, frames: torch.Tensor, tokens: torch.Tensor,
                    cfg: ModelConfig, shd: Sharder, max_len: int = 0):
-    b, s = tokens.shape
+    """(logits, cache): `init_encdec_cache`'s entries made from what the
+    prompt left (on a mesh each rank's shards, laid out by the cache
+    rules), the self-attention K/V zero past the prompt up to
+    ``max_len``."""
+    s = gshape(tokens)[1]
     logits, ((k, v), (ek, ev)) = encdec_logits(params, frames, tokens, cfg,
                                                shd, collect_kv=True)
     dtype = getattr(torch, cfg.dtype)
-    sc = max(s, max_len or 0)
-    if sc > s:
-        cache = init_encdec_cache(cfg, b, sc, dtype, device=logits.device)
-        cache["k"][:, :, :s] = k
-        cache["v"][:, :, :s] = v
-    else:
-        cache = {"k": k.to(dtype), "v": v.to(dtype)}
-    cache["ek"], cache["ev"] = ek.to(dtype), ev.to(dtype)
-    cache["pos"] = s
-    return logits, cache
+    pad = max(s, max_len or 0) - s
+    grow = (lambda t: like(F.pad(
+        t, (0, 0, 0, 0, 0, pad)), t)) if pad else (lambda t: t)
+    return logits, {"k": grow(cast(k, dtype)), "v": grow(cast(v, dtype)),
+                    "ek": cast(ek, dtype), "ev": cast(ev, dtype), "pos": s}
 
 
 def encdec_decode_step(params: Dict, cache: Dict, token: torch.Tensor,
@@ -264,13 +264,14 @@ def encdec_decode_step(params: Dict, cache: Dict, token: torch.Tensor,
     h = embed_lookup(params["embed"].value, token, shd, dtype)
     acfg = _acfg(cfg, causal=True)
     for i, blk in enumerate(_unstack(params["dec_blocks"], cfg.n_layers)):
+        layer = lambda name: layer_of(cache[name][i], cache[name])
         a, _ = attention_decode(blk["attn"], rms_norm(h, blk["ln1"]),
-                                cache["k"][i], cache["v"][i], pos, acfg,
-                                shd)
-        h = h + a
+                                layer("k"), layer("v"), pos, acfg, shd)
+        h = like(h + settle(a), h)
         x_in = rms_norm(h, blk["ln_x"])
-        h = h + _cross_attention(blk["xattn"], x_in,
-                                 cache["ek"][i].to(h.dtype),
-                                 cache["ev"][i].to(h.dtype), cfg)
-        h = h + mlp(blk["mlp"], rms_norm(h, blk["ln2"]), cfg.act, shd)
+        h = like(h + _cross_attention(blk["xattn"], x_in,
+                                      cast(layer("ek"), h.dtype),
+                                      cast(layer("ev"), h.dtype), cfg), h)
+        h = like(h + mlp(blk["mlp"], rms_norm(h, blk["ln2"]), cfg.act, shd),
+                 h)
     return _head(params, h, shd), {**cache, "pos": pos + 1}

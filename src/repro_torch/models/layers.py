@@ -26,11 +26,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import (Sharder, gshape, is_local,
+from repro_torch.distributed.sharding import (Lay, Sharder, cast, gshape,
                                               layout, like, local,
                                               per_shard, relayout,
                                               settle, shard_einsum,
-                                              shard_map, to_layout,
+                                              shard_map, shard_range, tag,
                                               weight_like)
 from repro_torch.models.params import Param, param
 
@@ -184,16 +184,20 @@ _QKV_DIMS = (("batch", "seq", "heads", "head_dim"),
 
 def _project_qkv(p: Dict, x: torch.Tensor, cfg: AttnConfig, positions,
                  shd: Optional[Sharder] = None):
-    """q, k, v (rope applied).  In the local program (``shd.local``) each
-    projection is laid out by its dims first: the bias, the norm over
-    head_dim and rope's halves of head_dim then run on whole heads."""
+    """q, k, v (rope applied).  On a mesh each projection is laid out by
+    its dims first (``shd`` given: prefill and training), or has its
+    head_dim gathered where the weight's shards split it (a decode
+    step): the bias, the norm over head_dim and rope's halves of
+    head_dim then run on whole heads."""
     q, k, v = (head_proj("bsd,dhk->bshk", x, p[n])
                for n in ("wq", "wk", "wv"))
-    if shd is not None and shd.local:
+    if shd is not None and shd.mesh is not None:
         q, k, v = (shd.act(t, dims) for t, dims in zip((q, k, v),
                                                        _QKV_DIMS))
+    elif layout(x) is not None:
+        q, k, v = (_whole_head_dim(t) for t in (q, k, v))
     if cfg.qkv_bias:
-        q, k, v = (like(t + weight_like(p[n].value, t).to(x.dtype), t)
+        q, k, v = (like(t + weight_like(cast(p[n].value, x.dtype), t), t)
                    for t, n in ((q, "bq"), (k, "bk"), (v, "bv")))
     if cfg.qk_norm:
         q = like(_rms(q, weight_like(p["q_norm"].value, q)), q)
@@ -202,6 +206,15 @@ def _project_qkv(p: Dict, x: torch.Tensor, cfg: AttnConfig, positions,
     q = like(apply_rope(q, positions[:, :, None], inv), q)
     k = like(apply_rope(k, positions[:, :, None], inv), k)
     return q, k, v
+
+
+def _whole_head_dim(t):
+    """A tagged local (B, S, heads, head_dim) with head_dim gathered
+    where it is sharded, its other shards kept."""
+    from torch.distributed.tensor import Replicate
+    pl = layout(t).placements
+    return relayout(t, tuple(Replicate() if p.is_shard() and p.dim == 3
+                             else p for p in pl))
 
 
 def causal_mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor,
@@ -218,7 +231,7 @@ def _repeat_kv(k, h):
     local ``k`` has its KV heads gathered first, and stays tagged)."""
     if gshape(k)[2] == h:
         return k
-    pl = layout(k).placements if is_local(k) else ()
+    pl = layout(k).placements if layout(k) is not None else ()
     if any(p.is_shard() and p.dim == 2 for p in pl):
         from torch.distributed.tensor import Replicate
         k = relayout(k, tuple(Replicate() if p.is_shard() and p.dim == 2
@@ -231,23 +244,53 @@ def _repeat_kv(k, h):
 def _sdpa(q, k, v, bias, scale, split: Tuple[int, ...] = ()):
     """q: (B,S,H,hd), k/v: (B,Sk,KV,hd) — dense attention, softmax in
     f32, P.V in the value type.  On a mesh the core runs on each rank's
-    (batch, heads) shards (`per_shard`): on a mesh of three dims
-    DTensor's rules for its batched products merge the two sharded dims
-    into a strided shard whose redistribution planner did not finish.
-    Along the mesh dims ``split`` (where the output projection shards
-    head_dim, the heads being whole) each rank forms P.V on its own
-    head_dim shard only, as the reference's program does, and the
-    output comes back sharded there."""
-    h = gshape(q)[2]
-    k, v = _repeat_kv(k, h), _repeat_kv(v, h)
+    (batch, heads) shards (`per_shard`).  Along the mesh dims ``split``
+    (where the output projection shards head_dim, the heads being whole)
+    each rank forms P.V on its own head_dim shard only, as the
+    reference's program does, and the output comes back sharded there."""
     q = settle(q)           # a decode step's q may be a pending sum
+    k, v = _kv_for(q, k, v, split)
     core = functools.partial(_sdpa_core, scale=scale)
     qp = layout(q).placements if layout(q) is not None else None
     if qp is None or not split:
         return per_shard(core, qp, q, k, v, bias)
-    from torch.distributed.tensor import Shard
-    op = tuple(Shard(3) if i in split else p for i, p in enumerate(qp))
+    op = layout(v).placements
     return shard_map(core, (qp, qp, op, None), op, q, k, v, bias)
+
+
+def _kv_for(q, k, v, split: Tuple[int, ...]):
+    """K and V with their GQA heads broadcast up to q's, on a mesh laid
+    out as the core takes them: K on q's (batch, heads) layout, V too or,
+    along the mesh dims ``split``, on its head_dim shard."""
+    h = gshape(q)[2]
+    if layout(q) is None:
+        return _repeat_kv(k, h), _repeat_kv(v, h)
+    from torch.distributed.tensor import Shard
+    qp = layout(q).placements
+    return _heads_for(k, h, qp), _heads_for(v, h, tuple(
+        Shard(3) if i in split else p for i, p in enumerate(qp)))
+
+
+def _heads_for(k, h: int, pl: tuple):
+    """A tagged local K (B, S, KV, hd) broadcast up to ``h`` heads and
+    laid out by ``pl``.  Where ``pl`` shards the heads of a GQA K, each
+    rank takes whole KV heads and keeps only the ones its own q heads
+    use, broadcast locally: the gradient comes back partial over those
+    mesh dims (each rank's q heads' share) and is all-reduced at the KV
+    heads' size, where broadcasting first would gather the gradient of
+    all ``h`` heads."""
+    split = [i for i, p in enumerate(pl) if p.is_shard() and p.dim == 2]
+    kvh = gshape(k)[2]
+    if kvh == h or not split:
+        return relayout(_repeat_kv(k, h), pl)
+    from torch.distributed.tensor import Replicate
+    whole = tuple(Replicate() if i in split else p for i, p in enumerate(pl))
+    kw = relayout(k, whole, pgrad=split)
+    mesh = layout(kw).mesh
+    q0, n = shard_range(mesh, pl, 2, h)
+    idx = torch.arange(q0, q0 + n, device=kw.device) // (h // kvh)
+    b, s, _, hd = gshape(k)
+    return tag(kw.index_select(2, idx), Lay(mesh, pl, (b, s, h, hd)))
 
 
 def _head_dim_split(w: Param) -> Tuple[int, ...]:
@@ -270,7 +313,11 @@ def _sdpa_core(q, k, v, bias, scale):
 
 def _sdpa_chunked(q, k, v, q_positions, k_positions, window, scale,
                   chunk: int, split: Tuple[int, ...] = ()):
-    """Query chunks of ``chunk`` rows: O(S * chunk) logits memory."""
+    """Query chunks of ``chunk`` rows: O(S * chunk) logits memory.  On a
+    mesh K and V take q's (batch, heads) layout once, before the chunks:
+    each chunk's core then moves nothing, and the backward gathers their
+    gradients once, not once a chunk."""
+    k, v = _kv_for(q, k, v, split)
     outs = []
     for c0 in range(0, q.shape[1], chunk):
         bias = causal_mask_bias(q_positions[0, c0:c0 + chunk],
@@ -284,7 +331,7 @@ def _attention_tuned(q, k, v, causal: bool):
     """Full attention through the ``flash_attention`` registry op: GQA
     KV heads broadcast up to H, (B,S,H,hd) -> (B,H,S,hd) for the kernel
     layout (contiguous, as the kernels take), and back."""
-    h = q.shape[2]
+    h = gshape(q)[2]
     k, v = _repeat_kv(k, h), _repeat_kv(v, h)
     t = lambda a: a.transpose(1, 2).contiguous()
     return local(lambda qq, kk, vv: _ops().flash_attention(
@@ -312,7 +359,6 @@ def attention(p: Dict, x: torch.Tensor, cfg: AttnConfig, shd: Sharder,
     # the batch's layout: a plain table would join the mesh whole
     q, k, v = _project_qkv(p, x, cfg, shd.rows(positions, x,
                                                 ("batch", "seq")), shd)
-    q, k, v = (shd.act(t, dims) for t, dims in zip((q, k, v), _QKV_DIMS))
     scale = 1.0 / math.sqrt(cfg.head_dim)
     split = _head_dim_split(p["wo"])
     if tuned:
@@ -331,8 +377,8 @@ def attention(p: Dict, x: torch.Tensor, cfg: AttnConfig, shd: Sharder,
     y = shd.act(y, ("batch", "residual_seq", "embed"))
     if return_kv:
         if cfg.kv_repeat > 1:
-            k = torch.repeat_interleave(k, cfg.kv_repeat, dim=2)
-            v = torch.repeat_interleave(v, cfg.kv_repeat, dim=2)
+            k = like(torch.repeat_interleave(k, cfg.kv_repeat, dim=2), k)
+            v = like(torch.repeat_interleave(v, cfg.kv_repeat, dim=2), v)
         kc = shd.cache(k, ("batch", "cache_seq", "kv_heads", "head_dim"))
         vc = shd.cache(v, ("batch", "cache_seq", "kv_heads", "head_dim"))
         return y, (kc, vc)
@@ -346,8 +392,9 @@ def attention_decode(p: Dict, x: torch.Tensor, cache_k: torch.Tensor,
     """One-token decode.  x: (B, 1, D); cache_k/v: (B, S_cache, KV, hd)
     views of the layer's cache, written in place at this step's slot
     (the reference returns new caches; in place saves a cache copy per
-    layer and step); ``pos``: the current position; ``window_override``
-    a per-call attention window (None: the config's; 0: none).
+    layer and step; on a mesh the new entries are laid out as the cache
+    first); ``pos``: the current position; ``window_override`` a
+    per-call attention window (None: the config's; 0: none).
 
     ``rolling=True`` treats the cache as a mod-S_cache ring buffer
     (windowed layers / capped long-context decode); the effective
@@ -358,8 +405,17 @@ def attention_decode(p: Dict, x: torch.Tensor, cache_k: torch.Tensor,
     positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
     if cfg.kv_repeat > 1:
-        k_new = torch.repeat_interleave(k_new, cfg.kv_repeat, dim=2)
-        v_new = torch.repeat_interleave(v_new, cfg.kv_repeat, dim=2)
+        k_new = like(torch.repeat_interleave(k_new, cfg.kv_repeat, dim=2),
+                     k_new)
+        v_new = like(torch.repeat_interleave(v_new, cfg.kv_repeat, dim=2),
+                     v_new)
+    if layout(cache_k) is not None:
+        if any(p.is_shard() and p.dim == 1
+               for p in layout(cache_k).placements):
+            raise ValueError("a decode step writes a cache whole along "
+                             "its sequence")
+        k_new = relayout(k_new, layout(cache_k).placements)
+        v_new = relayout(v_new, layout(cache_v).placements)
     # The reference writes with jax.lax.dynamic_update_slice, which
     # clamps a start index past the end to the last slot: a cache sized
     # to the prompt (what serving's prefill builds) keeps overwriting
@@ -396,9 +452,7 @@ def _decode_core(q, k, v, bias, scale):
     kp = layout(k).placements if layout(k) is not None else None
     if kp is None or not any(p.is_shard() and p.dim == 3 for p in kp):
         if kp is not None:
-            # q on the cache's layout, not the whole batch DTensor's
-            # projection may leave it in
-            q = to_layout(q, kp)
+            q = relayout(settle(q), kp)     # q on the cache's layout
         return _sdpa(q, k, v, bias, scale)
     from torch.distributed.tensor import Partial, Replicate
     h = gshape(q)[2]
@@ -443,21 +497,21 @@ def init_mlp(d_model: int, d_ff: int, act: str = "silu_glu", *,
 
 def mlp(p: Dict, x: torch.Tensor, act: str, shd: Sharder) -> torch.Tensor:
     a = _ACTS[act.replace("_glu", "")]
-    b, s, d = x.shape
+    b, s, d = gshape(x)
     if tuned_layers_enabled() and "w_gate" in p:
         # gated front half act(x@w_gate) * (x@w_up) as one registry op
         # (variant-arbitrated fused/stream/split), then the
         # down-projection through the tuned matmul.
         # (on a mesh each op sees whole operands: `local`)
         h = local(lambda xx, wg, wu: _ops().mlp_matmul(
-            xx.reshape(b * s, d), wg, wu, act.replace("_glu", "")),
-            x, p["w_gate"].value.to(x.dtype), p["w_up"].value.to(x.dtype))
-        h = shd.act(h.reshape(b, s, -1), ("batch", "seq", "mlp"))
-        f = h.shape[-1]
-        y = local(lambda hh, wd: _ops().matmul(hh.reshape(b * s, f), wd),
-                  h, p["w_down"].value.to(x.dtype))
-        return shd.act(y.reshape(b, s, d), ("batch", "residual_seq",
-                                            "embed"))
+            xx.reshape(b * s, d), wg, wu, act.replace("_glu", "")
+        ).reshape(b, s, -1), x, cast(p["w_gate"].value, x.dtype),
+            cast(p["w_up"].value, x.dtype))
+        h = shd.act(h, ("batch", "seq", "mlp"))
+        f = gshape(h)[-1]
+        y = local(lambda hh, wd: _ops().matmul(hh.reshape(b * s, f), wd)
+                  .reshape(b, s, d), h, cast(p["w_down"].value, x.dtype))
+        return shd.act(y, ("batch", "residual_seq", "embed"))
     up = shard_einsum("bsd,df->bsf", x, p["w_up"].value)
     if "w_gate" in p:
         h = like(a(shard_einsum("bsd,df->bsf", x, p["w_gate"].value)) * up,

@@ -32,7 +32,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import (Sharder, gshape, like,
+from repro_torch.distributed.sharding import (Sharder, cast, gshape, like,
                                               named_sharding, settle,
                                               shard_map, shard_range)
 from repro_torch.models.layers import _ACTS, init_mlp, mlp
@@ -312,9 +312,9 @@ def moe_layer(p: Dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     their count divides it, else the expert MLP's width (``expert_mlp``),
     capacity over the batch dims — runs the expert products on its
     expert or width shard, and adds its slots' rows into a result
-    partial over those dims, reduced back to the activations' layout.
-    DTensor has no rule for the dispatch's ``index_copy_`` and
-    ``scatter_add_``: they run on local tensors (`shard_map`)."""
+    partial over those dims, reduced back to the activations' layout
+    (`shard_map`: the dispatch's ``index_copy_`` and ``scatter_add_`` on
+    local tensors)."""
     b, s, d = gshape(x)
     t = b * s
     e = n_experts
@@ -325,7 +325,10 @@ def moe_layer(p: Dict, x: torch.Tensor, *, n_experts: int, top_k: int,
                               router_dtype=router_dtype, tokens=t)
     run = functools.partial(_dispatch, n_experts=e, cap=cap, act=act,
                             grouped=grouped)
-    wts = (p["w_gate"].value, p["w_up"].value, p["w_down"].value)
+    # the experts' weights in the compute type before they move, as the
+    # reference's program gathers them
+    wts = tuple(cast(p[k].value, x.dtype)
+                for k in ("w_gate", "w_up", "w_down"))
     if shd.mesh is None:
         top_p, top_i, me, ce = route(x, p["router"].value)
         y = run(x, top_p, top_i, *wts, er=(0, e_pad), cr=None)

@@ -35,7 +35,7 @@ import torch
 from repro_torch.kernels.common import resolve_device
 
 __all__ = ["Param", "param", "map_params", "stack_dims",
-           "param_shardings", "device_put", "from_numpy_tree",
+           "param_shardings", "device_put", "distribute", "from_numpy_tree",
            "resolve_device", "tree_leaves", "tree_param_count",
            "tree_param_bytes"]
 
@@ -127,10 +127,24 @@ def device_put(tree, shardings):
     (the counterpart of ``jax.device_put(params, param_shardings(...))``).
     A host leaf holds the whole value on every rank, and each rank keeps
     its shard of it; a DTensor leaf is redistributed."""
-    from repro_torch.distributed.sharding import place
     if isinstance(tree, Param):
-        return Param(place(tree.value, shardings), tree.dims)
+        return Param(distribute(tree.value, shardings), tree.dims)
     return {k: device_put(v, shardings[k]) for k, v in tree.items()}
+
+
+def distribute(x, sharding):
+    """``x`` as a DTensor laid out by ``sharding`` (a `NamedSharding`): a
+    DTensor is redistributed (the collective the layout change needs); a
+    plain tensor — the same value on every rank, as a parameter tree
+    loaded on every rank is — is distributed without communication,
+    each rank keeping its own shard.  The parameter state's edge: a
+    step's body takes the local shards."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    pl = sharding.placements
+    if isinstance(x, DTensor):
+        return x if tuple(x.placements) == pl else x.redistribute(
+            sharding.mesh, pl)
+    return distribute_tensor(x, sharding.mesh, pl, src_data_rank=None)
 
 
 def tree_leaves(tree, path: Tuple[str, ...] = ()

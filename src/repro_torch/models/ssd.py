@@ -24,13 +24,12 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import (Sharder, batch_only, gshape,
-                                              is_local, layout, like,
+from repro_torch.distributed.sharding import (Sharder, batch_only, cast,
+                                              gshape, layout, like,
                                               named_sharding,
                                               per_shard, settle,
                                               shard_einsum, shard_map,
-                                              shard_range, to_layout,
-                                              weight_like)
+                                              shard_range, weight_like)
 from repro_torch.models.params import param
 
 __all__ = ["SsdConfig", "init_ssd", "ssd_block", "ssd_decode",
@@ -194,6 +193,14 @@ def _my_channels(t, cfg: SsdConfig, h0: int, hl: int):
 _CORE = ("conv_w", "conv_b", "a_log", "dt_bias", "d_skip")
 
 
+def _core_weights(p, dtype):
+    """The ``_CORE`` weights, the conv's cast to ``dtype`` (the
+    reference's casts), the rest as stored (the core computes with them
+    in float32)."""
+    return tuple(cast(p[k].value, dtype) if k.startswith("conv")
+                 else p[k].value for k in _CORE)
+
+
 def _project_in(x, w):
     """The packed projection ``x @ w_in`` (B, S, E).  Where the rules
     leave w_in's columns whole on a mesh dim along which ``x`` is whole
@@ -203,8 +210,8 @@ def _project_in(x, w):
     them, and the result is sharded there over the padded width (the
     core gathers it; the pad columns are never read).  Each rank cuts
     its chunk from its own rows of the weight and only the chunk is
-    gathered over the dims that shard the rows; serving casts the
-    weight before it moves, training gathers the float32 master."""
+    gathered over the dims that shard the rows, cast to ``x``'s type
+    first (`cast`), as the reference's program moves it."""
     from torch.distributed.tensor import Replicate, Shard
     if layout(x) is None:
         return shard_einsum("bsd,de->bse", x, w)
@@ -218,34 +225,29 @@ def _project_in(x, w):
     e = gshape(w)[1]
     pad = (-e) % math.prod(mesh.shape[i] for i in spare)
     lo, n = shard_range(mesh, op, 2, e + pad)
-    if not torch.is_grad_enabled():
-        w = like(w.to(x.dtype), w)
+    w = cast(w, x.dtype)
     rows = tuple(p if p.is_shard(0) else Replicate() for p in wpl)
     cols = tuple(Shard(1) if i in spare else Replicate()
                  for i in range(mesh.ndim))
     wc = shard_map(lambda ww: F.pad(ww, (0, pad))[:, lo:lo + n], (rows,),
                    tuple(Shard(1) if i in spare else p
                          for i, p in enumerate(rows)), w, mesh=mesh)
-    return shard_map(
-        lambda xx, ww: torch.einsum("bsd,de->bse", xx, ww.to(xx.dtype)),
-        (xpl, cols), op, x, wc, mesh=mesh)
+    return shard_map(lambda xx, ww: torch.einsum("bsd,de->bse", xx, ww),
+                     (xpl, cols), op, x, wc, mesh=mesh)
 
 
 def _core_layouts(shd: Sharder, zx, pl, n_state: int):
     """The core's input layouts (``zx`` and ``n_state`` state tensors on
-    the batch layout, the ``_CORE`` weights whole), its output layouts,
-    and ``zx`` gathered over every mesh dim but the batch's (None, None,
-    zx without a mesh)."""
+    the batch layout — the core's `shard_map` gathers ``zx`` over every
+    other mesh dim, its gradient reduce-scattered in one collective —
+    and the ``_CORE`` weights whole) and its output layouts (None, None
+    without a mesh)."""
     if pl is None:
-        return None, None, zx
+        return None, None
     from torch.distributed.tensor import Replicate
     bp = shd.batch_placements(zx)
     ins = [bp] * n_state + [(Replicate(),) * len(bp)] * len(_CORE)
-    if is_local(zx):
-        # the core's `shard_map` gathers it, its gradient reduce-scattered
-        # in one collective
-        return ins, _layouts(pl, bp), zx
-    return ins, _layouts(pl, bp), to_layout(zx, bp)
+    return ins, _layouts(pl, bp)
 
 
 def ssd_block(p: Dict, x: torch.Tensor, cfg: SsdConfig, shd: Sharder,
@@ -266,11 +268,11 @@ def ssd_block(p: Dict, x: torch.Tensor, cfg: SsdConfig, shd: Sharder,
     bsz, t, _ = x.shape
     zx = _project_in(x, p["w_in"].value)
     pl, h0, hl = _inner_layout(shd, gshape(x), cfg)
-    ins, outs, zx = _core_layouts(shd, zx, pl, 1)
+    ins, outs = _core_layouts(shd, zx, pl, 1)
     core = lambda zz, *w: _ssd_core(zz, *w, cfg=cfg, h0=h0, hl=hl,
                                     return_state=return_state)
     res = shard_map(core, ins, outs and outs[:3 if return_state else 2],
-                    zx, *(p[k].value for k in _CORE))
+                    zx, *_core_weights(p, zx.dtype))
     out = _ssd_out(p, res[0], res[1], cfg, shd)
     if not return_state:
         return out
@@ -342,14 +344,14 @@ def ssd_decode(p: Dict, x: torch.Tensor, state: Dict, cfg: SsdConfig,
     dim; the new window and state come back in the cache's layout."""
     zx = _project_in(x, p["w_in"].value)
     pl, h0, hl = _inner_layout(shd, gshape(x), cfg)
-    ins, outs, zx = _core_layouts(shd, zx, pl, 3)
+    ins, outs = _core_layouts(shd, zx, pl, 3)
     if ins is not None:
         # the state on the heads' layout
         ins[1] = outs[2]
     step = lambda zz, ssm, conv, *w: _ssd_step(zz, ssm, conv, *w, cfg=cfg,
                                                h0=h0, hl=hl)
     g, ssq, ssm = shard_map(step, ins, outs, zx, state["ssm"],
-                            state["conv"], *(p[k].value for k in _CORE))
+                            state["conv"], *_core_weights(p, zx.dtype))
     di = cfg.d_inner
     window = per_shard(
         lambda zz, conv: torch.cat([conv.to(zz.dtype),

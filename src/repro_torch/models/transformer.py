@@ -22,12 +22,13 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import (Sharder, batch_only, gshape,
-                                              layer_of, layout, like,
-                                              per_shard, settle,
-                                              shard_einsum, shard_map,
-                                              shard_mean, shard_range, tag,
-                                              to_layout, weight_like)
+from repro_torch.distributed.sharding import (Sharder, batch_only, cast,
+                                              gshape, layer_of, layout,
+                                              like, per_shard, relayout,
+                                              settle, shard_einsum,
+                                              shard_map, shard_mean,
+                                              shard_range, stack_layers, tag,
+                                              weight_like)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (AttnConfig, _rms, attention,
                                        attention_decode, init_attention,
@@ -163,9 +164,9 @@ def _hybrid_mix(blk: Dict, a: torch.Tensor, m: torch.Tensor, dtype):
     """Hymba's parallel heads: the normed attention and SSD outputs,
     each with its gain, averaged."""
     g = lambda name, x: weight_like(blk[name].value, x)
-    return like(0.5 * (_rms(a, g("norm_a", a)) * g("beta_a", a).to(dtype)
-                       + _rms(m, g("norm_m", m)) * g("beta_m", m).to(dtype)),
-                a)
+    beta = lambda name, x: weight_like(cast(blk[name].value, dtype), x)
+    return like(0.5 * (_rms(a, g("norm_a", a)) * beta("beta_a", a)
+                       + _rms(m, g("norm_m", m)) * beta("beta_m", m)), a)
 
 
 def _moe(blk: Dict, x: torch.Tensor, cfg: ModelConfig, shd: Sharder):
@@ -268,8 +269,8 @@ def _run_blocks(blocks: Dict, h: torch.Tensor, windows: List[int],
         if st is not None:
             ssm.append(st["ssm"])
             conv.append(st["conv"])
-    kvs = (torch.stack(ks), torch.stack(vs)) if ks else None
-    states = ({"ssm": torch.stack(ssm), "conv": torch.stack(conv)}
+    kvs = (stack_layers(ks), stack_layers(vs)) if ks else None
+    states = ({"ssm": stack_layers(ssm), "conv": stack_layers(conv)}
               if ssm else None)
     return h, aux_total, (kvs, states)
 
@@ -285,9 +286,7 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, shd: Sharder,
     one that shards the vocab each rank picks the tokens in its own
     rows, zero elsewhere, a partial sum; elsewhere the rank's batch
     shard.  The result is laid out over its batch shards, every other
-    dim whole.  The lookup indexes local tensors (`shard_map`): DTensor's
-    rules for indexing a sharded table differ between torch releases
-    (indexing fails on 2.11, the embedding op's backward on 2.13)."""
+    dim whole.  The lookup indexes local tensors (`shard_map`)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     lay = layout(table)
     if lay is None:
@@ -316,7 +315,7 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, shd: Sharder,
                            torch.zeros((), dtype=dtype, device=w.device))
     h = shard_map(look, (tuple(tp), wp), tuple(op), tokens, table,
                   mesh=mesh)
-    return to_layout(h, bp)
+    return relayout(h, bp)
 
 
 def _embed(params, tokens, shd: Sharder, dtype) -> torch.Tensor:
@@ -357,11 +356,11 @@ def lm_head_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         # weight never moves.  Else the weight is gathered along the
         # batch's dims and each rank contracts its embed rows over the
         # spare dims.
-        few = h.shape[0] * h.shape[1] < w.shape[0]
-        rows = {i for i, p in enumerate(w.placements)
+        few = gshape(h)[0] * gshape(h)[1] < gshape(w)[0]
+        rows = {i for i, p in enumerate(layout(w).placements)
                 if few and p.is_shard() and p.dim == 0}
         hp, wp, op = [], [], []
-        for i, p in enumerate(h.placements):
+        for i, p in enumerate(layout(h).placements):
             if i in rows:
                 hp.append(Shard(2)), wp.append(Shard(0)), op.append(Partial())
             elif i in spare:
@@ -371,7 +370,7 @@ def lm_head_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             else:
                 hp.append(p), wp.append(rep), op.append(p)
         # the vocab chunks: zero-padded to a multiple of the spare dims
-        v = w.shape[1]
+        v = gshape(w)[1]
         pad = (-v) % math.prod(mesh.shape[i] for i in spare) if few else 0
         lo, n = shard_range(mesh, op, 2, v + pad)
 
@@ -379,10 +378,10 @@ def lm_head_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             if few:
                 ww = torch.nn.functional.pad(ww, (0, pad))[:, lo:lo + n]
             return torch.einsum("bsd,dv->bsv", hh, ww)
-        out = shard_map(head, (tuple(hp), tuple(wp)), tuple(op), h,
-                        w.to(h.dtype), mesh=mesh).redistribute(
-                            mesh, h.placements)
-        return out[..., :v] if pad else out
+        out = relayout(shard_map(head, (tuple(hp), tuple(wp)), tuple(op),
+                                 h, cast(w, h.dtype), mesh=mesh),
+                       layout(h).placements)
+        return like(out[..., :v], out) if pad else out
     return shard_einsum("bsd,dv->bsv", h, w, whole=spare)
 
 
@@ -565,24 +564,27 @@ def init_lm_cache(cfg: ModelConfig, batch: int, seq_len: int,
 def _block_decode(blk: Dict, h: torch.Tensor, win: int, ck, cv, sstate,
                   pos: int, cfg: ModelConfig, shd: Sharder, moe: bool):
     """One layer of one decode step; K/V are written in place.  Returns
-    (h, ssm_state)."""
+    (h, ssm_state).  On a mesh the attention's output, a pending sum
+    where its projection contracts a sharded dim, is reduced before the
+    residual."""
     fam = cfg.family
     x = rms_norm(h, blk["ln1"])
     if fam == "ssm":
         y, sstate = ssd_decode(blk["ssd"], x, sstate, ssd_config(cfg), shd)
-        return h + y, sstate
+        return like(h + y, h), sstate
     a, _ = attention_decode(blk["attn"], x, ck, cv, pos, attn_config(cfg),
                             shd, window_override=win,
                             rolling=(fam == "hybrid"))
+    a = settle(a)
     if fam == "hybrid":
         m, sstate = ssd_decode(blk["ssd"], x, sstate, ssd_config(cfg), shd)
-        h = h + _hybrid_mix(blk, a, m, h.dtype)
+        h = like(h + _hybrid_mix(blk, a, m, h.dtype), h)
     else:
-        h = h + a
+        h = like(h + a, h)
     x2 = rms_norm(h, blk["ln2"])
     y = _moe(blk, x2, cfg, shd)[0] if moe else mlp(blk["mlp"], x2,
                                                      cfg.act, shd)
-    return h + y, sstate
+    return like(h + y, h), sstate
 
 
 def _decode_stack(blocks: Dict, h: torch.Tensor, windows: List[int],
@@ -590,16 +592,20 @@ def _decode_stack(blocks: Dict, h: torch.Tensor, windows: List[int],
                   cfg: ModelConfig, shd: Sharder, moe: bool,
                   states: bool = False):
     k, v = cache.get(kname), cache.get(vname)
+    layer = lambda t, i: None if t is None else layer_of(t[i], t)
     for i, (blk, win) in enumerate(zip(_unstack(blocks, len(windows)),
                                        windows)):
-        sstate = ({"ssm": cache["ssm"][i], "conv": cache["conv"][i]}
-                  if states else None)
-        h, sstate = _block_decode(
-            blk, h, win, None if k is None else k[i],
-            None if v is None else v[i], sstate, pos, cfg, shd, moe)
+        sstate = ({"ssm": layer(cache["ssm"], i),
+                   "conv": layer(cache["conv"], i)} if states else None)
+        h, sstate = _block_decode(blk, h, win, layer(k, i), layer(v, i),
+                                  sstate, pos, cfg, shd, moe)
         if states:
-            cache["ssm"][i] = sstate["ssm"]
-            cache["conv"][i] = sstate["conv"]
+            for name in ("ssm", "conv"):
+                t = cache[name]
+                if layout(t) is not None:    # into the stored layout
+                    sstate[name] = relayout(sstate[name],
+                                            layout(layer(t, i)).placements)
+                t[i] = sstate[name]
     return h
 
 
@@ -614,7 +620,7 @@ def lm_decode_step(params: Dict, cache: Dict, token: torch.Tensor,
     # "full = S_cache" as a traced value, which attention_decode applies
     # as a sliding window ((pos - slot) < S_cache): once pos reaches the
     # cache length the oldest slots drop out.  Kept for parity.
-    sc = max(cache["k"].shape[2] if "k" in cache else 0, 1)
+    sc = max(gshape(cache["k"])[2] if "k" in cache else 0, 1)
     if "prefix_blocks" in params:
         h = _decode_stack(params["prefix_blocks"], h,
                           [sc] * cfg.first_dense_layers, cache, "k_pre",
@@ -633,37 +639,38 @@ def lm_prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     (logits, cache) ready for ``lm_decode_step`` at position s.
     ``max_len`` sizes the cache (default: exactly the prompt length, as
     serving uses it)."""
-    b, s = (tokens.shape if inputs_embeds is None
-            else inputs_embeds.shape[:2])
+    s = gshape(tokens if inputs_embeds is None else inputs_embeds)[1]
     logits, _aux, (pre, main) = lm_logits(params, tokens, cfg, shd,
                                           collect_kv=True,
                                           inputs_embeds=inputs_embeds)
-    cache = init_lm_cache(cfg, b, max(s, max_len or 0),
-                          device=logits.device)
+    dtype = getattr(torch, cfg.dtype)
+    # `init_lm_cache`'s entries, made from what the prompt left (on a
+    # mesh each rank's shards, laid out by the cache rules)
+    cache: Dict = {"pos": s}
+    sc = _cache_len(cfg, max(s, max_len or 0))
 
     def fill_kv(kvs, kname, vname):
         for name, x in ((kname, kvs[0]), (vname, kvs[1])):
-            sc = cache[name].shape[2]
-            x = x.to(cache[name].dtype)
-            if sc == s:
-                cache[name] = x
-            elif sc > s:
-                cache[name][:, :, :s] = x
-            else:
+            x = cast(x, dtype)
+            if sc > s:
+                # zeros past the prompt (the cache's sequence is whole)
+                x = like(torch.nn.functional.pad(
+                    x, (0, 0, 0, 0, 0, sc - s)), x)
+            elif sc < s:
                 # capped ring cache: position p lives at slot p % sc; the
                 # last sc positions land at roll(linear tail, s % sc)
-                cache[name] = torch.roll(x[:, :, -sc:], s % sc, dims=2)
+                x = like(torch.roll(x[:, :, -sc:], s % sc, dims=2), x)
+            cache[name] = x
 
     kvs, states = main
-    if kvs is not None and "k" in cache:
+    if kvs is not None:
         fill_kv(kvs, "k", "v")
-    if states is not None and "ssm" in cache:
-        cache["ssm"] = states["ssm"].to(cache["ssm"].dtype)
-        cache["conv"] = states["conv"].to(cache["conv"].dtype)
-    if pre is not None and pre[0] is not None and "k_pre" in cache:
+    if states is not None:
+        cache["ssm"] = cast(states["ssm"], torch.float32)
+        cache["conv"] = cast(states["conv"], dtype)
+    if pre is not None and pre[0] is not None:
         # the prefix cache is filled like the main one; the reference
         # stores it prompt-long whatever ``max_len`` is, so past a
         # prompt-long cache its decode overwrites the prefix's last slot
         fill_kv(pre[0], "k_pre", "v_pre")
-    cache["pos"] = s
     return logits, cache

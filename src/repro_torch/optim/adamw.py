@@ -42,7 +42,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import _reduce, layout
+from repro_torch.distributed.sharding import Lay, _reduce, layout
 from repro_torch.models.params import Param, map_params, tree_leaves
 
 __all__ = ["AdamWConfig", "init_adamw", "adamw_update", "global_norm",
@@ -178,12 +178,21 @@ def _adamw_leaf_fake(p, g, m, v, scal, b1, b2, eps, weight_decay):
     return None
 
 
+def _layout(v):
+    """A tagged local's `Lay`, or a DTensor's layout (the compressed
+    gradients are DTensors); None for anything else."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(v, DTensor):
+        return Lay(v.device_mesh, tuple(v.placements), tuple(v.shape))
+    return layout(v)
+
+
 def _leaf_sumsq(v, sq):
     """``sq`` (a local sum of squares) of one leaf: of a DTensor's or a
     tagged local's shard, summed over the mesh dims that shard it (an
     all-reduce each, in mesh order: replicated dims hold it whole);
     of anything else whole."""
-    lay = layout(v)
+    lay = _layout(v)
     if lay is None:
         return sq(v)
     if any(p.is_partial() for p in lay.placements):

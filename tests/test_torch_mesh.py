@@ -19,11 +19,13 @@ two AdamW steps:
 * a checkpoint saved on (2, 1, 2) restores onto (1, 2, 2), each leaf laid
   out by the weight rules there, and onto no mesh, with identical
   arrays;
-* serving on the mesh (`make_serve_fns(model, mesh)`): gemma-smoke's
-  float32 prefill logits and two greedy decode steps equal the
-  unmeshed path's within 1e-5, with tuned layers off and on — on a mesh
-  a tuned op sees whole operands, as the reference's serve functions
-  run their Pallas calls on an Auto mesh of host devices;
+* serving on the mesh (`make_serve_fns(model, mesh)`, one local
+  program per rank): gemma-smoke's float32 prefill logits and two
+  greedy decode steps equal the unmeshed path's within 1e-5, with
+  tuned layers off and on — on a mesh a tuned op sees whole operands,
+  as the reference's serve functions run their Pallas calls on an Auto
+  mesh of host devices — and so do qwen2-moe-smoke's, and those of
+  mamba2, hymba and whisper with a vocab the model dim does not divide;
 * a rank of a spawned NCCL world takes card ``rank`` before it joins
   (card count and calls mocked).
 """
@@ -140,6 +142,20 @@ def test_serving_an_indivisible_vocab_on_a_mesh_matches_the_unmeshed_path(
     greedy tokens as the unmeshed path's."""
     (meshed, m_tokens), (plain, p_tokens) = spawn_world(
         worlds.serve_case, 4, arch, False, 509, (1, 2, 2),
+        timeout=worlds.WORLD_TIMEOUT)[0]
+    for a, b in zip(meshed, plain):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    for a, b in zip(m_tokens, p_tokens):
+        assert np.array_equal(a, b)
+
+
+def test_serving_an_moe_on_a_mesh_matches_the_unmeshed_path():
+    """qwen2-moe-smoke on (pod, data, model) = (2, 1, 2): the prefill's
+    and two decode steps' routing, dispatch and expert products in the
+    local program, the caches tagged local shards from the prefill to
+    the decode; logits and greedy tokens as the unmeshed path's."""
+    (meshed, m_tokens), (plain, p_tokens) = spawn_world(
+        worlds.serve_case, 4, "qwen2-moe-a2.7b", False,
         timeout=worlds.WORLD_TIMEOUT)[0]
     for a, b in zip(meshed, plain):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)

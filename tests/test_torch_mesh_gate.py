@@ -27,7 +27,11 @@ the figures four H100s gave for gemma-7b (4 of 28 layers, 3 steps of
   restored state that is not its checkpoint bit for bit; the planted
   update fault (rank 1 skips its expert shards' AdamW update), which
   the chained gate first fails at step 2, fails the held gate at step
-  1, on the parameters.
+  1, on the parameters;
+* `chip_smoke.mesh_serve_verdict`, ``[mesh]`` (s), serving on the mesh:
+  on one card the meshed logits must be the unmeshed ones bit for bit;
+  on several, finite and within 1e-4 x (1 + the row's largest) at the
+  prefill and every decode step, a greedy token parted only at a tie.
 """
 import math
 
@@ -343,3 +347,36 @@ def test_the_sound_tree_s_held_readings_pass(arch):
     # fault's smallest, fifty times past it
     assert 10 * max(held_rec["param_rel"]) <= \
         chip_smoke.MESH_F32_PARAM_RTOL < min(FAULT["held"]["param_rel"]) / 50
+
+
+def served(bitwise=False, finite=True, pre=(1e-6, True), dec=(1e-6, True),
+           parts=()):
+    """A rank 0 comparison of `chip_smoke._mesh_serve_rank`."""
+    return {"bitwise": bitwise, "finite": finite,
+            "prefill_max_abs_err": pre[0], "prefill_within_tol": pre[1],
+            "decode_max_abs_err": dec[0], "decode_within_tol": dec[1],
+            "parts": list(parts)}
+
+
+def test_serving_on_one_card_must_be_the_unmeshed_path_bit_for_bit():
+    assert chip_smoke.mesh_serve_verdict(1, served(bitwise=True)) == []
+    faults = chip_smoke.mesh_serve_verdict(1, served(bitwise=False))
+    assert faults and "bit for bit" in faults[0]
+
+
+@pytest.mark.parametrize("rec,what", [
+    (served(pre=(3e-3, False)), "logits off"),
+    (served(dec=(3e-3, False)), "logits off"),
+    (served(finite=False), "not finite"),
+    (served(parts=[{"row": 1, "step": 2, "gap": 0.5, "top1_top2": 0.5,
+                    "tie": False}]), "off a tie")])
+def test_serving_on_several_cards_fails_past_its_tolerance(rec, what):
+    faults = chip_smoke.mesh_serve_verdict(4, rec)
+    assert len(faults) == 1 and what in faults[0]
+
+
+def test_serving_on_several_cards_passes_within_tolerance_and_at_ties():
+    tie = {"row": 0, "step": 3, "gap": 2e-5, "top1_top2": 2e-5,
+           "tie": True}
+    assert chip_smoke.mesh_serve_verdict(4, served(parts=[tie])) == []
+    assert chip_smoke.mesh_serve_verdict(4, served(bitwise=True)) == []

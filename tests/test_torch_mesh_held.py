@@ -16,7 +16,11 @@
   counted 658 for gemma-smoke and 871 for qwen2-moe-smoke, of which 423
   and 502 in its body; the local body with the update on DTensors 233
   and 366: the same `torch_mesh_worlds.dtensor_dispatches` run on each
-  tree's package).
+  tree's package);
+* serving on a mesh runs the local program too: a prefill of 4 x 16
+  tokens and one greedy decode step of each arch on a (2, 2) world pass
+  no op through DTensor (`make_serve_fns(mesh=)` takes the parameters'
+  local shards at its edge, and its logits leave whole).
 """
 import pytest
 
@@ -54,3 +58,16 @@ def test_the_step_s_body_passes_no_op_through_dtensor(dispatches, arch):
 def test_the_step_s_dtensor_dispatches_stay_under_their_ceiling(
         dispatches, arch):
     assert dispatches[arch][1] <= STEP_DISPATCH_CEILING[arch]
+
+
+@pytest.fixture(scope="module")
+def serve_dispatches():
+    from repro_torch.launch.mesh import spawn_world
+    return spawn_world(worlds.serve_dispatches, 4, ARCHS, timeout=300)[0]
+
+
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_meshed_serving_passes_no_op_through_dtensor(serve_dispatches, arch,
+                                                     phase):
+    assert serve_dispatches[arch][("prefill", "decode").index(phase)] == 0

@@ -503,13 +503,15 @@ def optimizer_routes(rank, world, mesh_shape, arch="gemma-7b"):
 
 
 def loss_case(rank, world, logits_np, tokens_np, placements, chunk_bytes):
-    """`next_token_nll` on a (1, world) mesh of (data, model), the logits
-    laid out by ``placements`` ("vocab": sharded over model, else
-    whole), with ``chunk_bytes`` as the loss's chunk: (loss, the logits'
-    whole gradient, the collectives a rank ran)."""
-    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    """`next_token_nll` in the local program on a (1, world) mesh of
+    (data, model), each rank's logits shard tagged with its layout by
+    ``placements`` ("vocab": sharded over model, else whole), with
+    ``chunk_bytes`` as the loss's chunk: (loss, the logits' whole
+    gradient, the collectives a rank ran)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.distributed.tensor.debug import CommDebugMode
 
+    from repro_torch.distributed.sharding import Lay, tag
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import transformer
 
@@ -518,19 +520,27 @@ def loss_case(rank, world, logits_np, tokens_np, placements, chunk_bytes):
     mesh = make_mesh((1, world), ("data", "model"))
     pl = ((Replicate(), Shard(2)) if placements == "vocab"
           else (Replicate(), Replicate()))
-    logits = distribute_tensor(torch.from_numpy(logits_np), mesh, pl,
-                               src_data_rank=None).requires_grad_(True)
-    tokens = distribute_tensor(torch.from_numpy(tokens_np), mesh,
-                               (Replicate(), Replicate()), src_data_rank=None)
+    whole = torch.from_numpy(logits_np)
+    part = whole.chunk(world, dim=2)[rank] if placements == "vocab" \
+        else whole
+    logits = tag(part.clone().requires_grad_(True),
+                 Lay(mesh, pl, tuple(whole.shape)))
+    tokens = tag(torch.from_numpy(tokens_np),
+                 Lay(mesh, (Replicate(), Replicate()), tokens_np.shape))
     with CommDebugMode() as comm:
         loss = transformer.next_token_nll(logits, tokens)
         loss.backward()
-    return (float(loss.full_tensor()), logits.grad.full_tensor().numpy(),
+    grad = DTensor.from_local(logits.grad, mesh, pl, run_check=False)
+    return (float(loss), grad.full_tensor().numpy(),
             {str(k): int(v) for k, v in comm.get_comm_counts().items()})
 
 
 MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes",
                "generated_code_bytes"}
+# a training step's all-gather bytes over the reference's, at most: the
+# port gathers each weight's bf16 cast and each activation once, as the
+# reference's program does
+TRAIN_GATHER_BAND = 1.25
 
 
 def check_cell(port, ref):
@@ -538,7 +548,10 @@ def check_cell(port, ref):
     to the reference: per-device flops within [0.8, 1.25], the memory
     record's keys and peak (at most 1.25 x the reference's, its
     storages named), the collective bytes within [0.5, 2.0] — without
-    the ops `mesh_work.BY_DESIGN` names, which must be there."""
+    the ops `mesh_work.BY_DESIGN` names, which must be there — and, for
+    a training step, the all-gather bytes at most
+    `TRAIN_GATHER_BAND` x the reference's (without those ops), unless
+    `mesh_work.BY_DESIGN` names the port's gathers of that cell."""
     import mesh_work
     assert port["status"] == "ok" and ref["status"] == "ok", ref
     row = mesh_work.row(port, ref)
@@ -564,6 +577,10 @@ def check_cell(port, ref):
         assert row["ref_coll_kept"] < 0.9 * row["ref_coll"], row
         ratio = row["coll_ratio_kept"]
     assert 0.5 <= ratio <= 2.0, row
+    if port["shape"] == "train_4k" and not row["gathers_by_design"]:
+        gathered = port["collectives_by_kind"].get("all-gather", 0.0)
+        assert gathered <= TRAIN_GATHER_BAND * row[
+            "ref_coll_kept_by_kind"].get("all-gather", 0.0), row
 
 
 def held_step_case(rank, world, arch, ckpt_dir, steps=2):
@@ -682,4 +699,123 @@ def dtensor_dispatches(rank, world, archs):
             out[arch] = (counts["body"], counts["all"])
     finally:
         adamw.adamw_update = update
+    return out
+
+
+def moved_widths(rank, world, cases):
+    """The types each parameter moves in through one meshed training step
+    of each case's smoke config — ``(arch, compute type)`` — on a (data,
+    model) = (2, world // 2) mesh: {case: {leaf path: {"forward": the
+    types its shard (or its cast) is laid out in where that moves it,
+    "backward": the types of the gradients those collectives hand back,
+    "pending": {mesh dim: the type of its after-backward reduction}}}},
+    rank 0's; leaves that never move are left out."""
+    import contextlib
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed import make_train_step
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.params import (device_put, param_shardings,
+                                           tree_leaves)
+    from repro_torch.optim import AdamWConfig, init_adamw
+
+    torch.set_num_threads(1)
+    mesh = make_mesh((2, world // 2), ("data", "model"))
+    relayout, pending = sharding.relayout, train_mod.pending_reductions
+    out = {}
+    for arch, compute in cases:
+        cfg = dataclasses.replace(get_smoke(arch), dtype=compute)
+        model = build_model(cfg)
+        params = model.init(seed=0, device="cpu", param_dtype=torch.float32)
+        params = device_put(params, param_shardings(params, mesh))
+        names = [".".join(path) for path, _ in tree_leaves(params)]
+        seen = {}
+
+        def leaf(key):
+            return seen.setdefault(names[key], {
+                "forward": set(), "backward": set(), "pending": {}})
+
+        def spy(x, placements, pgrad=()):
+            y = relayout(x, placements, pgrad)
+            key = sharding.layout(x).key
+            if key is not None and y is not x:
+                leaf(key)["forward"].add(str(x.dtype))
+                if x.requires_grad:
+                    x.register_hook(lambda g, k=key: leaf(k)["backward"].add(
+                        str(g.dtype)))
+            return y
+
+        @contextlib.contextmanager
+        def spy_pending():
+            with pending() as pend:
+                yield pend
+            for key, dims in pend.items():
+                leaf(key)["pending"] = {i: str(t) for i, t in dims.items()}
+
+        sharding.relayout, train_mod.pending_reductions = spy, spy_pending
+        try:
+            step = make_train_step(model, AdamWConfig(**OPT), mesh=mesh)
+            g = torch.Generator().manual_seed(0)
+            batch = {"tokens": torch.randint(0, cfg.vocab, (8, 32),
+                                             generator=g)}
+            _, _, m = step(params, init_adamw(params), batch)
+            float(m["loss"])
+        finally:
+            sharding.relayout = relayout
+            train_mod.pending_reductions = pending
+        out[arch, compute] = {
+            k: {"forward": sorted(v["forward"]),
+                "backward": sorted(v["backward"]), "pending": v["pending"]}
+            for k, v in seen.items()}
+    return out
+
+
+def serve_dispatches(rank, world, archs):
+    """Ops with a DTensor operand in a meshed prefill (4 x 16) and in one
+    greedy decode step of each arch's smoke config (float32) on a
+    (data, model) = (2, 2) mesh, the parameters laid out as DTensors by
+    the weight rules: {arch: (prefill's, decode's)}, counted as
+    `dtensor_dispatches` counts a training step's."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves as leaves
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed import make_serve_fns
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.params import device_put, param_shardings
+
+    torch.set_num_threads(1)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    count = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(isinstance(t, DTensor) for t in leaves((args, kwargs))):
+                count[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    out = {}
+    for arch in archs:
+        cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+        model = build_model(cfg)
+        params = model.init(seed=0, device="cpu", param_dtype=torch.float32)
+        params = device_put(params, param_shardings(params, mesh))
+        g = torch.Generator().manual_seed(0)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (4, 16), generator=g)}
+        prefill, decode = make_serve_fns(model, mesh=mesh)
+        got = []
+        with torch.no_grad():
+            count[0] = 0
+            with Count():
+                logits, cache = prefill(params, batch)
+            got.append(count[0])
+            tok = logits[:, -1:].argmax(-1).to(torch.int32)
+            count[0] = 0
+            with Count():
+                decode(params, cache, tok)
+            got.append(count[0])
+        out[arch] = tuple(got)
     return out

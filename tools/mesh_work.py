@@ -4,7 +4,7 @@ compiled SPMD program, cell by cell.
 
     PYTHONPATH=src python tools/mesh_work.py [--archs a,b] \
         [--shapes train_4k,decode_32k] [--layers N] [--multi-pod] \
-        [--json OUT] [--ref-cache FILE] [--storages]
+        [--json OUT] [--ref-cache FILE] [--storages] [--sites]
 
 For each (arch, shape) cell on the production mesh (pod256, or pod512
 with ``--multi-pod``), the port's record comes from
@@ -27,7 +27,9 @@ Prints one line per cell: port and reference flops per device, their
 ratio, each over ``model_flops / chips``, collective bytes of both and
 their ratio, both memory peaks (arguments + temporaries) and their two
 parts; then both sides' collective bytes and counts by kind, and with
-``--storages`` the port's storages held at its peak.  The reference
+``--storages`` the port's storages held at its peak, and with
+``--sites`` the port's collective bytes by kind, type and the model-code
+line that issued them (`collective_sites`).  The reference
 compiles take most of the time: about 10-60 s a cell at two layers on a
 CPU, minutes at full depth; ``--ref-cache`` keeps their records, keyed
 by a hash of this tool and the reference's sources.
@@ -35,6 +37,7 @@ by a hash of this tool and the reference's sources.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -249,6 +252,47 @@ def port_record(arch: str, shape: str, layers: int,
                               cfg=cut_config(arch, layers))
 
 
+_COLLECTIVES = {"_gather": "all-gather", "_scatter": "reduce-scatter",
+                "_reduce": "all-reduce", "_all_to_all": "all-to-all"}
+
+
+@contextlib.contextmanager
+def collective_sites():
+    """Within it each collective of the port's local program (the
+    `repro_torch.distributed.sharding` helpers, wherever a module binds
+    them) adds its output bytes to the dict it yields, under (kind,
+    type, site): the innermost line of the model code that issued it,
+    or ``backward`` for a transposed collective the backward runs."""
+    import traceback
+    from repro_torch.distributed import sharding
+    out: Dict[Tuple[str, str, str], float] = {}
+    saved = {name: getattr(sharding, name) for name in _COLLECTIVES}
+
+    def count(name, fn):
+        def run(x, *args, **kwargs):
+            y = fn(x, *args, **kwargs)
+            lines = [f for f in traceback.extract_stack()[:-1]
+                     if f"{os.sep}repro_torch{os.sep}models{os.sep}"
+                     in f.filename]
+            site = (f"{os.path.basename(lines[-1].filename)}:"
+                    f"{lines[-1].lineno}" if lines else "backward")
+            key = (_COLLECTIVES[name], str(y.dtype).replace("torch.", ""),
+                   site)
+            out[key] = out.get(key, 0.0) + y.numel() * y.element_size()
+            return y
+        return run
+    bound = [(mod, name) for mod in list(sys.modules.values())
+             if getattr(mod, "__name__", "").startswith("repro_torch")
+             for name, fn in saved.items() if getattr(mod, name, None) is fn]
+    for mod, name in bound:
+        setattr(mod, name, count(name, saved[name]))
+    try:
+        yield out
+    finally:
+        for mod, name in bound:
+            setattr(mod, name, saved[name])
+
+
 _WIDTH = {"f64": 8, "s64": 8, "u64": 8, "f32": 4, "s32": 4, "u32": 4,
           "bf16": 2, "f16": 2, "s16": 2, "u16": 2, "s8": 1, "u8": 1,
           "pred": 1}
@@ -283,10 +327,15 @@ def program_collectives(ref: Dict, skip=()) -> Tuple[Dict[str, float],
     return by_kind, counts
 
 
-# Collectives of the reference's compiled program that the port's step
-# does not have by design, cell by cell: (kind, a pattern of the op's
-# op_name, what the port does instead).  `row` also reports the
-# reference's bytes without them (``ref_coll_kept``).
+# Collectives that one side's program has and the other's does not, by
+# design, cell by cell: (kind, a pattern of the op's op_name, what the
+# port does instead) for the reference's ops, which `row` reports the
+# reference's bytes without (``ref_coll_kept``); and (`PORT_GATHER`, what
+# the port gathers, why) for a training step whose all-gathers exceed
+# the reference's by design, which `row` names under
+# ``gathers_by_design`` (the cell is held to the collective band alone,
+# not to the all-gather band).
+PORT_GATHER = "port all-gather"
 BY_DESIGN: Dict[Tuple[str, str], Tuple[Tuple[str, str, str], ...]] = {}
 _DP = ("all-reduce", r"bhqs,bshd->bqhd/dot_general$",
        "the attention backward's dP (float32, a query chunk of "
@@ -301,13 +350,38 @@ BY_DESIGN["qwen2-moe-a2.7b", "train_4k"] = (
      "buffer and the buffer all-reduced; the port gathers the tokens "
      "and each rank fills only its own part of the buffer"),
     ("all-gather", r"closed_call/(checkpoint/)?(rematted_computation/)?"
-     r"reshape$", "the same buffer gathered whole"))
+     r"reshape$", "the same buffer gathered whole"),
+    (PORT_GATHER, "moe.py flat dispatch: the batch's tokens",
+     "the flat dispatch gathers every token of the batch over the data "
+     "dim (in the forward, the recompute and the backward) so that each "
+     "rank fills its own capacity slots; the reference moves the buffer "
+     "instead (its scatter-add all-reduce and buffer all-gathers "
+     "above)"))
+BY_DESIGN["moonshot-v1-16b-a3b", "train_4k"] = BY_DESIGN[
+    "qwen2-moe-a2.7b", "train_4k"]
+BY_DESIGN["mamba2-1.3b", "train_4k"] = (
+    (PORT_GATHER, "ssd.py core: the packed in-projection",
+     "the packed [z, x, B, C, dt] in-projection gathered whole over the "
+     "model dim before the conv and the scan, each rank then taking its "
+     "heads' columns; the reference's program moves only the pieces "
+     "each rank's heads use, with collective-permutes"),)
+BY_DESIGN["mamba2-1.3b", "decode_32k"] = (
+    ("collective-permute", r"bsd,dv->bsv/dot_general$",
+     "the lm head's weight shards permuted between ranks for the decode "
+     "step's logits (a vocab the model dim does not divide); the port "
+     "gathers the step's tokens and each rank contracts its own rows of "
+     "the weight against its vocab chunk: the weight never moves"),)
 for _arch in ("qwen1.5-110b", "chameleon-34b"):
     BY_DESIGN[_arch, "decode_32k"] = (
         ("all-gather", r"broadcast_in_dim$",
          "each layer's whole K/V cache gathered (the repeat of 8 KV "
          "heads to 64); the port's core reads its cache shard and "
          "all-reduces the scores"),)
+
+
+def _reference_ops(named):
+    """The entries of a `BY_DESIGN` cell that name the reference's ops."""
+    return tuple(e for e in named if e[0] != PORT_GATHER)
 
 
 def _matches(op: Dict, named) -> bool:
@@ -342,8 +416,10 @@ def row(port: Dict, ref: Dict) -> Dict:
                                                     memory_split(ref))
     ref_kind, ref_counts = program_collectives(ref)
     ref_coll = sum(ref_kind.values())
-    named = BY_DESIGN.get((port["arch"], port["shape"]), ())
-    kept = sum(program_collectives(ref, named)[0].values())
+    cell = BY_DESIGN.get((port["arch"], port["shape"]), ())
+    named = _reference_ops(cell)
+    kept_kind = program_collectives(ref, named)[0]
+    kept = sum(kept_kind.values())
     out.update(
         port_flops=port["flops"], ref_flops=ref["flops"],
         ratio=port["flops"] / ref["flops"],
@@ -353,6 +429,9 @@ def row(port: Dict, ref: Dict) -> Dict:
         ref_coll_cpu=ref["collective_bytes"], ref_coll_kept=kept,
         coll_ratio_kept=port["collective_bytes"] / kept if kept else None,
         by_design=[why for _, _, why in named],
+        gathers_by_design=[why for kind, _, why in cell
+                           if kind == PORT_GATHER],
+        ref_coll_kept_by_kind=kept_kind,
         coll_ratio=(port["collective_bytes"] / ref_coll if ref_coll
                     else None),
         port_coll_by_kind=port["collectives_by_kind"],
@@ -363,6 +442,7 @@ def row(port: Dict, ref: Dict) -> Dict:
         port_args=port_args, port_temp=port_temp,
         ref_args=ref_args, ref_temp=ref_temp,
         peak_storages=port.get("peak_storages") or [],
+        sites=port.get("sites") or [],
         arg_bytes=port["arg_bytes_per_device"])
     return out
 
@@ -388,12 +468,14 @@ def _cache_key(arch: str, shape: str, layers: int, multi_pod: bool) -> str:
 
 
 def measure(archs: Sequence[str], shapes: Sequence[str], layers: int,
-            multi_pod: bool = False,
-            ref_cache: Optional[str] = None) -> List[Dict]:
+            multi_pod: bool = False, ref_cache: Optional[str] = None,
+            sites: bool = False) -> List[Dict]:
     """One `row` a cell.  ``ref_cache`` (a JSON file) keeps the
     reference's records across runs: cells found there, made by the
     same tool and reference sources (`_sources`), are not compiled
-    again, and the ones compiled now are added to it."""
+    again, and the ones compiled now are added to it.  With ``sites``
+    each port record carries ``sites``: its `collective_sites`, the
+    largest first."""
     cells = [(a, s) for a in archs for s in shapes]
     cached: Dict = {}
     if ref_cache and os.path.exists(ref_cache):
@@ -406,7 +488,11 @@ def measure(archs: Sequence[str], shapes: Sequence[str], layers: int,
         ports = {}
         for a, s in cells:
             try:
-                ports[a, s] = port_record(a, s, layers, multi_pod)
+                with (collective_sites() if sites
+                      else contextlib.nullcontext({})) as got:
+                    ports[a, s] = port_record(a, s, layers, multi_pod)
+                ports[a, s]["sites"] = sorted(
+                    ([*k, v] for k, v in got.items()), key=lambda r: -r[3])
             except Exception as e:  # noqa: BLE001  (recorded, printed)
                 ports[a, s] = {"arch": a, "shape": s, "status": "error",
                                "error": repr(e)[:400]}
@@ -441,9 +527,12 @@ def main(argv=None):
                          "and extended across runs")
     ap.add_argument("--storages", action="store_true",
                     help="print the port's storages alive at its peak")
+    ap.add_argument("--sites", action="store_true",
+                    help="print the port's collective bytes by the model "
+                         "line that issued them")
     args = ap.parse_args(argv)
     rows = measure(args.archs.split(","), args.shapes.split(","),
-                   args.layers, args.multi_pod, args.ref_cache)
+                   args.layers, args.multi_pod, args.ref_cache, args.sites)
     cols = ("port_flops", "ref_flops", "ratio", "port_over_model",
             "ref_over_model", "port_coll", "ref_coll", "coll_ratio",
             "port_peak", "ref_peak", "port_args", "ref_args", "port_temp",
@@ -462,6 +551,8 @@ def main(argv=None):
                   f" B in {_fmt(r['port_coll_counts'].get(kind))}, "
                   f"reference {_fmt(r['ref_coll_by_kind'].get(kind))} B "
                   f"in {_fmt(r['ref_coll_counts'].get(kind))}")
+        for kind, dtype, site, b in r["sites"]:
+            print(f"  site: {kind} {dtype} {site}: {b:.4g} B")
         if args.storages:
             for st in r["peak_storages"]:
                 print(f"  peak: {st['bytes']:.4g} B {st['op']} "
