@@ -92,16 +92,15 @@ Phases, each fatal on failure (exit code != 0, no result line):
 5. profile — `torch.profiler` over a few decode steps of the first
              request's shape: device time by kernel, idle share, and
              the device time per launch of the B1, B2, B3 and B5 kernels
-             (decode steps, then one prefill for attention); then the
-             device time per launch of matvec, atax and BiCG at the
-             tuner's sizes on their tuning-path picks;
+             (decode steps, then one prefill for attention; the Table
+             IV kernels' device time per call is phase 2's);
 6. tuner   — the tuning path, the paper's own experiment: `KernelTuner`
              over the Table IV kernels (matvec, atax, BiCG at 8192 x 8192
              in float32 and bfloat16, jacobi3d at 256^3 float32) and the
              decode down-projection GEMM, in static (asserted to launch
              nothing, then served from the database), hybrid and
-             empirical mode (jacobi3d's plane rows also ranked on their
-             own), and the quickstart; launch counters set to 0 before
+             empirical mode (jacobi3d's plane rows and atax's sweep and
+             ring rows also ranked on their own), and the quickstart; launch counters set to 0 before
              and read after;
 7. dispatch — each Table IV op, and rms_norm on the long row, through
              ``ops`` after ``freeze()``: every dispatch frozen, no runtime
@@ -250,9 +249,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
              prints no result line.
 
 Phase 2 also holds the Table IV kernels against their plain versions at
-the tuner's sizes (above the 50 MB L2), jacobi3d on its static pick (a
-TMA ring row) and on the plane row the analysis ranks first among its
-own.  Every row of phases 2 and 2b launches the tile dispatch picks
+the tuner's sizes (above the 50 MB L2), atax and jacobi3d on their
+static picks (ring rows: bulk-copied row stripes, TMA planes) and on
+the sweep and plane rows the analysis ranks first among their own, each
+row in events time, device time per call beside its library call's and
+host time per wrapper call.  Every row of phases 2 and 2b launches the tile dispatch picks
 (`lookup_or_tune` under the H100).  The
 last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the JSON
@@ -322,6 +323,8 @@ KERNELS = {
                "src/repro/kernels/matvec.py:31"),
     "atax": ("src/repro_torch/kernels/csrc/blas2.cu",
              "src/repro/kernels/atax.py:32"),
+    "atax_sweep": ("src/repro_torch/kernels/csrc/blas2.cu",
+                   "src/repro/kernels/atax.py:32"),
     "bicg": ("src/repro_torch/kernels/csrc/blas2.cu",
              "src/repro/kernels/bicg.py:29"),
     "jacobi3d": ("src/repro_torch/kernels/csrc/jacobi3d.cu",
@@ -342,14 +345,15 @@ SERVE_KERNELS = ("matmul", "matmul_prefill", "splitk_reduce", "rms_norm",
 # the launch counter of a kernel listed under another name: the prefill
 # matmul row is the wgmma family's GEMM kernel (matmul and the split
 # MLP's passes), the flash row its bf16 tensor-core family's kernel, the
-# rms_norm row its vector rows' kernel, the jacobi3d row its ring rows'
-# kernel, the stencil2d row its ring rows' kernel, the fused and stream
-# rows their Hopper families' kernels (gated wgmma, whole-D gated GEMV)
-# and the *_simt rows their SIMT kernels; the other attention, rms_norm,
-# jacobi3d and stencil2d rows are one family each, counted by their
-# wrappers under the row's name
+# rms_norm row its vector rows' kernel, the atax, jacobi3d and stencil2d
+# rows their ring rows' kernels, the fused and stream rows their Hopper
+# families' kernels (gated wgmma, whole-D gated GEMV) and the *_simt rows
+# their SIMT kernels; the other attention, rms_norm, atax, jacobi3d and
+# stencil2d rows are one family each, counted by their wrappers under
+# the row's name
 COUNTER = {"matmul_prefill": "gemm_wgmma", "flash": "flash_mma",
            "rms_norm": "rms_vec", "rms_simt_ragged": "rms_simt",
+           "atax": "atax_ring",
            "jacobi3d": "jacobi_ring", "stencil2d": "stencil2d_ring",
            "fused": "gated_wgmma",
            "fused_simt": "gated_simt", "stream": "stream_gemv",
@@ -914,10 +918,13 @@ def phase_table4(dev):
     (jacobi3d float32): each held against its plain version on the same
     seeded inputs (`make_inputs`), atax and BiCG run twice and compared
     bit for bit, then timed beside the plain version, the bound and the
-    library call.  Each row launches the tile that the tuning path picks
-    (`lookup_or_tune` under the H100), jacobi3d's a ring row; jacobi3d
-    also on the plane row the analysis ranks first among them.  Returns
-    the float32 rows."""
+    library call, in events time per call, device time per call (both
+    sides) and host time per wrapper call.  Each row launches the tile
+    that the tuning path picks (`lookup_or_tune` under the H100), atax's
+    and jacobi3d's a ring row (fatal otherwise); atax also on the sweep
+    row and jacobi3d on the plane row the analysis ranks first among
+    them, the designs the ring rows replaced.  Returns the float32
+    rows."""
     import torch
     from repro_torch import tuning_cache as tc
     from repro_torch.kernels import api
@@ -948,16 +955,22 @@ def phase_table4(dev):
             if kid == "jacobi3d" and jc.JACOBI_TILES[tile][3] != jc.RING:
                 fail(f"jacobi3d {sig}: the static pick {tile} is not a "
                      f"ring row")
+            if kid == "atax" and ax.ATAX_TILES[tile][2] != ax.RING:
+                fail(f"atax {sig}: the static pick {tile} is not a ring "
+                     f"row")
             results.update(_table4_row(kid, sig, dtype, tile, args,
                                        launch[kid], library.get(kid),
                                        composite.get(kid)))
-            if kid == "jacobi3d":
-                plane = _family_tile(
-                    kid, None, sig,
-                    lambda t: jc.JACOBI_TILES[t][3] == jc.PLANE)
-                results["jacobi_plane"] = _table4_row(
-                    kid, sig, dtype, plane, args, launch[kid],
-                    library[kid], None)[kid]
+            older = {"jacobi3d": ("jacobi_plane", lambda t: (
+                         jc.JACOBI_TILES[t][3] == jc.PLANE)),
+                     "atax": ("atax_sweep", lambda t: (
+                         ax.ATAX_TILES[t][2] == ax.SWEEP))}.get(kid)
+            if older is not None:
+                other = _family_tile(kid, None, sig, older[1])
+                row = _table4_row(kid, sig, dtype, other, args, launch[kid],
+                                  library[kid], None)
+                if row:
+                    results[older[0]] = row[kid]
             del args
     torch.cuda.empty_cache()
     return results
@@ -985,15 +998,18 @@ def _conv3d_jacobi(dev, c0: float, c1: float):
 def _table4_row(kid, sig, dtype, tile, args, launch, lib, comp):
     """One Table IV kernel at ``sig`` on ``tile``: held against its
     plain version (atax and BiCG also bit for bit against a second
-    run), timed beside it, the bound and ``lib``; {kid: row} for
-    float32, else {}."""
+    run), timed beside it, the bound and ``lib`` (BiCG: ``comp``, its
+    two-call composite) in events time per call over back-to-back calls
+    (``ms``: the host's enqueue shows where it is slower than the
+    device), in device time per call (``device_us``, every kernel of the
+    call, `torch.profiler`) for the kernel and the library call, and in
+    the wrapper's host time per call; {kid: row} for float32, else
+    {}."""
     import torch
     from repro_torch.core.hw import dtype_bytes
     fn, plain = launch
-    got, want = fn(*args, tile=tile), plain(*args)
+    got, want = _as_tuple(fn(*args, tile=tile)), _as_tuple(plain(*args))
     torch.cuda.synchronize()
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
     tol = TABLE4_TOL[kid] if dtype == "float32" else 2e-2
     err = max((g.float() - w.float()).abs().max().item()
               for g, w in zip(got, want))
@@ -1005,8 +1021,7 @@ def _table4_row(kid, sig, dtype, tile, args, launch, lib, comp):
             fail(f"{kid} {dtype} tile {tile} disagrees with its "
                  f"plain version: {str(e).splitlines()[0:4]}")
     if kid in ("atax", "bicg"):
-        again = fn(*args, tile=tile)
-        again = again if isinstance(again, tuple) else (again,)
+        again = _as_tuple(fn(*args, tile=tile))
         torch.cuda.synchronize()
         if not all(torch.equal(g, h) for g, h in zip(got, again)):
             fail(f"{kid} {dtype}: two runs differ in their bits")
@@ -1020,26 +1035,33 @@ def _table4_row(kid, sig, dtype, tile, args, launch, lib, comp):
         nbytes = (float(m) * n + vec[kid]) * eb
         flops = (2.0 if kid == "matvec" else 4.0) * m * n
     b_ms, b_by = bound(nbytes, flops, dtype)
+    call = lambda: fn(*args, tile=tile)
     row = dict(max_abs_err=err,
-               ms=time_ms(lambda: fn(*args, tile=tile)),
+               ms=time_ms(call),
                plain_ms=time_ms(lambda: plain(*args)),
                bound_ms=b_ms, bound_by=b_by,
                library_ms=(time_ms(lambda: lib(*args))
                            if lib is not None else None),
+               device_us=device_us(call), host_us=host_us(call),
                shape=f"{sig} tile {tile}")
-    extra = ""
+    extra = (f" | device {row['device_us']:.2f} us per call "
+             f"({1e3 * b_ms / row['device_us']:.2f} of the bound) | host "
+             f"{row['host_us']:.1f} us per wrapper call")
+    if lib is not None:
+        row["library_device_us"] = device_us(lambda: lib(*args))
+        l_err = max((g.float() - w.float()).abs().max().item()
+                    for g, w in zip(_as_tuple(lib(*args)), want))
+        name = {"matvec": "torch.matmul", "atax": "multi_dot",
+                "jacobi3d": "conv3d + boundary copy"}[kid]
+        extra += (f" | library ({name}) device "
+                  f"{row['library_device_us']:.2f} us, max|err| "
+                  f"{l_err:.3g}")
     if comp is not None:
-        extra = (f" | torch composite (2 matmuls) "
-                 f"{time_ms(lambda: comp(*args)):.4f} ms")
-    if kid == "jacobi3d":
-        row["device_us"] = device_us(lambda: fn(*args, tile=tile))
-        extra = f" | device {row['device_us']:.2f} us per launch"
-        if lib is not None:
-            row["library_device_us"] = device_us(lambda: lib(*args))
-            l_err = (lib(*args).float() - want[0].float()).abs().max().item()
-            extra += (f" | library (conv3d + boundary copy) device "
-                      f"{row['library_device_us']:.2f} us, max|err| "
-                      f"{l_err:.3g}")
+        row["composite_ms"] = time_ms(lambda: comp(*args))
+        row["composite_device_us"] = device_us(lambda: comp(*args))
+        extra += (f" | torch composite (2 matmuls) "
+                  f"{row['composite_ms']:.4f} ms, device "
+                  f"{row['composite_device_us']:.2f} us")
     print(f"[kernels] {kid} {dtype} "
           f"{'x'.join(str(v) for v in TABLE4_SHAPES[kid].values())} "
           f"tile {tile}: max|err| {err:.3g} (tol {tol:g} abs + rel)"
@@ -1050,6 +1072,10 @@ def _table4_row(kid, sig, dtype, tile, args, launch, lib, comp):
           + (f"{row['library_ms']:.4f} ms" if lib else "none")
           + extra, flush=True)
     return {kid: row} if dtype == "float32" else {}
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
 
 
 # ---------------------------------------------------------------------------
@@ -2043,39 +2069,6 @@ def phase_profile(dev, batch: int = 4, prompt_len: int = 64,
     out["prefill_busy_ms"] = busy
     del params, cache
     torch.cuda.empty_cache()
-    out["table4"] = _table4_device_us(dev)
-    return out
-
-
-def _table4_device_us(dev) -> dict:
-    """Device time per launch of matvec, atax and BiCG at TABLE4_SHAPES,
-    float32 and bfloat16, on the tile the tuning path picks: {(kernel,
-    dtype): us}."""
-    import torch
-    from repro_torch import tuning_cache as tc
-    from repro_torch.kernels import api
-    from repro_torch.kernels import atax as ax
-    from repro_torch.kernels import bicg as bc
-    from repro_torch.kernels import matvec as mv
-    launch = {"matvec": mv.matvec_cuda, "atax": ax.atax_cuda,
-              "bicg": bc.bicg_cuda}
-    out = {}
-    for kid, fn in launch.items():
-        for dtype in ("float32", "bfloat16"):
-            sig = dict(TABLE4_SHAPES[kid], dtype=dtype)
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(0)
-            args = api.get_spec(kid).make_inputs(gen, **sig)
-            tile = tc.lookup_or_tune(kid, spec="h100", db=tc.TuningDatabase(),
-                                     **sig)[api.TILE_AXIS]
-            us = device_us(lambda: fn(*args, tile=tile))
-            out[(kid, dtype)] = us
-            print(f"[profile] {kid} {dtype} "
-                  f"{'x'.join(str(v) for v in TABLE4_SHAPES[kid].values())} "
-                  f"tile {tile}: {us:.2f} us device time per launch "
-                  f"(kernels of one call)", flush=True)
-            del args
-    torch.cuda.empty_cache()
     return out
 
 
@@ -2232,9 +2225,11 @@ def _rank_own(what: str, r: dict, keep) -> None:
 
 def phase_tuner():
     """`tune_case` on each TUNER_CASES instance (jacobi3d's plane rows
-    also ranked on their own), then the quickstart in process."""
+    and atax's sweep and ring rows also ranked on their own), then the
+    quickstart in process."""
     from repro_torch import kernels
     from repro_torch.examples import quickstart
+    from repro_torch.kernels import atax as ax
     from repro_torch.kernels import jacobi3d as jc
 
     kernels.reset_launch_counts()           # the tuning path starts here
@@ -2243,6 +2238,10 @@ def phase_tuner():
         if r["kernel"] == "jacobi3d":
             _rank_own("jacobi3d plane rows alone", r, lambda t: (
                 jc.JACOBI_TILES[t][3] == jc.PLANE))
+        if r["kernel"] == "atax":
+            for fam, label in ((ax.SWEEP, "sweep"), (ax.RING, "ring")):
+                _rank_own(f"atax {r['sig']['dtype']} {label} rows alone", r,
+                          lambda t, fam=fam: ax.ATAX_TILES[t][2] == fam)
     print("[tuner] quickstart (atax 1024 x 512 float32, in L2):", flush=True)
     quickstart.main([])
     launches = kernels.launch_counts()       # ... and ends here
@@ -2301,7 +2300,8 @@ def phase_dispatch(dev):
             torch.testing.assert_close(g, w, rtol=tol, atol=tol)
     st = api.dispatch_stats()
     launches = kernels.launch_counts()
-    shown = TABLE4 + ("jacobi_plane", "jacobi_ring", "rms_cluster")
+    shown = TABLE4 + ("atax_sweep", "atax_ring", "jacobi_plane",
+                      "jacobi_ring", "rms_cluster")
     print(f"[dispatch] Table IV ops and rms_norm {RMS_LONG} after "
           f"freeze(): {st}, runtime tunes "
           f"{tc.get_default_db().stats.tunes - tunes}, launches "
@@ -2638,6 +2638,7 @@ EXTRACT_ROWS = {
     "split": ("mlp_matmul", "split", "bfloat16"),
     "matvec": ("matvec", None, "float32"),
     "atax": ("atax", None, "float32"),
+    "atax_sweep": ("atax", None, "float32"),
     "bicg": ("bicg", None, "float32"),
     "jacobi3d": ("jacobi3d", None, "float32"),
     "jacobi_plane": ("jacobi3d", None, "float32"),
@@ -4362,9 +4363,6 @@ def main() -> None:
         service_launches = phase_service(reports, jsonl)
     families = phase_families(dev, reports)
     profile = phase_profile(dev)
-    for (kid, dtype), us in profile["table4"].items():
-        if dtype == "float32":
-            rows[kid]["device_us"] = us
     _, tuner_launches = phase_tuner()
     dispatch_launches = phase_dispatch(dev)
     ext_launches = phase_extend(dev, card)
@@ -4398,7 +4396,8 @@ def main() -> None:
     print(f"[smoke] kernels launched by the deployment tiers' paths: "
           f"[pretuned] {ran(pretuned_launches)}; [deploy] "
           f"{ran(deploy_launches)}; [service] {ran(service_launches)}")
-    missing = [k for k in TABLE4 + ("jacobi_plane", "jacobi_ring")
+    missing = [k for k in TABLE4 + ("atax_sweep", "atax_ring",
+                                    "jacobi_plane", "jacobi_ring")
                if tuner_launches.get(k, 0) == 0]
     if missing:
         fail(f"Table IV kernels never launched on the tuning path: "
@@ -4412,7 +4411,7 @@ def main() -> None:
     # each kernel's launches on the path that launches it
     paths = {n: ("serve", launches) for n in SERVE_KERNELS}
     paths.update({n: ("tuner", tuner_launches)
-                  for n in TABLE4 + ("jacobi_plane",)})
+                  for n in TABLE4 + ("atax_sweep", "jacobi_plane")})
     paths["rms_cluster"] = ("dispatch", dispatch_launches)
     paths.update({n: ("extend", ext_launches)
                   for n in EXTEND + ("stencil2d_march",)})
@@ -4432,7 +4431,8 @@ def main() -> None:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 **{k: r[k] for k in ("device_us", "library_device_us",
-                                     "composite_ms", "composite_device_us")
+                                     "composite_ms", "composite_device_us",
+                                     "host_us")
                    if k in r},
                 "sass": {k: sass[name][k] for k in ("regs", "spills",
                                                     "loop_instructions")}}

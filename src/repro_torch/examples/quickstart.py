@@ -72,6 +72,13 @@ def main(argv=None):
           f"({rep_e.best_measured_s*1e6:.1f} us"
           + (", operands in L2)" if device.type == "cuda" else ")"))
 
+    meas = {tuple(sorted(r["params"].items())): r["measured_s"]
+            for r in rep_e.table}
+    static_s = meas.get(tuple(sorted(rep.best_params.items())))
+    if static_s is not None:
+        print(f"   static pick measured: {rep.best_params} "
+              f"({static_s*1e6:.1f} us), regret "
+              f"{static_s / rep_e.best_measured_s:.3f}x")
     agree = rep.best_params == rep_e.best_params
     print(f"\nstatic pick == empirical optimum: {agree}")
     if rep_e.spearman_static_vs_measured is not None:

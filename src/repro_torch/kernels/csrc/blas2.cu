@@ -3,7 +3,8 @@
 //
 // Replaces (src/repro/kernels/):
 //   matvec.py:_mv_kernel            -> matvec_kernel       (repro_matvec)
-//   atax.py:_atax_kernel_rowsweep   -> atax_kernel + colsum_kernel (repro_atax)
+//   atax.py:_atax_kernel_rowsweep   -> atax_kernel or atax_ring_kernel,
+//                                      + colsum_kernel (repro_atax)
 //   bicg.py:_bicg_kernel            -> bicg_kernel + colsum_kernel (repro_bicg)
 //
 // What bounds them on the H100: bytes.  Each reads the M x N matrix A
@@ -28,25 +29,59 @@
 //   * BiCG reads each element of A once: q's dot products and s's
 //     column sums take the same loaded vector.  q_i is a block-wide
 //     reduction per row (shuffles, then the warps' sums in order).
-//   * atax needs t_i = A_i . x before A_i^T t_i, so a stripe is read
-//     twice: pass 1 reduces t (cast to the input type before the second
-//     product, as the TPU kernel does at atax.py:43), pass 2 adds
-//     A_i^T t_i.  The second read comes from L2 while the stripes in
-//     flight across the card (blocks x ROWS x N x bytes) fit it; the
-//     analysis charges a second pass over A from device memory when
-//     they do not.
+//   * atax needs t_i = A_i . x before A_i^T t_i.  Its table holds two
+//     families (ATAX_TILES: the sweep rows, then the ring rows):
+//     - sweep rows (atax_kernel, BLAS2_TILES' instantiations): a stripe
+//       is read twice: pass 1 reduces t (cast to the input type before
+//       the second product, as the TPU kernel does at atax.py:43), pass
+//       2 adds A_i^T t_i.  The second read comes from L2 while the
+//       stripes in flight across the card (blocks x ROWS x N x bytes)
+//       fit it; the analysis charges a second pass over A from device
+//       memory when they do not.  Loads and FMAs overlap only across
+//       warps.  Any N, any alignment (scalar loads where 16-byte ones
+//       do not fit).
+//     - ring rows (atax_ring_kernel; N * bytes a multiple of 16, N at
+//       most RING_MAX_N, two stripes within 227 KB, 16-byte-aligned A
+//       and x): A is read from device memory exactly once, whatever
+//       the L2 holds.  One block per SM (or as many as the ring lets
+//       the occupancy calculator fit) walks stripes b, b + grid, ...; a
+//       ring of S stripe buffers in shared memory (as many as fit 227
+//       KB, at most RING_STAGES: 3 at 8192 f32 columns, 7 at 8192
+//       bf16) is filled by 1-D bulk copies, one per stripe (its rows
+//       are contiguous in A), that thread 0 issues and whose bytes
+//       complete on the stage's mbarrier, so S - 1 stripes are in
+//       flight while the block computes on one.  A thread holds its
+//       RING_MAX_N / THREADS columns of x and of its f32 partial y in
+//       registers.  Pass 1 reads the thread's columns of the stage
+//       once, into f32 registers, for its dot products; one block barrier per
+//       stripe publishes the warps' sums (every warp then adds them in
+//       one fixed butterfly, lane w taking warp w's, from a buffer of
+//       two halves taken by stripe parity) and tells thread 0 that the
+//       stage is read, which it refills with the stripe S ahead; pass 2
+//       adds A_i^T t_i from the columns pass 1 kept.  Bound: A's bytes
+//       plus the workspace's (below), 0.0426 ms at 8192^2 bf16; shared
+//       memory moves A's bytes twice (the copy in, one read), about a
+//       fifth of its rate.
 // The grid is persistent: one wave of blocks (as many as the
 // occupancy calculator fits, at most one per stripe).  Each block writes
-// its ys row into a workspace (grid x N f32) that the wrapper allocates,
-// and colsum_kernel adds the rows in block order: no float atomics, so
-// two runs give bitwise the same result.  The workspace costs
-// 2 x grid x N x 4 bytes of traffic beside A.
+// its f32 partial row of the A^T sum into a workspace (grid x N f32) that
+// the wrapper allocates, and colsum_kernel adds the rows in block order:
+// no float atomics, so two runs give bitwise the same result.  The
+// workspace costs 2 x grid x N x 4 bytes of traffic beside A (8.7 MB at
+// N = 8192 on a ring row's grid of 132).  The C side keeps each
+// instantiation's wave (blocks per SM x SMs) per device and N, so a
+// launch does not ask the runtime for occupancy again.
 //
-// Left on the table: cp.async/TMA double-buffering of the stripe (loads
-// and FMAs overlap only across warps here), holding the atax stripe in
-// shared memory so A is read from device memory exactly once, and a
-// smaller workspace (thread block clusters could sum ys rows in DSMEM).
+// Left on the table: BiCG's stripe double-buffering (its loads and FMAs
+// overlap only across warps); the ring rows' workspace could shrink to
+// a cluster's rows by summing ys in DSMEM; a ring row's registers are
+// sized for its widest N (RING_MAX_N columns), so narrower rows leave
+// most threads' columns idle; rows past RING_MAX_N columns take the
+// sweep rows.
 #include "common.cuh"
+#include "hopper.cuh"
+
+#include <mutex>
 
 // (index, ROWS, WPR) -- threads = 32 * ROWS * WPR.  Must match
 // repro_torch/kernels/matvec.py MATVEC_TILES.
@@ -55,10 +90,26 @@
   X(6, 1, 4) X(7, 1, 8) X(8, 2, 8) X(9, 4, 8)
 
 // (index, THREADS, ROWS).  Must match repro_torch/kernels/atax.py
-// BLAS2_TILES (atax and BiCG share the table).
+// BLAS2_TILES (BiCG's table, and the sweep rows of atax's).
 #define BLAS2_TILES(X)                                                     \
   X(0, 32, 1) X(1, 64, 1) X(2, 128, 1) X(3, 128, 4) X(4, 256, 1)           \
   X(5, 256, 2) X(6, 256, 4) X(7, 512, 1) X(8, 512, 2) X(9, 1024, 1)
+
+// atax's table is BLAS2_TILES (the sweep rows, indices 0-9), then its
+// ring rows: (index, THREADS, ROWS).  Must match
+// repro_torch/kernels/atax.py ATAX_TILES.  Where the analysis ties
+// rows, the first wins: two-row stripes of 512 threads first.
+#define ATAX_RING_TILES(X)                                                 \
+  X(10, 512, 2) X(11, 512, 1) X(12, 1024, 2) X(13, 1024, 1)
+
+// A ring holds as many stripes as fit a block's shared memory, at most
+// RING_STAGES; a row takes N up to RING_MAX_N columns, a thread holding
+// RING_MAX_N / THREADS of them (of x, of y and of each stripe row) in
+// registers.  Must match kernels/atax.py.
+constexpr int RING_STAGES = 16;
+constexpr int RING_MAX_N = 8192;
+
+enum AtaxFamily { ATAX_SWEEP = 0, ATAX_RING = 1 };
 
 // Threads of the column-sum launch: 16 warps, 32 columns per block.
 #define COLSUM_WARPS 16
@@ -264,6 +315,141 @@ atax_kernel(const T* __restrict__ A, const T* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
+// atax, ring rows
+// ---------------------------------------------------------------------------
+
+// Static shared memory of a ring instantiation beside its S stripe
+// buffers: the warps' sums, two halves, and a full barrier per stage.
+template <int THREADS, int ROWS>
+struct AtaxRingShared {
+  alignas(16) float red[2][ROWS][THREADS / 32];
+  uint64_t full[RING_STAGES];
+};
+
+// y's partial sums of one block over its stripes, through a ring of S
+// (2 <= S <= RING_STAGES) stripe buffers in dynamic shared memory.  A
+// thread owns COLS = RING_MAX_N / THREADS columns of every row: its
+// vectors j = tid + k * THREADS, k < COLS / V.
+template <typename T, int THREADS, int ROWS>
+__global__ void __launch_bounds__(THREADS, 1)
+atax_ring_kernel(const T* __restrict__ A, const T* __restrict__ x,
+                 float* __restrict__ ws, int M, int N, int S) {
+  constexpr int COLS = RING_MAX_N / THREADS;
+  constexpr int V = VecWidth<T>::value, NW = THREADS / 32, VPT = COLS / V;
+  static_assert(COLS * THREADS == RING_MAX_N && COLS % 8 == 0 && NW <= 32,
+                "whole vectors of both types");
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ AtaxRingShared<THREADS, ROWS> sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nv = N / V;                       // 16-byte vectors a row
+  const int row_bytes = N * (int)sizeof(T);   // a multiple of 16
+  const int stage = ROWS * row_bytes;
+  const int stripes = (M + ROWS - 1) / ROWS;
+  // this block's stripes: blockIdx.x, blockIdx.x + grid, ...
+  const int mine = stripes > (int)blockIdx.x
+      ? (stripes - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const uint32_t ring0 = smem_u32(ring);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(smem_u32(&sh.full[s]), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // local stripe i into stage i % S: its rows are contiguous in A, one
+  // bulk copy
+  auto issue = [&](int i) {
+    const int row0 = ((int)blockIdx.x + i * (int)gridDim.x) * ROWS;
+    const int nr = min(ROWS, M - row0);
+    const uint32_t bar = smem_u32(&sh.full[i % S]);
+    mbar_expect_tx(bar, nr * row_bytes);
+    bulk_load(ring0 + (i % S) * stage, A + (size_t)row0 * N, nr * row_bytes,
+              bar);
+  };
+  if (tid == 0)
+    for (int i = 0; i < min(S, mine); ++i) issue(i);
+  // the thread's columns of x and of its partial y, in f32
+  float xr[VPT][V], ys[VPT][V];
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int j = tid + k * THREADS;
+    if (j < nv) load16(x + (size_t)j * V, xr[k]);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (j >= nv) xr[k][v] = 0.f;
+      ys[k][v] = 0.f;
+    }
+  }
+  for (int i = 0; i < mine; ++i) {
+    const int row0 = ((int)blockIdx.x + i * (int)gridDim.x) * ROWS;
+    const int nr = min(ROWS, M - row0);
+    mbar_wait(smem_u32(&sh.full[i % S]), (i / S) & 1);
+    const unsigned char* st = ring + (i % S) * stage;
+    // pass 1: the thread's columns of the stripe, read from the stage
+    // once and kept in f32 for pass 2, and its part of t = A_stripe . x
+    float af[VPT][ROWS][V];
+    float acc[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int j = tid + k * THREADS;
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        if (j < nv && r < nr) {
+          unpack16<T>(*reinterpret_cast<const uint4*>(
+              st + r * row_bytes + j * 16), af[k][r]);
+        } else {
+#pragma unroll
+          for (int v = 0; v < V; ++v) af[k][r][v] = 0.f;
+        }
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          acc[r] = fmaf(af[k][r][v], xr[k][v], acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const float w = warp_sum(acc[r]);
+      if (lane == 0) sh.red[i & 1][r][warp] = w;
+    }
+    // the warps' sums are in, and every thread has read stripe i's
+    // stage: it takes the stripe S ahead
+    __syncthreads();
+    if (tid == 0 && i + S < mine) issue(i + S);
+    // t: lane w takes warp w's sum and a fixed butterfly adds them, the
+    // same in every warp; rounded to the input type as the TPU kernel
+    // rounds it; rows past M add nothing
+    float t[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const float s = warp_sum(lane < NW ? sh.red[i & 1][r][lane] : 0.f);
+      t[r] = r < nr ? to_f(from_f<T>(s)) : 0.f;
+    }
+    // pass 2: ys += A_stripe^T . t, from the columns pass 1 kept
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          ys[k][v] = fmaf(af[k][r][v], t[r], ys[k][v]);
+      }
+    }
+  }
+  float* w = ws + (size_t)blockIdx.x * N;
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int j = tid + k * THREADS;
+    if (j < nv) {
+#pragma unroll
+      for (int q = 0; q < V / 4; ++q)
+        reinterpret_cast<float4*>(w + (size_t)j * V)[q] = make_float4(
+            ys[k][4 * q], ys[k][4 * q + 1], ys[k][4 * q + 2],
+            ys[k][4 * q + 3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // BiCG
 // ---------------------------------------------------------------------------
 
@@ -377,26 +563,53 @@ static int launch_matvec(const void* A, const void* x, void* y, int M,
   return (int)cudaGetLastError();
 }
 
-// The persistent grid of one atax/BiCG instantiation: one wave of the
-// blocks the occupancy calculator fits per SM (ys takes N*4 bytes of
-// dynamic shared memory), at most one block per stripe.
+// The waves of one atax/BiCG instantiation, kept per (device, N): the
+// runtime is asked once, and a launch reads its grid from here.
+struct WaveCache {
+  static constexpr int SLOTS = 32;
+  std::mutex mu;
+  int used = 0;
+  int dev[SLOTS], n[SLOTS], wave[SLOTS];
+};
+
+// The persistent grid of one atax/BiCG instantiation at M x N: one wave
+// of the blocks the occupancy calculator fits per SM at ``smem`` bytes
+// of dynamic shared memory (asked of the runtime at the first launch at
+// N on the device, then read from ``cache``), at most one block per
+// stripe.
 template <typename K>
-static int persistent_grid(K kernel, int threads, int rows, int M, int N,
-                           int* configured, int* grid) {
-  const int smem = N * 4;
-  cudaError_t e = allow_smem(kernel, smem, configured);
+static int cached_grid(K kernel, int threads, int rows, int smem, int M,
+                       int N, WaveCache* cache, int* configured, int* grid) {
+  int dev = 0, wave = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  int per_sm = 0, dev = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                    smem);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
+  {
+    std::lock_guard<std::mutex> hold(cache->mu);
+    int i = 0;
+    while (i < cache->used && !(cache->dev[i] == dev && cache->n[i] == N)) ++i;
+    if (i < cache->used) {
+      wave = cache->wave[i];
+    } else {
+      e = allow_smem(kernel, smem, configured);
+      if (e != cudaSuccess) return (int)e;
+      int per_sm = 0, sms = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+      if (e != cudaSuccess) return (int)e;
+      if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (e != cudaSuccess) return (int)e;
+      wave = per_sm * sms;
+      if (cache->used < WaveCache::SLOTS) {
+        cache->dev[i] = dev;
+        cache->n[i] = N;
+        cache->wave[i] = wave;
+        ++cache->used;
+      }
+    }
+  }
   const int stripes = (M + rows - 1) / rows;
-  *grid = per_sm * sms < stripes ? per_sm * sms : stripes;
+  *grid = wave < stripes ? wave : stripes;
   return 0;
 }
 
@@ -411,15 +624,47 @@ static int launch_colsum(const float* ws, void* y, int G, int N,
 template <typename T, int THREADS, int ROWS>
 static int atax_grid(int M, int N, int* grid) {
   static int configured = 0;
-  return persistent_grid(atax_kernel<T, THREADS, ROWS>, THREADS, ROWS, M, N,
-                         &configured, grid);
+  static WaveCache cache;
+  return cached_grid(atax_kernel<T, THREADS, ROWS>, THREADS, ROWS, N * 4, M,
+                     N, &cache, &configured, grid);
+}
+
+// The stages of a ring instantiation at N columns of T: as many
+// stripes as fit a block's 227 KB beside the static shared memory, at
+// most RING_STAGES; 0 where it does not take N (rows not a whole number
+// of 16-byte vectors, more than RING_MAX_N columns, fewer than two
+// stages).  Its dynamic bytes in *smem.
+template <typename T, int THREADS, int ROWS>
+static int ring_stages(int N, int* smem) {
+  constexpr long long room =
+      232448 - (long long)sizeof(AtaxRingShared<THREADS, ROWS>);
+  const long long stage = (long long)ROWS * N * sizeof(T);
+  if (N <= 0 || (N * (long long)sizeof(T)) % 16 != 0 || N > RING_MAX_N)
+    return 0;
+  const long long fit = room / stage;
+  const int S = (int)(fit < RING_STAGES ? fit : RING_STAGES);
+  if (S < 2) return 0;
+  *smem = (int)(S * stage);
+  return S;
+}
+
+template <typename T, int THREADS, int ROWS>
+static int atax_ring_grid(int M, int N, int* grid) {
+  static int configured = 0;
+  static WaveCache cache;
+  int smem = 0;
+  if (ring_stages<T, THREADS, ROWS>(N, &smem) == 0)
+    return (int)cudaErrorInvalidValue;
+  return cached_grid(atax_ring_kernel<T, THREADS, ROWS>,
+                     THREADS, ROWS, smem, M, N, &cache, &configured, grid);
 }
 
 template <typename T, int THREADS, int ROWS>
 static int bicg_grid(int M, int N, int* grid) {
   static int configured = 0;
-  return persistent_grid(bicg_kernel<T, THREADS, ROWS>, THREADS, ROWS, M, N,
-                         &configured, grid);
+  static WaveCache cache;
+  return cached_grid(bicg_kernel<T, THREADS, ROWS>, THREADS, ROWS, N * 4, M,
+                     N, &cache, &configured, grid);
 }
 
 template <typename T, int THREADS, int ROWS>
@@ -431,6 +676,22 @@ static int launch_atax(const void* A, const void* x, void* y, void* ws,
   if (G < 1 || G > cap) return (int)cudaErrorInvalidValue;
   atax_kernel<T, THREADS, ROWS><<<G, THREADS, N * 4, s>>>(
       (const T*)A, (const T*)x, (float*)ws, M, N, vec_ok<T>(A, x, N));
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  return launch_colsum<T>((const float*)ws, y, G, N, s);
+}
+
+template <typename T, int THREADS, int ROWS>
+static int launch_atax_ring(const void* A, const void* x, void* y, void* ws,
+                            int G, int M, int N, cudaStream_t s) {
+  int cap = 0, smem = 0;
+  int rc = atax_ring_grid<T, THREADS, ROWS>(M, N, &cap);
+  if (rc != 0) return rc;
+  if (G < 1 || G > cap || !aligned16(A) || !aligned16(x))
+    return (int)cudaErrorInvalidValue;
+  const int S = ring_stages<T, THREADS, ROWS>(N, &smem);
+  atax_ring_kernel<T, THREADS, ROWS><<<G, THREADS, smem, s>>>(
+      (const T*)A, (const T*)x, (float*)ws, M, N, S);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   return launch_colsum<T>((const float*)ws, y, G, N, s);
@@ -467,21 +728,35 @@ int repro_matvec(int tile, int dtype, const void* A, const void* x, void* y,
   return (int)cudaErrorInvalidValue;
 }
 
-// The persistent grid (workspace rows) of one atax (kind 7) or BiCG
-// (kind 8) instantiation at M x N on the current device.
+// The persistent grid (workspace rows) of one atax (kind 7: ATAX_TILES)
+// or BiCG (kind 8: BLAS2_TILES) instantiation at M x N on the current
+// device.
 int repro_blas2_grid(int kind, int tile, int dtype, int M, int N,
                      int* grid) {
-#define GRID_CASE(i, THREADS, ROWS)                                         \
+#define ATAX_GRID(i, THREADS, ROWS)                                         \
   case i:                                                                   \
-    if (kind == KIND_ATAX)                                                  \
-      return dtype == 0 ? atax_grid<float, THREADS, ROWS>(M, N, grid)       \
-                        : atax_grid<bf16, THREADS, ROWS>(M, N, grid);       \
+    return dtype == 0 ? atax_grid<float, THREADS, ROWS>(M, N, grid)         \
+                      : atax_grid<bf16, THREADS, ROWS>(M, N, grid);
+#define ATAX_RING_GRID(i, THREADS, ROWS)                                    \
+  case i:                                                                   \
+    return dtype == 0 ? atax_ring_grid<float, THREADS, ROWS>(M, N, grid)    \
+                      : atax_ring_grid<bf16, THREADS, ROWS>(M, N, grid);
+#define BICG_GRID(i, THREADS, ROWS)                                         \
+  case i:                                                                   \
     return dtype == 0 ? bicg_grid<float, THREADS, ROWS>(M, N, grid)         \
                       : bicg_grid<bf16, THREADS, ROWS>(M, N, grid);
-  if (kind != KIND_ATAX && kind != KIND_BICG)
-    return (int)cudaErrorInvalidValue;
-  switch (tile) { BLAS2_TILES(GRID_CASE) default: break; }
-#undef GRID_CASE
+  if (kind == KIND_ATAX) {
+    switch (tile) {
+      BLAS2_TILES(ATAX_GRID)
+      ATAX_RING_TILES(ATAX_RING_GRID)
+      default: break;
+    }
+  } else if (kind == KIND_BICG) {
+    switch (tile) { BLAS2_TILES(BICG_GRID) default: break; }
+  }
+#undef ATAX_GRID
+#undef ATAX_RING_GRID
+#undef BICG_GRID
   return (int)cudaErrorInvalidValue;
 }
 
@@ -495,8 +770,18 @@ int repro_atax(int tile, int dtype, const void* A, const void* x, void* y,
     return dtype == 0                                                       \
         ? launch_atax<float, THREADS, ROWS>(A, x, y, ws, G, M, N, s)        \
         : launch_atax<bf16, THREADS, ROWS>(A, x, y, ws, G, M, N, s);
-  switch (tile) { BLAS2_TILES(ATAX_CASE) default: break; }
+#define ATAX_RING_CASE(i, THREADS, ROWS)                                    \
+  case i:                                                                   \
+    return dtype == 0                                                       \
+        ? launch_atax_ring<float, THREADS, ROWS>(A, x, y, ws, G, M, N, s)   \
+        : launch_atax_ring<bf16, THREADS, ROWS>(A, x, y, ws, G, M, N, s);
+  switch (tile) {
+    BLAS2_TILES(ATAX_CASE)
+    ATAX_RING_TILES(ATAX_RING_CASE)
+    default: break;
+  }
 #undef ATAX_CASE
+#undef ATAX_RING_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -527,6 +812,13 @@ int repro_blas2_attrs(int kind, int tile, int dtype, int* regs, int* smem,
     return dtype == 0                                                       \
         ? kernel_attrs(atax_kernel<float, THREADS, ROWS>, regs, smem, max_threads) \
         : kernel_attrs(atax_kernel<bf16, THREADS, ROWS>, regs, smem, max_threads);
+#define ATAX_RING_ATTR(i, THREADS, ROWS)                                    \
+  case i:                                                                   \
+    return dtype == 0                                                       \
+        ? kernel_attrs(atax_ring_kernel<float, THREADS, ROWS>, regs, smem,  \
+                       max_threads)                                         \
+        : kernel_attrs(atax_ring_kernel<bf16, THREADS, ROWS>, regs, smem,   \
+                       max_threads);
 #define BICG_ATTR(i, THREADS, ROWS)                                         \
   case i:                                                                   \
     return dtype == 0                                                       \
@@ -535,18 +827,24 @@ int repro_blas2_attrs(int kind, int tile, int dtype, int* regs, int* smem,
   if (kind == KIND_MATVEC) {
     switch (tile) { MATVEC_TILES(MV_ATTR) default: break; }
   } else if (kind == KIND_ATAX) {
-    switch (tile) { BLAS2_TILES(ATAX_ATTR) default: break; }
+    switch (tile) {
+      BLAS2_TILES(ATAX_ATTR)
+      ATAX_RING_TILES(ATAX_RING_ATTR)
+      default: break;
+    }
   } else if (kind == KIND_BICG) {
     switch (tile) { BLAS2_TILES(BICG_ATTR) default: break; }
   }
 #undef MV_ATTR
 #undef ATAX_ATTR
+#undef ATAX_RING_ATTR
 #undef BICG_ATTR
   return (int)cudaErrorInvalidValue;
 }
 
 // matvec: out[0] = ROWS, out[1] = WPR; atax/BiCG: out[0] = THREADS,
-// out[1] = ROWS; out[5] = threads.
+// out[1] = ROWS, and atax's out[2] = family (0 for the sweep rows);
+// out[5] = threads.
 int repro_blas2_tile_info(int kind, int tile, int* out) {
 #define MV_INFO(i, ROWS, WPR)                                               \
   case i: out[0] = ROWS; out[1] = WPR; out[2] = out[3] = out[4] = 0;        \
@@ -554,13 +852,23 @@ int repro_blas2_tile_info(int kind, int tile, int* out) {
 #define B2_INFO(i, THREADS, ROWS)                                           \
   case i: out[0] = THREADS; out[1] = ROWS; out[2] = out[3] = out[4] = 0;    \
     out[5] = THREADS; return 0;
+#define RING_INFO(i, THREADS, ROWS)                                         \
+  case i: out[0] = THREADS; out[1] = ROWS; out[2] = ATAX_RING;              \
+    out[3] = out[4] = 0; out[5] = THREADS; return 0;
   if (kind == KIND_MATVEC) {
     switch (tile) { MATVEC_TILES(MV_INFO) default: break; }
-  } else if (kind == KIND_ATAX || kind == KIND_BICG) {
+  } else if (kind == KIND_ATAX) {
+    switch (tile) {
+      BLAS2_TILES(B2_INFO)
+      ATAX_RING_TILES(RING_INFO)
+      default: break;
+    }
+  } else if (kind == KIND_BICG) {
     switch (tile) { BLAS2_TILES(B2_INFO) default: break; }
   }
 #undef MV_INFO
 #undef B2_INFO
+#undef RING_INFO
   return -1;
 }
 

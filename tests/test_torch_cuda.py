@@ -11,6 +11,7 @@ TF32 is switched off so the plain float32 products stay IEEE f32.
 """
 import ctypes
 import importlib
+import re
 import sys
 
 import numpy as np
@@ -19,7 +20,9 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import _cuda, api, ops
-from repro_torch.kernels.atax import BLAS2_TILES, atax_cuda, atax_plain
+from repro_torch.kernels.atax import (ATAX_TILES, BLAS2_TILES, atax_cuda,
+                                      atax_plain, ring_refusal)
+from repro_torch.kernels.atax import RING as ATAX_RING
 from repro_torch.kernels.bicg import bicg_cuda, bicg_plain
 from repro_torch.kernels.flash_attention import (BLOCKED_TILES, FLASH_TILES,
                                                  MMA, TC, TF32,
@@ -74,7 +77,7 @@ def _close(got, want, dtype, f32=2e-4):
 @pytest.mark.parametrize("kind,table", [
     (0, GEMM_TILES), (1, GATED_TILES), (2, STREAM_TILES), (3, RMS_TILES),
     (4, FLASH_TILES), (5, BLOCKED_TILES), (6, MATVEC_TILES),
-    (7, BLAS2_TILES), (8, BLAS2_TILES), (9, JACOBI_TILES)])
+    (7, ATAX_TILES), (8, BLAS2_TILES), (9, JACOBI_TILES)])
 def test_tile_tables_match_the_library(cuda, kind, table):
     """The Python tile tables name the C side's instantiations in order
     (the GEMM, gated and stream tables with their family, stages and
@@ -88,8 +91,8 @@ def test_tile_tables_match_the_library(cuda, kind, table):
         slots = {0: (0, 1, 2, 3, 4, 6, 7, 8), 1: (0, 1, 2, 3, 4, 6, 7, 8),
                  2: (0, 1, 2, 3, 4, 6, 7, 8),
                  3: (0, 5, 1, 2, 3), 4: (0, 1, 5, 6), 5: (0, 5, 6),
-                 6: (0, 1), 7: (0, 1), 8: (0, 1)}.get(kind,
-                                                      (0, 1, 2, 3, 4))
+                 6: (0, 1), 7: (0, 1, 2), 8: (0, 1)}.get(kind,
+                                                         (0, 1, 2, 3, 4))
         assert tuple(out[j] for j in slots) == tuple(fields), (kind, i)
     threads = {SIMT: None, GEMV: 256, WGMMA: 384}
     if kind in (0, 1, 2):
@@ -551,6 +554,91 @@ def test_atax_kernel(cuda, dtype, tile, m, n):
     got = atax_cuda(a, x, tile=tile)
     torch.cuda.synchronize()
     _close(got, atax_plain(a, x), dtype, f32=1e-3)
+
+
+ATAX_RING_ROWS = [t for t, f in ATAX_TILES.items() if f[2] == ATAX_RING]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tile", ATAX_RING_ROWS)
+@pytest.mark.parametrize("m,n", BLAS2_SHAPES + [(1001, 8192), (3, 4096)])
+def test_atax_ring_rows_against_plain(cuda, dtype, tile, m, n):
+    """Every ring row at BLAS2_SHAPES, a ragged M against every ROWS at
+    a wide N (8192 columns) and fewer stripes than SMs: within tolerance
+    of the plain version, and a second call gives the same bits.  A
+    width the row cannot take (N not a whole number of 16-byte vectors,
+    more vectors than the row's threads hold, a ring over 227 KB) is
+    refused with ValueError before any launch."""
+    a = _rand((m, n), dtype, cuda, 55, scale=n ** -0.5)
+    x = _rand((n, 1), dtype, cuda, 56)
+    why = ring_refusal(tile, str(dtype).rpartition(".")[2], n)
+    if why is not None:
+        with pytest.raises(ValueError, match=re.escape(why)):
+            atax_cuda(a, x, tile=tile)
+        return
+    got = atax_cuda(a, x, tile=tile)
+    again = atax_cuda(a, x, tile=tile)
+    torch.cuda.synchronize()
+    _close(got, atax_plain(a, x), dtype, f32=1e-3)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tile", ATAX_RING_ROWS)
+def test_atax_ring_rows_refuse_misaligned_operands(cuda, dtype, tile):
+    """An A or x off a 16-byte boundary is refused with ValueError: the
+    bulk copies and x's vector loads need the alignment."""
+    m, n = 40, 512
+    a = _rand((m, n), dtype, cuda, 57)
+    x = _rand((n, 1), dtype, cuda, 58)
+    off_a = _rand((m * n + 1,), dtype, cuda, 57)[1:].view(m, n)
+    off_x = _rand((n + 1,), dtype, cuda, 58)[1:].view(n, 1)
+    for args in ((off_a, x), (a, off_x)):
+        with pytest.raises(ValueError, match="16-byte-aligned"):
+            atax_cuda(*args, tile=tile)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dispatched_atax_on_a_misaligned_x_launches_the_sweep_pick(
+        cuda, dtype):
+    """Dispatch picks a tile from the shape and type alone; handed a ring
+    row and an x off a 16-byte boundary, the op launches the sweep row
+    the ranking puts first (`sweep_pick`) and agrees with the plain
+    version, where `atax_cuda` with the ring tile refuses the call."""
+    from repro_torch.kernels.atax import sweep_pick
+    m, n = 256, 512
+    a = _rand((m, n), dtype, cuda, 59, scale=n ** -0.5)
+    off_x = _rand((n + 1,), dtype, cuda, 60)[1:].view(n, 1)
+    name = str(dtype).rpartition(".")[2]
+    ring = [t for t in ATAX_RING_ROWS if ring_refusal(t, name, n) is None]
+    assert ATAX_TILES[sweep_pick(m, n, name)][2] != ATAX_RING
+    before = kernels.launch_counts()
+    got = ops.atax(a, off_x, tuned_params={"tile": ring[0]})
+    after = kernels.launch_counts()
+    torch.cuda.synchronize()
+    _close(got, atax_plain(a, off_x), dtype, f32=1e-3)
+    assert after["atax_sweep"] == before["atax_sweep"] + 1
+    assert after["atax_ring"] == before["atax_ring"]
+    _close(ops.atax(a, off_x), atax_plain(a, off_x), dtype, f32=1e-3)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        atax_cuda(a, off_x, tile=ring[0])
+
+
+def test_atax_ring_declared_registers_are_the_compiled_counts(cuda):
+    """kernels/atax.py's `_RING_REGS` (what the H100 analysis declares)
+    against the compiled ring instantiations, both types."""
+    from repro_torch.kernels import atax
+    lib = _cuda.library()
+    regs, smem, thr = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    for i, tile in enumerate(ATAX_TILES):
+        if tile not in ATAX_RING_ROWS:
+            continue
+        for dt in (0, 1):
+            assert lib.repro_kernel_attrs(atax.KIND, i, dt,
+                                          ctypes.byref(regs),
+                                          ctypes.byref(smem),
+                                          ctypes.byref(thr)) == 0
+            assert regs.value == atax._RING_REGS[tile][dt], (tile, dt)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -141,15 +141,14 @@ def test_the_split_variant_and_mega_rank_the_same_rows():
 # jacobi3d table gained TMA ring rows, which take 256^3 by design (the
 # plane rows' own ranking is tests/test_torch_jacobi.py's), and so did
 # the stencil2d table, whose ring rows take every grid here (the march
-# rows' picks are tests/test_torch_stencil.py's).
+# rows' picks are tests/test_torch_stencil.py's), and atax's, whose
+# ring rows read A once and take its three instances here by design
+# (moved to tests/test_torch_atax.py with their new picks).
 PICKS_BEFORE = [
     ("matvec", dict(m=8192, n=8192, dtype="float32"), None, "r2w1"),
     ("matvec", dict(m=8192, n=8192, dtype="bfloat16"), None, "r1w1"),
-    ("atax", dict(m=8192, n=8192, dtype="float32"), None, "t512r2"),
-    ("atax", dict(m=8192, n=8192, dtype="bfloat16"), None, "t512r2"),
     ("bicg", dict(m=8192, n=8192, dtype="float32"), None, "t512r2"),
     ("bicg", dict(m=8192, n=8192, dtype="bfloat16"), None, "t512r2"),
-    ("atax", dict(m=1024, n=512, dtype="float32"), None, "t128r1"),
     ("jacobi3d", dict(z=256, y=256, x=256, dtype="float32"), None,
      "ring_x128y8z32s6"),
     ("stencil2d", dict(y=512, x=512, dtype="float32"), None,

@@ -1984,6 +1984,14 @@ _Z11atax_kernelIfLi32ELi1EEvPKT_S2_Pfiii
 _Z11atax_kernelIfLi512ELi1EEvPKT_S2_Pfiii
 _Z11atax_kernelIfLi512ELi2EEvPKT_S2_Pfiii
 _Z11atax_kernelIfLi64ELi1EEvPKT_S2_Pfiii
+_Z16atax_ring_kernelI13__nv_bfloat16Li1024ELi1EEvPKT_S3_Pfiii
+_Z16atax_ring_kernelI13__nv_bfloat16Li1024ELi2EEvPKT_S3_Pfiii
+_Z16atax_ring_kernelI13__nv_bfloat16Li512ELi1EEvPKT_S3_Pfiii
+_Z16atax_ring_kernelI13__nv_bfloat16Li512ELi2EEvPKT_S3_Pfiii
+_Z16atax_ring_kernelIfLi1024ELi1EEvPKT_S2_Pfiii
+_Z16atax_ring_kernelIfLi1024ELi2EEvPKT_S2_Pfiii
+_Z16atax_ring_kernelIfLi512ELi1EEvPKT_S2_Pfiii
+_Z16atax_ring_kernelIfLi512ELi2EEvPKT_S2_Pfiii
 _Z11bicg_kernelI13__nv_bfloat16Li1024ELi1EEvPKT_S3_S3_PS1_Pfiii
 _Z11bicg_kernelI13__nv_bfloat16Li128ELi1EEvPKT_S3_S3_PS1_Pfiii
 _Z11bicg_kernelI13__nv_bfloat16Li128ELi4EEvPKT_S3_S3_PS1_Pfiii
