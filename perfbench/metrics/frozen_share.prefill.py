@@ -1,0 +1,2 @@
+"""`perfbench.readers.frozen_share`, in the prefill cells."""
+from perfbench.readers import frozen_share as read  # noqa: F401
