@@ -66,6 +66,7 @@ from repro_torch.distributed.sharding import (ACT_RULES, CACHE_RULES, Lay,
 from repro_torch.models.layers import tuned_layers_enabled
 from repro_torch.models.params import tree_leaves
 from repro_torch.optim import adamw
+from repro_torch.runtime.spans import span
 
 if TYPE_CHECKING:
     from repro_torch.models.model import Model
@@ -290,15 +291,17 @@ def make_serve_fns(model: "Model", mesh=None,
     out = whole if whole_logits else (lambda x: x)
 
     def prefill(params, batch):
-        logits, cache = model.prefill(_local_params(params),
-                                      place_batch(batch, shd), shd)
-        return out(logits), cache
+        with span("serve.prefill", batch.get("tokens")):
+            logits, cache = model.prefill(_local_params(params),
+                                          place_batch(batch, shd), shd)
+            return out(logits), cache
 
     def decode_step(params, cache, token):
-        token = place_batch({"token": token}, shd)["token"]
-        logits, cache = model.decode_step(
-            _local_params(params), {k: _local(v) for k, v in cache.items()},
-            token, shd)
-        return out(logits), cache
+        with span("serve.decode", token):
+            token = place_batch({"token": token}, shd)["token"]
+            logits, cache = model.decode_step(
+                _local_params(params),
+                {k: _local(v) for k, v in cache.items()}, token, shd)
+            return out(logits), cache
 
     return prefill, decode_step

@@ -50,6 +50,7 @@ import hashlib
 import inspect
 import logging
 import threading
+import time
 from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
                     Tuple, Union)
 
@@ -76,6 +77,7 @@ from repro_torch.kernels.variants import (JointBatchInfo, KernelVariant,
                                           joint_static_info,
                                           joint_static_info_batch,
                                           variants_fingerprint)
+from repro_torch.runtime import spans
 from repro_torch.tuning_cache.binder import (SigBinder, compile_binder,
                                              schema_of)
 
@@ -961,7 +963,9 @@ class KernelSpec:
         active target on every call (the frozen tables first, after
         ``freeze()``); ``tuned_params`` injects params explicitly,
         bypassing the database.  If dispatch fails the fallback launch
-        applies.
+        applies.  While spans record (`repro_torch.runtime.spans`) each
+        call is the host span ``kernels.<kernel_id>``, and its dispatch
+        time, from inside that span to the launch, is counted.
         """
         if self._op is None:
             kernel_id = self.kernel_id
@@ -970,17 +974,20 @@ class KernelSpec:
             # (frozen state, probe) pair published as ONE tuple, checked
             # against registry._FROZEN by identity on every call
             cache = [(None, None)]
+            span_name = "kernels." + kernel_id
 
-            def op(*args, tuned_params: Optional[Dict] = None, **kw):
+            def pick(args, kw, tuned_params):
+                """(fn, launch kwargs) for this call; (None, outputs)
+                where a collector takes it."""
                 sig = self.extract_signature(*args, **kw)
                 col = _COLLECT.get()
                 if col is not None:
                     stats.collected += 1
-                    return col.record(self, sig, args, kw)
+                    return None, col.record(self, sig, args, kw)
                 if tuned_params is not None:
                     stats.explicit += 1
                     fn, launch, _ = self._launch(tuned_params, sig)
-                    return fn(*args, **launch, **kw)
+                    return fn, launch
                 fz = registry._FROZEN
                 state, probe = cache[0]
                 if state is not fz:
@@ -1003,7 +1010,19 @@ class KernelSpec:
                     stats.frozen += 1
                 else:
                     stats.live += 1
-                return fn(*args, **launch, **kw)
+                return fn, launch
+
+            def op(*args, tuned_params: Optional[Dict] = None, **kw):
+                if not spans.active():
+                    fn, launch = pick(args, kw, tuned_params)
+                    return launch if fn is None else fn(*args, **launch, **kw)
+                with spans.span(span_name):
+                    t0 = time.perf_counter_ns()
+                    fn, launch = pick(args, kw, tuned_params)
+                    if fn is None:
+                        return launch
+                    spans.count_dispatch(time.perf_counter_ns() - t0)
+                    return fn(*args, **launch, **kw)
 
             op.__name__ = self.kernel_id
             op.__qualname__ = self.kernel_id

@@ -20,10 +20,14 @@ JSONL on top (a ``pretune --config`` export covers every instance, so
 serving ranks nothing), and ``--tuning-server URL`` sends cold
 dispatches to a tuning service (``python -m repro_torch.tuning_cache
 serve``), degrading to local ranks when it is unreachable.
+``--trace PATH`` records the prefill's and the decode steps' spans
+(`repro_torch.runtime.spans`), prints them by name and writes the
+record and its summary to PATH as JSON.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -109,12 +113,38 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="exit non-zero unless every registry dispatch "
                          "hit the frozen tables and the database saw "
                          "zero runtime tunes")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record the serving spans (by model layer and "
+                         "kernel op, host and device ms), print them by "
+                         "name and write the record and its summary to "
+                         "PATH as JSON")
     return ap.parse_args(argv)
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _write_trace(path: str) -> None:
+    """One line a span name, then the record and its summary to
+    ``path``."""
+    from repro_torch.runtime import spans
+    summ = spans.summary()
+    fmt = lambda v: "-" if v is None else f"{v:.3f}"
+    print(f"[serve] spans ({summ['device']}): count, host ms, self host "
+          f"ms, device ms, self device ms")
+    for name, e in summ["spans"].items():
+        print(f"[serve]   {name} {e['count']} {e['host_ms']:.3f} "
+              f"{e['host_self_ms']:.3f} {fmt(e['device_ms'])} "
+              f"{fmt(e['device_self_ms'])}")
+    d = summ["dispatch"]
+    if d["calls"]:
+        print(f"[serve] dispatch: {d['calls']} registry calls, "
+              f"{d['ns'] / d['calls'] / 1e3:.2f} us a call")
+    with open(path, "w") as f:
+        json.dump({"summary": summ, "records": spans.records()}, f)
+    print(f"[serve] trace written to {path}")
 
 
 def main(argv: Optional[Sequence[str]] = None, *,
@@ -132,6 +162,7 @@ def main(argv: Optional[Sequence[str]] = None, *,
     from repro_torch.kernels import api as kernel_api
     from repro_torch.models import build_model, resolve_device
     from repro_torch.models.layers import set_tuned_layers
+    from repro_torch.runtime import spans
 
     device = resolve_device(args.device)
     # the default database warms the target's shipped pretuned records;
@@ -188,6 +219,9 @@ def main(argv: Optional[Sequence[str]] = None, *,
             (args.batch, cfg.enc_seq, cfg.d_model), generator=gen,
             device=device).to(torch.bfloat16)
 
+    if args.trace:
+        spans.reset()
+        spans.enable()
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
@@ -214,6 +248,9 @@ def main(argv: Optional[Sequence[str]] = None, *,
         _sync(device)
         dt = (time.perf_counter() - t0) / max(args.gen, 1)
         finite = finite and bool(torch.isfinite(logits).all())
+    if args.trace:
+        spans.disable()
+        _write_trace(args.trace)
     toks = torch.cat(out_tokens, dim=1).cpu()
     print(f"[serve] decode: {dt * 1e3:.1f} ms/token "
           f"({args.batch} sequences x {args.gen} tokens)")

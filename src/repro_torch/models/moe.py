@@ -37,6 +37,7 @@ from repro_torch.distributed.sharding import (Sharder, cast, gshape, like,
                                               shard_map, shard_range)
 from repro_torch.models.layers import _ACTS, init_mlp, mlp
 from repro_torch.models.params import param
+from repro_torch.runtime.spans import span
 
 __all__ = ["init_moe", "moe_layer", "moe_capacity"]
 
@@ -212,16 +213,18 @@ def _router(x, router, *, top_k: int, router_dtype, tokens: int):
     routed rows per expert) — the last two summands of the Switch aux
     loss's terms."""
     e = router.shape[-1]
-    logits = torch.einsum("bsd,de->bse", x.to(router_dtype),
-                          router.to(router_dtype))
-    probs = torch.softmax(logits, dim=-1)                     # (B, S, E)
-    top_p, top_i = _top_k(probs, top_k)                       # (B, S, k)
-    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
-    me = probs.reshape(-1, e).sum(dim=0)
-    n = top_i.numel()
-    ce = torch.zeros(e, dtype=router_dtype, device=x.device)
-    ce.scatter_add_(0, top_i.reshape(-1), torch.full(
-        (n,), 1.0 / (tokens * top_k), dtype=router_dtype, device=x.device))
+    with span("model.moe.route", x):
+        logits = torch.einsum("bsd,de->bse", x.to(router_dtype),
+                              router.to(router_dtype))
+        probs = torch.softmax(logits, dim=-1)                 # (B, S, E)
+        top_p, top_i = _top_k(probs, top_k)                   # (B, S, k)
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+        me = probs.reshape(-1, e).sum(dim=0)
+        n = top_i.numel()
+        ce = torch.zeros(e, dtype=router_dtype, device=x.device)
+        ce.scatter_add_(0, top_i.reshape(-1), torch.full(
+            (n,), 1.0 / (tokens * top_k), dtype=router_dtype,
+            device=x.device))
     return top_p, top_i, me, ce
 
 
@@ -234,21 +237,27 @@ def _dispatch(x, top_p, top_i, wg, wu, wd, *, n_experts: int, cap: int,
     b, s, d = x.shape
     wg, wu, wd = wg.to(x.dtype), wu.to(x.dtype), wd.to(x.dtype)
     if grouped:
-        groups = [_scatter(x[g], top_i[g].reshape(-1), n_experts, cap, er)
-                  for g in range(b)]
-        out = _experts(torch.stack([g[0] for g in groups]), wg, wu, wd,
-                       act, "ge")
+        with span("model.moe.dispatch", x):
+            groups = [_scatter(x[g], top_i[g].reshape(-1), n_experts, cap,
+                               er) for g in range(b)]
+            buf = torch.stack([g[0] for g in groups])
+        with span("model.moe.experts", x):
+            out = _experts(buf, wg, wu, wd, act, "ge")
         rows = out.shape[1] * cap
-        return torch.stack([
-            _combine(out[g].reshape(rows, d), slot, mine, top_p[g], rows)
-            for g, (_, slot, mine) in enumerate(groups)])
+        with span("model.moe.combine", x):
+            return torch.stack([
+                _combine(out[g].reshape(rows, d), slot, mine, top_p[g], rows)
+                for g, (_, slot, mine) in enumerate(groups)])
     t = b * s
-    buf, slot, mine = _scatter(x.reshape(t, d), top_i.reshape(-1),
-                               n_experts, cap, er, cr)
-    out = _experts(buf, wg, wu, wd, act, "e")
+    with span("model.moe.dispatch", x):
+        buf, slot, mine = _scatter(x.reshape(t, d), top_i.reshape(-1),
+                                   n_experts, cap, er, cr)
+    with span("model.moe.experts", x):
+        out = _experts(buf, wg, wu, wd, act, "e")
     rows = buf.shape[0] * buf.shape[1]
-    return _combine(out.reshape(rows, d), slot, mine,
-                    top_p.reshape(t, -1), rows).reshape(b, s, d)
+    with span("model.moe.combine", x):
+        return _combine(out.reshape(rows, d), slot, mine,
+                        top_p.reshape(t, -1), rows).reshape(b, s, d)
 
 
 def _layouts(shd: Sharder, x, e_pad: int, cap: int, f: int,
@@ -347,6 +356,8 @@ def moe_layer(p: Dict, x: torch.Tensor, *, n_experts: int, top_k: int,
         y = shd.act(y, ("batch", "residual_seq", "embed"))
     aux = e * torch.sum((me / t) * ce)
     if "shared" in p:
-        y = like(y + mlp(p["shared"], x, act, shd), y)
+        with span("model.moe.shared", x):
+            ys = mlp(p["shared"], x, act, shd)
+        y = like(y + ys, y)
 
     return shd.act(y, ("batch", "residual_seq", "embed")), aux.float()

@@ -37,6 +37,7 @@ from repro_torch.models.moe import init_moe, moe_layer
 from repro_torch.models.params import Param, param, resolve_device
 from repro_torch.models.ssd import (SsdConfig, init_ssd, ssd_block,
                                     ssd_decode)
+from repro_torch.runtime.spans import span
 
 __all__ = ["attn_config", "ssd_config", "init_lm", "lm_logits", "lm_loss",
            "lm_prefill", "lm_decode_step", "init_lm_cache", "hybrid_windows",
@@ -195,11 +196,12 @@ def _block_apply(blk: Dict, h: torch.Tensor, cfg: ModelConfig,
         else:
             y = ssd_block(blk["ssd"], x, ssd_config(cfg), shd)
         return like(h + y, h), aux, (kv, sstate)
-    if collect_kv:
-        a, kv = attention(blk["attn"], x, acfg, shd, return_kv=True,
-                          window_override=window)
-    else:
-        a = attention(blk["attn"], x, acfg, shd, window_override=window)
+    with span("model.attention", x):
+        if collect_kv:
+            a, kv = attention(blk["attn"], x, acfg, shd, return_kv=True,
+                              window_override=window)
+        else:
+            a = attention(blk["attn"], x, acfg, shd, window_override=window)
     if fam == "hybrid":
         if collect_kv:
             m, sstate = ssd_block(blk["ssd"], x, ssd_config(cfg), shd,
@@ -213,7 +215,8 @@ def _block_apply(blk: Dict, h: torch.Tensor, cfg: ModelConfig,
     if moe:
         y, aux = _moe(blk, x2, cfg, shd)
     else:
-        y = mlp(blk["mlp"], x2, cfg.act, shd)
+        with span("model.mlp", x2):
+            y = mlp(blk["mlp"], x2, cfg.act, shd)
     return like(h + y, h), aux, (kv, sstate)
 
 
@@ -256,11 +259,13 @@ def _run_blocks(blocks: Dict, h: torch.Tensor, windows: List[int],
     states stacked (L, ...), each None where the family has none.
     Under autograd each layer is rematerialised (`remat`)."""
     ks, vs, ssm, conv = [], [], [], []
-    for blk, win in zip(_unstack(blocks, len(windows)), windows):
+    for i, (blk, win) in enumerate(zip(_unstack(blocks, len(windows)),
+                                       windows)):
         def layer(hh, blk=blk, win=win):
             return _block_apply(blk, hh, cfg, shd, collect_kv, window=win,
                                 moe=moe)
-        h, aux, (kv, st) = remat(layer, cfg)(h)
+        with span("model.block", h, layer=i):
+            h, aux, (kv, st) = remat(layer, cfg)(h)
         if aux is not None:
             aux_total = aux_total + aux
         if kv is not None:
@@ -391,8 +396,11 @@ def lm_logits(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     """Forward pass.  tokens: (B, S) -> (logits (B, S, V), aux loss)
     [, (prefix (kvs, states), main (kvs, states)) when ``collect_kv``]."""
     dtype = getattr(torch, cfg.dtype)
-    h = (like(inputs_embeds.to(dtype), inputs_embeds)
-         if inputs_embeds is not None else _embed(params, tokens, shd, dtype))
+    if inputs_embeds is not None:
+        h = like(inputs_embeds.to(dtype), inputs_embeds)
+    else:
+        with span("model.embed", tokens):
+            h = _embed(params, tokens, shd, dtype)
     s = gshape(h)[1]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     pre = None
@@ -403,7 +411,8 @@ def lm_logits(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     h, aux, main = _run_blocks(params["blocks"], h,
                                hybrid_windows(cfg, s, _n_main(cfg)), cfg,
                                shd, cfg.family == "moe", aux, collect_kv)
-    logits = shd.act(_head(params, h), ("batch", "seq", "vocab"))
+    with span("model.head", h):
+        logits = shd.act(_head(params, h), ("batch", "seq", "vocab"))
     if collect_kv:
         return logits, aux, (pre, main)
     return logits, aux
@@ -572,9 +581,10 @@ def _block_decode(blk: Dict, h: torch.Tensor, win: int, ck, cv, sstate,
     if fam == "ssm":
         y, sstate = ssd_decode(blk["ssd"], x, sstate, ssd_config(cfg), shd)
         return like(h + y, h), sstate
-    a, _ = attention_decode(blk["attn"], x, ck, cv, pos, attn_config(cfg),
-                            shd, window_override=win,
-                            rolling=(fam == "hybrid"))
+    with span("model.attention_decode", x):
+        a, _ = attention_decode(blk["attn"], x, ck, cv, pos,
+                                attn_config(cfg), shd, window_override=win,
+                                rolling=(fam == "hybrid"))
     a = settle(a)
     if fam == "hybrid":
         m, sstate = ssd_decode(blk["ssd"], x, sstate, ssd_config(cfg), shd)
@@ -582,8 +592,11 @@ def _block_decode(blk: Dict, h: torch.Tensor, win: int, ck, cv, sstate,
     else:
         h = like(h + a, h)
     x2 = rms_norm(h, blk["ln2"])
-    y = _moe(blk, x2, cfg, shd)[0] if moe else mlp(blk["mlp"], x2,
-                                                     cfg.act, shd)
+    if moe:
+        y = _moe(blk, x2, cfg, shd)[0]
+    else:
+        with span("model.mlp", x2):
+            y = mlp(blk["mlp"], x2, cfg.act, shd)
     return like(h + y, h), sstate
 
 
@@ -597,8 +610,9 @@ def _decode_stack(blocks: Dict, h: torch.Tensor, windows: List[int],
                                        windows)):
         sstate = ({"ssm": layer(cache["ssm"], i),
                    "conv": layer(cache["conv"], i)} if states else None)
-        h, sstate = _block_decode(blk, h, win, layer(k, i), layer(v, i),
-                                  sstate, pos, cfg, shd, moe)
+        with span("model.block", h, layer=i):
+            h, sstate = _block_decode(blk, h, win, layer(k, i),
+                                      layer(v, i), sstate, pos, cfg, shd, moe)
         if states:
             for name in ("ssm", "conv"):
                 t = cache[name]
@@ -615,7 +629,8 @@ def lm_decode_step(params: Dict, cache: Dict, token: torch.Tensor,
     The cache's K/V and SSM tensors are updated in place; the returned
     dict carries the advanced position."""
     pos = cache["pos"]
-    h = _embed(params, token, shd, getattr(torch, cfg.dtype))
+    with span("model.embed", token):
+        h = _embed(params, token, shd, getattr(torch, cfg.dtype))
     # The reference's decode scan hands every attention layer the window
     # "full = S_cache" as a traced value, which attention_decode applies
     # as a sliding window ((pos - slot) < S_cache): once pos reaches the
@@ -629,7 +644,9 @@ def lm_decode_step(params: Dict, cache: Dict, token: torch.Tensor,
                       hybrid_windows(cfg, sc, _n_main(cfg)), cache, "k",
                       "v", pos, cfg, shd, moe=(cfg.family == "moe"),
                       states="ssm" in cache)
-    return _head(params, h), {**cache, "pos": pos + 1}
+    with span("model.head", h):
+        logits = _head(params, h)
+    return logits, {**cache, "pos": pos + 1}
 
 
 def lm_prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -650,17 +667,19 @@ def lm_prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     sc = _cache_len(cfg, max(s, max_len or 0))
 
     def fill_kv(kvs, kname, vname):
-        for name, x in ((kname, kvs[0]), (vname, kvs[1])):
-            x = cast(x, dtype)
-            if sc > s:
-                # zeros past the prompt (the cache's sequence is whole)
-                x = like(torch.nn.functional.pad(
-                    x, (0, 0, 0, 0, 0, sc - s)), x)
-            elif sc < s:
-                # capped ring cache: position p lives at slot p % sc; the
-                # last sc positions land at roll(linear tail, s % sc)
-                x = like(torch.roll(x[:, :, -sc:], s % sc, dims=2), x)
-            cache[name] = x
+        with span("model.fill_cache", kvs[0]):
+            for name, x in ((kname, kvs[0]), (vname, kvs[1])):
+                x = cast(x, dtype)
+                if sc > s:
+                    # zeros past the prompt (the cache's sequence is whole)
+                    x = like(torch.nn.functional.pad(
+                        x, (0, 0, 0, 0, 0, sc - s)), x)
+                elif sc < s:
+                    # capped ring cache: position p lives at slot p % sc;
+                    # the last sc positions land at roll(linear tail,
+                    # s % sc)
+                    x = like(torch.roll(x[:, :, -sc:], s % sc, dims=2), x)
+                cache[name] = x
 
     kvs, states = main
     if kvs is not None:
